@@ -1,0 +1,135 @@
+"""The CUDA kernels held against their plain PyTorch versions on the card.
+
+Every test here carries the ``gpu`` marker and skips without a card; on the
+card run ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
+The file imports no JAX, so it runs where only the port is installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import mf
+from repro_torch.core.ranks import effective_ranks
+from repro_torch.kernels import ops, pruned_matmul, pruned_topk, ref
+from repro_torch.serving import ServingEngine
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: pytest -m gpu)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _normal(rng, shape, dev, scale=0.1):
+    return torch.tensor(rng.normal(0, scale, shape).astype(np.float32), device=dev)
+
+
+def _grid(rng, shape, dev):
+    return torch.tensor((rng.integers(-16, 17, shape) / 8.0).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("m,n,k", [(100, 77, 40), (257, 300, 129), (1, 1000, 128), (64, 5000, 128)])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("t", [0.0, 0.06])
+def test_pruned_matmul_kernel_matches_plain(cuda, m, n, k, dtype, out_dtype, t):
+    rng = np.random.default_rng(0)
+    p, q = _normal(rng, (m, k), cuda).to(dtype), _normal(rng, (n, k), cuda).to(dtype)
+    r_u, r_i = effective_ranks(p, t), effective_ranks(q, t)
+    before = pruned_matmul.launches
+    got = pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i, out_dtype=out_dtype)
+    want = pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert pruned_matmul.launches == before + 1
+    assert got.dtype == out_dtype
+    tol = 1e-5 if (dtype, out_dtype) == (torch.float32, torch.float32) else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,n,k,t,topk", [
+    (40, 700, 24, 0.0, 9), (40, 700, 24, 0.05, 700), (3, 50, 8, 0.0, 50),
+    (300, 20000, 128, 0.05, 100), (1, 3000, 64, 0.02, 1024)])
+def test_pruned_topk_kernel_matches_oracle(cuda, m, n, k, t, topk):
+    rng = np.random.default_rng(1)
+    p, q = _normal(rng, (m, k), cuda), _normal(rng, (n, k), cuda)
+    bias = _normal(rng, (n,), cuda, scale=0.3)
+    r_u, r_i = effective_ranks(p, t), effective_ranks(q, t)
+    before = pruned_topk.launches
+    got_s, got_i = pruned_topk.pruned_topk_ranked(p, q, r_u, r_i, bias, topk)
+    want_s, want_i = ref.pruned_topk_ref(p, q, r_u, r_i, topk, item_bias=bias)
+    torch.cuda.synchronize()
+    assert pruned_topk.launches == before + 1
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
+    # indices agree except where two scores lie within the tolerance
+    differ = got_i != want_i
+    near = (got_s - want_s).abs() <= 1e-5 + 1e-5 * want_s.abs()
+    assert not torch.any(differ & ~near)
+
+
+@pytest.mark.parametrize("m,n,k,t_p,t_q,topk", [
+    (20, 80, 24, 1 / 8, 1 / 8, 17), (200, 3000, 24, 0.0, 0.0, 1024),
+    (200, 30000, 64, 1 / 16, 1 / 8, 100), (256, 200000, 128, 0.0, 0.0, 100)])
+def test_pruned_topk_kernel_grid_ties_bitwise(cuda, m, n, k, t_p, t_q, topk):
+    """1/8-grid factors with duplicated items: exact ties, exact scores."""
+    rng = np.random.default_rng(2)
+    p, q = _grid(rng, (m, k), cuda), _grid(rng, (n, k), cuda)
+    dst = torch.tensor(rng.integers(0, n, n // 2), device=cuda)
+    q[dst] = q[torch.tensor(rng.integers(0, n, n // 2), device=cuda)]
+    bias = _grid(rng, (n,), cuda)
+    got_s, got_i = ops.pruned_topk(p, q, t_p, t_q, topk, item_bias=bias)
+    want_s, want_i = ops.pruned_topk(p.cpu(), q.cpu(), t_p, t_q, topk,
+                                     item_bias=bias.cpu(), device="cpu", block_n=4096)
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_s.cpu(), want_s)
+
+
+def test_pruned_topk_ceiling_raises_on_cuda(cuda):
+    n = pruned_topk.TOPK_MAX + 10
+    p, q = torch.ones((2, 4), device=cuda), torch.ones((n, 4), device=cuda)
+    with pytest.raises(ValueError, match="ceiling"):
+        ops.pruned_topk(p, q, 0.0, 0.0, pruned_topk.TOPK_MAX + 1)
+
+
+def test_engine_on_cuda_matches_cpu_engine(cuda, monkeypatch):
+    """The CUDA engine goes through the kernel only, never the plain path,
+    and answers as the CPU engine does."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    params = mf.init_params(g, 300, 5000, 32, variant="bias", global_mean=3.0, device="cpu")
+    params = params._replace(item_bias=torch.randn((5000, 1), generator=g) * 0.2)
+    cpu = ServingEngine(params, 0.05, 0.05, device="cpu", max_batch=64)
+    users = np.arange(0, 300, 2)
+    want_s, want_i = cpu.topk(users, 20)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(pruned_topk, "pruned_topk_plain", no_plain)
+    monkeypatch.setattr("repro_torch.serving.engine.stream_topk_tiles", no_plain)
+    gpu = ServingEngine(params, 0.05, 0.05, device=cuda, max_batch=64)
+    before = pruned_topk.launches
+    got_s, got_i = gpu.topk(users, 20)
+    assert pruned_topk.launches == before + 3  # 150 users in 64-user chunks
+    near = np.abs(got_s - want_s) <= 1e-5 + 1e-5 * np.abs(want_s)
+    assert near.all() and ((got_i == want_i) | near).all()
+    futures = [gpu.submit(int(u), 20) for u in users[:16]]
+    for row, fut in enumerate(futures):
+        s, i = fut.result(timeout=60)
+        assert s.tobytes() == got_s[row].tobytes() and i.tobytes() == got_i[row].tobytes()
+    gpu.stop()
+
+
+def test_predict_all_items_on_cuda(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    params = mf.init_params(g, 50, 3000, 64, variant="bias", global_mean=3.0, device=cuda)
+    users = torch.arange(0, 50, 5, device=cuda)
+    before = pruned_matmul.launches
+    got = mf.predict_all_items(params, users, 0.05, 0.05)
+    assert pruned_matmul.launches == before + 1
+    cpu_params = mf.MFParams(*(None if v is None else v.cpu() for v in params))
+    want = mf.predict_all_items(cpu_params, users.cpu(), 0.05, 0.05, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -1,0 +1,207 @@
+"""The port's kernel modules held against the JAX reference on the same numpy
+inputs: the plain versions (what a CPU tensor runs) against the Pallas
+kernels in interpret mode, the reference's streaming path and its dense
+oracles.  The CUDA kernels themselves are held against these plain versions
+on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+import re
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core.ranks import effective_ranks as j_effective_ranks
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core.ranks import effective_ranks
+from repro_torch.device import check_on
+from repro_torch.kernels import ops, pruned_matmul, pruned_topk, ref
+
+CSRC = Path(pruned_topk.__file__).parent / "csrc"
+
+
+def _factors(m, n, k, seed=0, scale=0.1):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, scale, (m, k)).astype(np.float32),
+            rng.normal(0, scale, (n, k)).astype(np.float32))
+
+
+def _grid(rng, shape):
+    """f32 values on the 1/8 grid in [-2, 2]: every pruned dot is exact."""
+    return (rng.integers(-16, 17, shape) / 8.0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# pruned_matmul
+# ---------------------------------------------------------------------------
+
+MATMUL_SHAPES = [  # (m, n, k, bm, bn, bk) of the reference's own sweep
+    (100, 77, 40, 32, 32, 16),
+    (1, 300, 50, 8, 128, 64),
+    (16, 16, 8, 16, 16, 8),
+]
+
+
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", MATMUL_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [0.0, 0.06])
+def test_pruned_matmul_matches_reference(m, n, k, bm, bn, bk, dtype, t):
+    p, q = _factors(m, n, k)
+    jp, jq = jnp.asarray(p, dtype), jnp.asarray(q, dtype)
+    want_kernel = np.asarray(jops.pruned_matmul(
+        jp, jq, t, t, block_m=bm, block_n=bn, block_k=bk, interpret=True))
+    want_ref = np.asarray(jref.pruned_matmul_ref(
+        jp, jq, j_effective_ranks(jp, t), j_effective_ranks(jq, t)))
+    tp = torch.tensor(p).to(getattr(torch, dtype))
+    tq = torch.tensor(q).to(getattr(torch, dtype))
+    before = pruned_matmul.launches
+    got = ops.pruned_matmul(tp, tq, t, t, device="cpu").numpy()
+    assert pruned_matmul.launches == before  # CPU tensors never launch
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got, want_kernel, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, want_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_pruned_matmul_out_dtype(out_dtype):
+    p, q = _factors(9, 31, 12, seed=2)
+    tp, tq = torch.tensor(p), torch.tensor(q)
+    got = ops.pruned_matmul(tp, tq, 0.05, 0.05, out_dtype=out_dtype, device="cpu")
+    assert got.dtype == out_dtype
+    want = jref.pruned_matmul_ref(
+        jnp.asarray(p), jnp.asarray(q),
+        j_effective_ranks(jnp.asarray(p), 0.05), j_effective_ranks(jnp.asarray(q), 0.05),
+        out_dtype=jnp.bfloat16 if out_dtype == torch.bfloat16 else jnp.float32,
+    )
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=1e-2 if out_dtype == torch.bfloat16 else 1e-6,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# pruned_topk
+# ---------------------------------------------------------------------------
+
+
+def _reference_topk(p, q, t_p, t_q, topk, bias):
+    """(kernel, streaming, oracle) answers of the JAX package."""
+    jp, jq = jnp.asarray(p), jnp.asarray(q)
+    jb = None if bias is None else jnp.asarray(bias)
+    kernel = jops.pruned_topk(jp, jq, t_p, t_q, topk, item_bias=jb,
+                              use_kernel=True, interpret=True)
+    stream = jops.pruned_topk(jp, jq, t_p, t_q, topk, item_bias=jb,
+                              use_kernel=False, block_n=128)
+    oracle = jref.pruned_topk_ref(jp, jq, j_effective_ranks(jp, t_p),
+                                  j_effective_ranks(jq, t_q), topk, item_bias=jb)
+    return [(np.asarray(s), np.asarray(i)) for s, i in (kernel, stream, oracle)]
+
+
+def _port_topk(p, q, t_p, t_q, topk, bias, block_n=128):
+    tb = None if bias is None else torch.tensor(bias)
+    before = pruned_topk.launches
+    s, i = ops.pruned_topk(torch.tensor(p), torch.tensor(q), t_p, t_q, topk,
+                           item_bias=tb, block_n=block_n, device="cpu")
+    assert pruned_topk.launches == before
+    assert i.dtype == torch.int32
+    return s.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("t", [0.0, 0.05])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_pruned_topk_matches_reference(t, with_bias):
+    p, q = _factors(40, 700, 24, seed=1)
+    bias = (np.random.default_rng(3).normal(0, 0.3, (700,)).astype(np.float32)
+            if with_bias else None)
+    got_s, got_i = _port_topk(p, q, t, t, 9, bias)
+    for want_s, want_i in _reference_topk(p, q, t, t, 9, bias):
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
+
+
+def test_pruned_topk_topk_equals_n():
+    p, q = _factors(6, 50, 8, seed=4)
+    bias = np.random.default_rng(5).normal(0, 0.3, (50,)).astype(np.float32)
+    got_s, got_i = _port_topk(p, q, 0.05, 0.05, 50, bias, block_n=16)
+    for want_s, want_i in _reference_topk(p, q, 0.05, 0.05, 50, bias):
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
+    assert sorted(got_i[0].tolist()) == list(range(50))
+
+
+@pytest.mark.parametrize("seed,t_p,t_q", [(0, 0.0, 0.0), (1, 1 / 8, 1 / 16), (2, 3 / 8, 1 / 8)])
+def test_pruned_topk_grid_ties_bitwise(seed, t_p, t_q):
+    """1/8-grid factors with duplicated item rows: exact score ties, so the
+    indices pin the tie order (lower item index first), and scores match
+    bitwise.  The harsher thresholds give ragged ranks, many of them 0."""
+    rng = np.random.default_rng(seed)
+    p, q = _grid(rng, (12, 24)), _grid(rng, (90, 24))
+    q[rng.integers(0, 90, 45)] = q[rng.integers(0, 90, 45)]
+    bias = _grid(rng, (90,))
+    got_s, got_i = _port_topk(p, q, t_p, t_q, 20, bias, block_n=32)
+    for want_s, want_i in _reference_topk(p, q, t_p, t_q, 20, bias):
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_s, want_s)
+    # and the port's own oracle agrees
+    r_u = effective_ranks(torch.tensor(p), t_p)
+    r_i = effective_ranks(torch.tensor(q), t_q)
+    os_, oi = ref.pruned_topk_ref(torch.tensor(p), torch.tensor(q), r_u, r_i, 20,
+                                  item_bias=torch.tensor(bias))
+    np.testing.assert_array_equal(oi.numpy(), got_i)
+    np.testing.assert_array_equal(os_.numpy(), got_s)
+
+
+@pytest.mark.parametrize("block_n", [1, 7, 64, 1024])
+def test_stream_tile_width_does_not_change_answer(block_n):
+    rng = np.random.default_rng(9)
+    p, q = _grid(rng, (5, 10)), _grid(rng, (200, 10))
+    q[rng.integers(0, 200, 100)] = q[rng.integers(0, 200, 100)]
+    want = _port_topk(p, q, 1 / 8, 1 / 8, 13, None, block_n=200)
+    got = _port_topk(p, q, 1 / 8, 1 / 8, 13, None, block_n=block_n)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_topk_validates_k():
+    p, q = (torch.tensor(a) for a in _factors(4, 16, 8))
+    for bad in (0, 17):
+        with pytest.raises(ValueError):
+            ops.pruned_topk(p, q, 0.0, 0.0, bad, device="cpu")
+
+
+def test_public_wrappers_need_a_device():
+    p, q = (torch.tensor(a) for a in _factors(4, 16, 8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.pruned_matmul(p, q, 0.0, 0.0, device="meta")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        check_on(torch.device("cuda"), p=p)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ops.pruned_topk(p, q, 0.0, 0.0, 3)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ops.pruned_matmul(p, q, 0.0, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the launch geometry around the CUDA kernel (checked here, run on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 256, 1024])
+@pytest.mark.parametrize("n", [1, 128, 129, 700, 10_000_000])
+@pytest.mark.parametrize("num_sms", [1, 132])
+def test_split_geometry_covers_catalog(m, n, num_sms):
+    splits, per = pruned_topk.split_geometry(m, n, num_sms)
+    assert per % pruned_topk.BLOCK_N == 0 and per > 0
+    assert (splits - 1) * per < n <= splits * per  # every split non-empty
+    user_tiles = -(-m // pruned_topk.BLOCK_M)
+    assert splits * user_tiles <= max(user_tiles, 2 * num_sms + user_tiles)
+
+
+def test_kernel_constants_match_sources():
+    """The Python wrappers' geometry is the CUDA sources' own."""
+    src = (CSRC / "pruned_topk.cu").read_text()
+    consts = dict(re.findall(r"\b(k\w+) = (\d+)", src))
+    assert int(consts["kTopkMax"]) == pruned_topk.TOPK_MAX
+    assert int(consts["kBM"]) == pruned_topk.BLOCK_M
+    assert int(consts["kBN"]) == pruned_topk.BLOCK_N
