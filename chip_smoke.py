@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: drives its serving path on one card.
+"""Chip smoke of the PyTorch/CUDA port: drives its serving and training paths
+on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -7,34 +8,56 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
-   ``sm_90a`` and prints each one's registers, shared memory and spills;
-3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, without and with pruning (T = 0 and T for rate 0.3),
-   plus an exact case on 1/8-grid factors, and times kernel, plain version
-   and a PyTorch yardstick with CUDA events (TF32 off);
-4. builds the dpmf model at full size (FunkSVD, k = 128, 100M users x 10M
-   items, float32, random factors from a seed) with thresholds for rate 0.3,
-   and serves it through ``ServingEngine``: ``topk`` for 1024 users at
-   top-100, ``recommend`` for 3 users, 32 single-user requests through the
-   queue, and ``predict_all_items`` for 64 users, with every kernel's launch
-   count read just after;
-5. prints a ``kernels`` JSON line and, last, the device JSON line.
+   ``sm_90a`` (one ``nvcc`` per source, in parallel) and prints each one's
+   registers, shared memory and spills;
+3. serving: holds ``pruned_topk`` and ``pruned_matmul`` against their plain
+   PyTorch versions on the card at the serving path's shapes, without and
+   with pruning (T = 0 and T for rate 0.3), plus an exact case on 1/8-grid
+   factors, and times kernel, plain version and a PyTorch yardstick with
+   CUDA events (TF32 off); then builds the dpmf model at full size (FunkSVD,
+   k = 128, 100M users x 10M items, float32, random factors from a seed)
+   with thresholds for rate 0.3 and serves it through ``ServingEngine``
+   (``topk`` for 1024 users at top-100, ``recommend``, 32 requests through
+   the queue, ``predict_all_items`` for 64 users), with the serving kernels'
+   launch counts set to 0 just before and read just after;
+4. frees the serving model, then holds ``fused_mf_sgd`` against its plain
+   version at the training step's shape (B = 2^20 rows, k = 128, float32) at
+   T = 0 and at rate 0.3, with and without bias and weight columns, plus a
+   bfloat16 case and an exact case on 1/8-grid rows, and times it;
+5. trains a small model (20k users x 5k items x 400k ratings, k = 128,
+   3 epochs, rate 0.3) on the card and on the CPU from the same initial
+   factors, once with sgd through the fused kernel and once with adagrad,
+   and holds the epoch records and the latent permutation to each other;
+6. trains dpmf at full size through ``DPMFTrainer.run()`` in scan mode:
+   FunkSVD, 100M x 10M x k = 128, sgd with the fused kernel, lr 0.05,
+   lam 0.02, rate 0.3, batch 2^20, 3 epochs of 8 steps, on 8 x 2^20 ratings
+   made with numpy from the seed (users uniform, items power-law so the
+   scatter-adds collide, integer ratings 1-5) and 2^20 test ratings; the
+   kernel counts are set to 0 just before ``run()`` and read just after;
+   then one more full-size step is held against the plain masked step
+   recomputed on the CPU over the touched rows only, and the stages of the
+   step are timed one by one;
+7. prints a ``kernels`` JSON line and, last, the device JSON line.
 
-Scores are held to rtol 1e-5 and atol 1e-5 (fp32 sums in another order);
-indices must be identical except where the two compared scores lie within
-that tolerance; the 1/8-grid case must agree exactly.  Any failed check
-exits non-zero without the last line.  Without a card, or outside a checkout,
-it exits non-zero at once.
+Tolerances: rtol = atol = 1e-5 for float32 (fp32 sums in another order),
+2e-2 for bfloat16; indices identical except where the two compared scores
+lie within that tolerance; the 1/8-grid cases exactly equal; epoch records
+of the card and the CPU within 1e-4 relative (3 epochs of atomics in another
+order).  Any failed check exits non-zero without the last line.  Without a
+card, or outside a checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -42,12 +65,22 @@ SRC = ROOT / "src"
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 RTOL = ATOL = 1e-5
+BF16_TOL = 2e-2
+RECORD_RTOL = 1e-4
 SEED = 0
 N_USERS, N_ITEMS, K = 100_000_000, 10_000_000, 128   # src/repro/configs/dpmf.py
 RATE = 0.3
 TOPK = 100
 TOPK_USERS, MATMUL_USERS = 256, 64
 PLAIN_BLOCK_N = 65536
+# training main path: dpmf's train_1m batch, lr and lam; sgd + fused kernel
+BATCH, TRAIN_STEPS, EPOCHS = 1 << 20, 8, 3
+LR, LAM = 0.05, 0.02
+# items ~ 1/(i + 10000): item 0 takes ~15 ratings a batch and ~10^5 items
+# collide in every batch.  At an offset of 1000 (~120 ratings of item 0 a
+# batch) the summed updates of popular items at lr 0.05 grow the tables
+# without bound.
+ITEM_OFFSET = 10_000
 
 failures: list = []
 
@@ -62,105 +95,90 @@ def check(ok: bool, what: str) -> None:
         failures.append(what)
 
 
-def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-    import torch
+def time_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
-    if not torch.cuda.is_available():
-        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+
+def above(r, k):
+    """#{rows with rank > t} for t = 0..k-1."""
+    counts = torch.bincount(r.long(), minlength=k + 1).double()
+    return counts.flip(0).cumsum(0).flip(0)[1:]
+
+
+def pair_flops(r_u, r_i, k):
+    return 2.0 * float((above(r_u, k) * above(r_i, k)).sum())
+
+
+def factor_bytes(r_u, r_i, itemsize):
+    """Factor elements the pruned product needs: each row's prefix up to its
+    own rank, cut at the other side's largest rank."""
+    need_u = torch.clamp(r_u, max=int(r_i.max())).double().sum()
+    need_i = torch.clamp(r_i, max=int(r_u.max())).double().sum()
+    return itemsize * float(need_u + need_i) + 4.0 * (r_u.numel() + r_i.numel())
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare_topk(got_s, got_i, want_s, want_i, what, exact=False):
+    got_s, want_s = got_s.float(), want_s.float()
+    err = float((got_s - want_s).abs().max())
+    rel = float(((got_s - want_s).abs() / want_s.abs().clamp(min=1e-30)).max())
+    near = (got_s - want_s).abs() <= ATOL + RTOL * want_s.abs()
+    differ = got_i != want_i
+    agree = float((~differ).float().mean())
+    log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e}, "
+        f"index agreement {agree:.6f}, differing indices at near-ties "
+        f"{int((differ & near).sum())}")
+    if exact:
+        check(torch.equal(got_s, want_s) and torch.equal(got_i, want_i),
+              f"{what}: scores and indices exactly equal")
+    else:
+        check(bool(near.all()), f"{what}: scores within rtol/atol {RTOL}")
+        check(not bool((differ & ~near).any()), f"{what}: indices identical outside near-ties")
+    return err
+
+
+def decaying_factors(gen, rows, dev):
+    """N(0, sigma_t^2) per latent column, sigma_t = 0.1 exp(-2t/k): the
+    front-loaded significance that the paper's Alg. 1 leaves."""
+    sigma = 0.1 * torch.exp(-2.0 * torch.arange(K, device=dev, dtype=torch.float32) / K)
+    return torch.randn((rows, K), generator=gen, device=dev).mul_(sigma)
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import fused_mf_sgd, pruned_matmul, pruned_topk
+
+    for module in (fused_mf_sgd, pruned_matmul, pruned_topk):
+        module.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# serving: pruned_topk and pruned_matmul, then the dpmf model served
+# ---------------------------------------------------------------------------
+
+
+def serving_path(dev):
     from repro_torch.core import mf
     from repro_torch.core.ranks import effective_ranks
     from repro_torch.core.threshold import thresholds_from_matrices
-    from repro_torch.kernels import build, pruned_matmul, pruned_topk
+    from repro_torch.kernels import pruned_matmul, pruned_topk
     from repro_torch.serving import ServingEngine
-
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    log(smi)
-    log(f"# device {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"allow_tf32=False (matmul and cudnn)")
-
-    # -- build -----------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.build_all()
-    log(f"# built {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.1f} s "
-        f"into {build.BUILD_DIR.relative_to(ROOT)}")
-    for name in build.SOURCES:
-        log(f"# ptxas {name}:")
-        for line in build.ptxas_report(name):
-            log(f"#   {line}")
-
-    # -- helpers ---------------------------------------------------------------
-    def time_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def above(r, k):
-        """#{rows with rank > t} for t = 0..k-1."""
-        counts = torch.bincount(r.long(), minlength=k + 1).double()
-        return counts.flip(0).cumsum(0).flip(0)[1:]
-
-    def pair_flops(r_u, r_i, k):
-        return 2.0 * float((above(r_u, k) * above(r_i, k)).sum())
-
-    def factor_bytes(r_u, r_i, itemsize):
-        """Factor elements the pruned product needs: each row's prefix up to
-        its own rank, cut at the other side's largest rank."""
-        need_u = torch.clamp(r_u, max=int(r_i.max())).double().sum()
-        need_i = torch.clamp(r_i, max=int(r_u.max())).double().sum()
-        return itemsize * float(need_u + need_i) + 4.0 * (r_u.numel() + r_i.numel())
-
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-    def compare_topk(got_s, got_i, want_s, want_i, what, exact=False):
-        got_s, want_s = got_s.float(), want_s.float()
-        err = float((got_s - want_s).abs().max())
-        rel = float(((got_s - want_s).abs() / want_s.abs().clamp(min=1e-30)).max())
-        near = (got_s - want_s).abs() <= ATOL + RTOL * want_s.abs()
-        differ = got_i != want_i
-        agree = float((~differ).float().mean())
-        log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e}, "
-            f"index agreement {agree:.6f}, differing indices at near-ties "
-            f"{int((differ & near).sum())}")
-        if exact:
-            check(torch.equal(got_s, want_s) and torch.equal(got_i, want_i),
-                  f"{what}: scores and indices exactly equal")
-        else:
-            check(bool(near.all()), f"{what}: scores within rtol/atol {RTOL}")
-            check(not bool((differ & ~near).any()), f"{what}: indices identical outside near-ties")
-        return err
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    # front-loaded significance: N(0, sigma_t^2) per latent column
-    sigma = 0.1 * torch.exp(-2.0 * torch.arange(K, device=dev, dtype=torch.float32) / K)
-
-    def factors(rows):
-        out = torch.randn((rows, K), generator=gen, device=dev)
-        return out.mul_(sigma)
-
-    q = factors(N_ITEMS)
-    p_topk = factors(TOPK_USERS)
+    q = decaying_factors(gen, N_ITEMS, dev)
+    p_topk = decaying_factors(gen, TOPK_USERS, dev)
     p_mm = p_topk[:MATMUL_USERS].contiguous()
     zero_bias = torch.zeros(N_ITEMS, device=dev)
     t_p30, t_q30 = thresholds_from_matrices(p_topk, q, RATE)
@@ -260,10 +278,10 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- main path: the dpmf model at full size ---------------------------------
-    log(f"## main path: dpmf FunkSVD {N_USERS} users x {N_ITEMS} items x k={K}, float32")
+    # -- main path: the dpmf model served at full size ---------------------------
+    log(f"## serving main path: dpmf FunkSVD {N_USERS} users x {N_ITEMS} items x k={K}, float32")
     torch.cuda.reset_peak_memory_stats()
-    p = factors(N_USERS)
+    p = decaying_factors(gen, N_USERS, dev)
     t_p, t_q = thresholds_from_matrices(p, q, RATE)
     r_u_all = effective_ranks(p, t_p)
     r_i_all = effective_ranks(q, t_q)
@@ -283,8 +301,7 @@ def main() -> int:
     mf.predict_all_items(params, torch.as_tensor(users[:2], device=dev), t_p, t_q)
     torch.cuda.synchronize()
 
-    pruned_topk.launches = 0
-    pruned_matmul.launches = 0
+    reset_launch_counts()
     t_main = time.perf_counter()
     t0 = time.perf_counter()
     top_s, top_i = engine.topk(users, TOPK)
@@ -303,14 +320,14 @@ def main() -> int:
     wall = time.perf_counter() - t_main
     launches = {"pruned_topk": pruned_topk.launches, "pruned_matmul": pruned_matmul.launches}
     served = len(users) + len(recs) + len(queued)
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the serving path: {launches}")
     log(f"  engine.topk: {len(users)} users in {t_topk:.3f} s ({len(users) / t_topk:.1f} req/s); "
         f"queue: {len(queued)} single-user requests in {t_queue:.3f} s "
         f"({len(queued) / t_queue:.1f} req/s); predict_all_items {MATMUL_USERS} users in "
         f"{t_mm:.3f} s")
     log(f"  requests served {served} in {wall:.3f} s ({served / wall:.1f} req/s)")
     for name, count in launches.items():
-        check(count > 0, f"{name} launched on the main path ({count})")
+        check(count > 0, f"{name} launched on the serving path ({count})")
 
     check(top_s.shape == (1024, TOPK) and bool(np.isfinite(top_s).all()),
           "topk scores finite, shape (1024, 100)")
@@ -325,7 +342,7 @@ def main() -> int:
     want_s, want_i = pruned_topk.pruned_topk_plain(
         pu, q, r_u, engine.r_i, torch.zeros(N_ITEMS, device=dev), TOPK, block_n=PLAIN_BLOCK_N)
     compare_topk(torch.as_tensor(top_s[:32], device=dev), torch.as_tensor(top_i[:32], device=dev),
-                 want_s, want_i, "main path: 32 users vs plain")
+                 want_s, want_i, "serving main path: 32 users vs plain")
     check(scores_all.shape == (MATMUL_USERS, N_ITEMS) and bool(torch.isfinite(scores_all).all()),
           "predict_all_items finite, shape (64, 10M)")
     cut = 1_000_000
@@ -337,9 +354,8 @@ def main() -> int:
           "predict_all_items within rtol/atol of plain")
     log(f"  peak device memory (max_memory_allocated) {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # -- report ----------------------------------------------------------------
-    main_label = f"rate {RATE}"
     rows = []
+    main_label = f"rate {RATE}"
     for name, replaces, source in (
         ("pruned_topk", "src/repro/kernels/pruned_topk.py:157",
          "src/repro_torch/kernels/csrc/pruned_topk.cu"),
@@ -358,6 +374,331 @@ def main() -> int:
             row["yardstick_ms"] = st["yard_ms"]
             row["yardstick"] = "torch.addmm + torch.topk on pre-masked operands (two calls)"
         rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# training: fused_mf_sgd, the small trainer card vs CPU, dpmf trained
+# ---------------------------------------------------------------------------
+
+
+def fused_kernel_phase(dev):
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.kernels import fused_mf_sgd
+
+    log(f"## fused_mf_sgd: {BATCH} row pairs x k={K}, float32, at lr 1 (as the step runs it)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    p_rows = decaying_factors(gen, BATCH, dev)
+    q_rows = decaying_factors(gen, BATCH, dev)
+    ratings = torch.randint(1, 6, (BATCH,), generator=gen, device=dev).float()
+    bias_u = torch.randn((BATCH,), generator=gen, device=dev).mul_(0.2)
+    bias_i = torch.randn((BATCH,), generator=gen, device=dev).mul_(0.2)
+    weight = torch.randint(0, 3, (BATCH,), generator=gen, device=dev).float() / 2  # a third are 0
+    mu = torch.tensor([3.5], device=dev)
+    t30 = thresholds_from_matrices(p_rows, q_rows, RATE)
+    zero = torch.zeros((1,), device=dev)
+    thresholds = {"T=0": (zero, zero), f"rate {RATE}": (t30[0].reshape(1), t30[1].reshape(1))}
+    log(f"  rate {RATE} -> T_p {float(t30[0]):.6g}, T_q {float(t30[1]):.6g} (from these rows)")
+
+    def compare(got, want, what, tol=RTOL, exact=False):
+        errs = [0.0 if g is None else float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        if exact:
+            ok = all(g is None or torch.equal(g, w) for g, w in zip(got, want))
+            check(ok, f"{what}: every output exactly equal")
+        else:
+            ok = all(g is None or torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+                     for g, w in zip(got, want))
+            check(ok, f"{what}: within rtol/atol {tol} (max abs errs of new_p, new_q, "
+                      f"new_bu, new_bi, err: {', '.join(f'{e:.3e}' for e in errs)})")
+        return max(errs)
+
+    stats = {"err": 0.0}
+    for label, (t_p, t_q) in thresholds.items():
+        for extra_label, extra in (("", {}), (" with bias and weight", dict(
+                bias_u=bias_u, bias_i=bias_i, global_mean=mu, weight=weight))):
+            args = (p_rows, q_rows, ratings, t_p, t_q)
+            got = fused_mf_sgd.fused_mf_sgd_rows(*args, lr=1.0, lam=LAM, **extra)
+            want = fused_mf_sgd.fused_mf_sgd_plain(*args, lr=1.0, lam=LAM, **extra)
+            torch.cuda.synchronize()
+            stats["err"] = max(stats["err"], compare(got, want, f"fused_mf_sgd {label}{extra_label}"))
+            del got, want
+        ms = time_ms(lambda: fused_mf_sgd.fused_mf_sgd_rows(
+            p_rows, q_rows, ratings, t_p, t_q, lr=1.0, lam=LAM), 20)
+        plain_ms = time_ms(lambda: fused_mf_sgd.fused_mf_sgd_plain(
+            p_rows, q_rows, ratings, t_p, t_q, lr=1.0, lam=LAM), 5)
+        # each row element read once and written once, plus the rating and
+        # err columns; ~16 fp32 operations an element pair
+        nbytes = 4.0 * BATCH * K * 4 + 8.0 * BATCH
+        b_ms, b_by = bound(16.0 * BATCH * K, nbytes)
+        log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b_ms:.3f} ms "
+            f"({b_by}: {nbytes / 1e9:.3f} GB); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+        stats[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # bfloat16 rows at a small, ragged B
+    nb = 4099
+    bp, bq = p_rows[:nb].bfloat16(), q_rows[:nb].bfloat16()
+    t_p, t_q = thresholds[f"rate {RATE}"]
+    bargs = (bp, bq, ratings[:nb], t_p, t_q)
+    bextra = dict(bias_u=bias_u[:nb], bias_i=bias_i[:nb], global_mean=mu, weight=weight[:nb])
+    compare(fused_mf_sgd.fused_mf_sgd_rows(*bargs, lr=LR, lam=LAM, **bextra),
+            fused_mf_sgd.fused_mf_sgd_plain(*bargs, lr=LR, lam=LAM, **bextra),
+            f"fused_mf_sgd bfloat16 B={nb}", tol=BF16_TOL)
+
+    # 1/8-grid rows, lr and lam powers of two: every product is exact
+    gb = 65_537
+    grid = lambda *s: torch.randint(-16, 17, s, generator=gen, device=dev).float() / 8  # noqa: E731
+    gargs = (grid(gb, K), grid(gb, K), torch.randint(1, 6, (gb,), generator=gen, device=dev).float(),
+             torch.tensor([1 / 8], device=dev), torch.tensor([1 / 4], device=dev))
+    gextra = dict(bias_u=grid(gb), bias_i=grid(gb), global_mean=torch.tensor([3.0], device=dev),
+                  weight=torch.randint(0, 3, (gb,), generator=gen, device=dev).float() / 2)
+    compare(fused_mf_sgd.fused_mf_sgd_rows(*gargs, lr=1 / 16, lam=1 / 32, **gextra),
+            fused_mf_sgd.fused_mf_sgd_plain(*gargs, lr=1 / 16, lam=1 / 32, **gextra),
+            f"fused_mf_sgd 1/8-grid B={gb}", exact=True)
+    return stats
+
+
+def small_trainer_phase():
+    from repro_torch.core import mf
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.data.ratings import synthetic_ratings, train_test_split
+    from repro_torch.kernels import fused_mf_sgd
+
+    m, n = 20_000, 5_000
+    log(f"## small trainer, card against CPU: {m} users x {n} items x 400000 ratings, "
+        f"k={K}, 3 epochs, rate {RATE}, funk")
+    train, test = train_test_split(synthetic_ratings(m, n, 400_000, seed=SEED), 0.2, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    init = {"p": rng.normal(0, 0.1, (m, K)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (n, K)).astype(np.float32)}
+    fields = ("train_abs_err", "test_mae", "work_fraction", "t_p", "t_q")
+    # sgd at a smaller lr: the zipf(1.3) items put ~1000 ratings of item 0 in
+    # every 4096-rating batch, and their summed updates diverge at 0.05
+    for opt, lr, fused in (("sgd", 0.002, True), ("adagrad", 0.05, False)):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            cfg = TrainConfig(k=K, epochs=3, pruning_rate=RATE, optimizer=opt, lr=lr,
+                              use_fused_kernel=fused, seed=SEED)
+            trainer = DPMFTrainer(cfg, train, test, device=device)
+            trainer.params = mf.params_from_numpy(init, device=device)
+            trainer.opt_state = mf.init_opt_state(trainer.params, trainer.opt)
+            before = fused_mf_sgd.launches
+            t0 = time.perf_counter()
+            history = trainer.run()
+            steps = len(train) // cfg.batch_size
+            log(f"  {opt} on {device}: {time.perf_counter() - t0:.2f} s; " + "; ".join(
+                f"epoch {r.epoch}: err {r.train_abs_err:.6f} mae {r.test_mae:.6f} "
+                f"work {r.work_fraction:.6f}" for r in history))
+            if device == "cuda":
+                want = 3 * steps if fused else 0
+                check(fused_mf_sgd.launches - before == want,
+                      f"{opt} on the card: fused_mf_sgd launched {want} times")
+            runs[device] = (history, trainer.perm.cpu(), trainer.joint_sparsity.cpu())
+        (h_gpu, perm_gpu, js_gpu), (h_cpu, perm_cpu, js_cpu) = runs["cuda"], runs["cpu"]
+        worst = max(abs(getattr(a, f) - getattr(b, f)) / max(abs(getattr(b, f)), 1e-30)
+                    for a, b in zip(h_gpu, h_cpu) for f in fields)
+        check(all(math.isfinite(getattr(r, f)) for r in h_gpu for f in fields)
+              and worst <= RECORD_RTOL,
+              f"{opt}: epoch records of card and CPU within {RECORD_RTOL} relative "
+              f"(worst {worst:.3e})")
+        differ = perm_gpu != perm_cpu
+        log(f"  {opt}: perms differ at {int(differ.sum())} of {K} positions")
+        check(bool(((js_gpu - js_cpu).abs()[differ] <= 1e-6).all()),
+              f"{opt}: perms identical except between joint sparsities within 1e-6")
+
+
+def dpmf_ratings(rng, count):
+    """Users uniform over 100M; items ~ 1/(i + ITEM_OFFSET) over 10M (a power
+    law with exponent 1, so popular items collide in every batch); integer
+    ratings 1-5."""
+    from repro_torch.data.ratings import RatingsDataset
+
+    users = rng.integers(0, N_USERS, count, dtype=np.int64).astype(np.int32)
+    span = math.log((N_ITEMS + ITEM_OFFSET) / ITEM_OFFSET)
+    items = np.floor(ITEM_OFFSET * np.exp(rng.random(count) * span) - ITEM_OFFSET)
+    items = np.clip(items, 0, N_ITEMS - 1).astype(np.int32)
+    ratings = rng.integers(1, 6, count).astype(np.float32)
+    return RatingsDataset(user=users, item=items, rating=ratings, num_users=N_USERS,
+                          num_items=N_ITEMS)
+
+
+def training_main_path(dev):
+    from repro_torch.core import mf
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.data import loader
+    from repro_torch.kernels import fused_mf_sgd
+
+    log(f"## training main path: dpmf FunkSVD {N_USERS} users x {N_ITEMS} items x k={K}, "
+        f"float32; sgd + fused kernel, lr {LR}, lam {LAM}, rate {RATE}, batch {BATCH}, "
+        f"{EPOCHS} epochs of {TRAIN_STEPS} steps")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    train = dpmf_ratings(rng, TRAIN_STEPS * BATCH)
+    test = dpmf_ratings(rng, BATCH)
+    counts = np.bincount(train.item[:BATCH], minlength=N_ITEMS)
+    log(f"  data made in {time.perf_counter() - t0:.2f} s: {len(train)} train, {len(test)} test "
+        f"ratings; first batch: {int((counts > 1).sum())} items rated more than once, item 0 "
+        f"{int(counts[0])} times")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TrainConfig(k=K, epochs=EPOCHS, batch_size=BATCH, lr=LR, lam=LAM, pruning_rate=RATE,
+                      optimizer="sgd", use_fused_kernel=True, epoch_mode="scan", seed=SEED,
+                      eval_batch_size=BATCH)
+    t0 = time.perf_counter()
+    trainer = DPMFTrainer(cfg, train, test)
+    torch.cuda.synchronize()
+    log(f"  trainer built on {trainer.device} in {time.perf_counter() - t0:.2f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches on the training path: {launches}; run() {run_s:.2f} s")
+    for r in history:
+        log(f"  epoch {r.epoch}: train err {r.train_abs_err:.6f}, test mae {r.test_mae:.6f}, "
+            f"work {r.work_fraction:.6f}, T_p {r.t_p:.6g}, T_q {r.t_q:.6g}; train "
+            f"{r.wall_time_s:.3f} s = {r.wall_time_s / TRAIN_STEPS * 1e3:.2f} ms a step, "
+            f"{len(train) / r.wall_time_s / 1e6:.2f} M ratings/s")
+    # aminmax is one reduction; .abs() would be a second 51 GB table
+    largest = {name: float(max(-lo, hi)) for name, (lo, hi) in (
+        ("p", torch.aminmax(trainer.params.p)), ("q", torch.aminmax(trainer.params.q)))}
+    log(f"  peak device memory (max_memory_allocated) {peak_gb:.2f} GB; after training "
+        f"max |p| {largest['p']:.4f}, max |q| {largest['q']:.4f}")
+    check(launches["fused_mf_sgd"] == EPOCHS * TRAIN_STEPS,
+          f"fused_mf_sgd launched {EPOCHS * TRAIN_STEPS} times on the training path "
+          f"({launches['fused_mf_sgd']})")
+    check(all(math.isfinite(v) for r in history for v in (
+        r.train_abs_err, r.test_mae, r.work_fraction, r.t_p, r.t_q)), "epoch records finite")
+    check(history[0].work_fraction == 1.0 and all(r.work_fraction < 1.0 for r in history[1:]),
+          "work fraction 1.0 in epoch 0, below 1 after calibration")
+    check(peak_gb < 80.0, f"peak device memory under 80 GB ({peak_gb:.2f})")
+
+    # -- one more full-size step against the plain step on the CPU -------------
+    log("## one full-size step against the plain masked step on the CPU (touched rows only)")
+    params, opt = trainer.params, trainer.opt
+    batch = {"user": torch.as_tensor(train.user[:BATCH], dtype=torch.int64).to(dev),
+             "item": torch.as_tensor(train.item[:BATCH], dtype=torch.int64).to(dev),
+             "rating": torch.as_tensor(train.rating[:BATCH]).to(dev)}
+    users, user_pos = torch.unique(batch["user"], return_inverse=True)
+    items, item_pos = torch.unique(batch["item"], return_inverse=True)
+    p_before, q_before = params.p[users].cpu(), params.q[items].cpu()
+    dim_mask = torch.ones((K,), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mf.train_step(params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, LR, dim_mask,
+                  opt=opt, lam=LAM, use_fused_kernel=True)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    cpu = mf.MFParams(p=p_before, q=q_before, user_bias=None, item_bias=None,
+                      global_mean=None, implicit=None)
+    cpu_batch = {"user": user_pos.cpu(), "item": item_pos.cpu(), "rating": batch["rating"].cpu()}
+    mf.train_step(cpu, mf.init_opt_state(cpu, opt), cpu_batch, trainer.t_p.cpu(),
+                  trainer.t_q.cpu(), LR, dim_mask.cpu(), opt=opt, lam=LAM, use_fused_kernel=False)
+    for name, got, want in (("p", params.p[users].cpu(), cpu.p), ("q", params.q[items].cpu(), cpu.q)):
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+              f"step: {len(want)} updated {name} rows within rtol/atol {RTOL} of the CPU "
+              f"(max abs err {err:.3e}, max |value| {float(want.abs().max()):.4f})")
+    log(f"  one step (host clock, synchronized): {step_ms:.2f} ms")
+
+    # -- where a step's time goes: its stages one by one (CUDA events) --------
+    from repro_torch.kernels import ops
+
+    u, i, r = batch["user"], batch["item"], batch["rating"]
+    pu, qi = params.p[u], params.q[i]
+    new = ops.fused_mf_sgd(pu, qi, r, trainer.t_p, trainer.t_q, lr=1.0, lam=LAM)
+    dp, dq = (new[0] - pu).mul_(LR), (new[1] - qi).mul_(LR)
+    stages = {
+        "gather p[u], q[i]": lambda: (params.p[u], params.q[i]),
+        "ranks for the metrics (2 x effective_ranks)": lambda: torch.minimum(
+            effective_ranks(pu, trainer.t_p), effective_ranks(qi, trainer.t_q)),
+        "fused_mf_sgd kernel": lambda: ops.fused_mf_sgd(
+            pu, qi, r, trainer.t_p, trainer.t_q, lr=1.0, lam=LAM),
+        "deltas ((new - old) * lr * dim_mask, 2 tables)": lambda: (
+            (new[0] - pu).mul_(LR).mul_(dim_mask), (new[1] - qi).mul_(LR).mul_(dim_mask)),
+        "scatter (2 x index_add_)": lambda: (
+            params.p.index_add_(0, u, dp), params.q.index_add_(0, i, dq)),
+        "whole step (mf.train_step)": lambda: mf.train_step(
+            params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, LR, dim_mask,
+            opt=opt, lam=LAM, use_fused_kernel=True),
+    }
+    breakdown = {name: time_ms(fn, 5) for name, fn in stages.items()}
+    for name, ms in breakdown.items():
+        log(f"  {name}: {ms:.3f} ms")
+    t0 = time.perf_counter()
+    loader.epoch_permutation(len(train), SEED, 0)
+    log(f"  host: epoch_permutation of {len(train)} ratings {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    t0 = time.perf_counter()
+    trainer.evaluate()
+    log(f"  evaluate() on {len(test)} test ratings {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return launches
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(smi)
+    log(f"# device {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32=False (matmul and cudnn)")
+
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"# built {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.1f} s "
+        f"into {build.BUILD_DIR.relative_to(ROOT)}")
+    for name in build.SOURCES:
+        log(f"# ptxas {name}:")
+        for line in build.ptxas_report(name):
+            log(f"#   {line}")
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"# phase {name}: {time.perf_counter() - t0:.1f} s; device memory still "
+            f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        return out
+
+    rows = phase("serving", serving_path, dev)
+    fused = phase("fused_mf_sgd kernel", fused_kernel_phase, dev)
+    phase("small trainer", small_trainer_phase)
+    train_launches = phase("training main path", training_main_path, dev)
+
+    main_label = f"rate {RATE}"
+    rows.append({
+        "name": "fused_mf_sgd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_mf_sgd.cu",
+        "replaces": "src/repro/kernels/fused_mf_sgd.py:75",
+        "launches": train_launches["fused_mf_sgd"], "max_abs_err": fused["err"],
+        "ms": fused[main_label]["ms"], "plain_ms": fused[main_label]["plain_ms"],
+        "bound_ms": fused[main_label]["bound_ms"], "bound_by": fused[main_label]["bound_by"],
+        "library_ms": None, "dense_ms": fused["T=0"]["ms"],
+        "dense_bound_ms": fused["T=0"]["bound_ms"],
+    })
+    log(f"# total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"# {len(failures)} check(s) failed:")
         for what in failures:

@@ -1,1 +1,1 @@
-"""Checkpoint reading (the reference trainer's npz + metadata format)."""
+"""Checkpoints in the reference trainer's npz + metadata format, read and written."""

@@ -1,1 +1,1 @@
-"""Model core of the port: ranks, thresholds, and the MF model's serving subset."""
+"""Model core of the port: ranks, thresholds, the MF model, rearrangement and the trainer."""

@@ -1,13 +1,19 @@
-"""MF model family (FunkSVD, BiasSVD, SVD++): the serving subset.
+"""MF model family (FunkSVD, BiasSVD, SVD++) with dynamic pruning.
 
-Counterpart of ``repro/core/mf.py``.  ``p`` is (m, k) user-major, ``q`` is
-(n, k) item-major, biases are (rows, 1), ``implicit`` is SVD++'s (n + 1, k)
-table whose row n is the zero padding row.  Training (``_train_step``, the
-optimizers) is not part of this module yet.
+Counterpart of ``repro/core/mf.py`` without the multi-device owner-compute
+step.  ``p`` is (m, k) user-major, ``q`` is (n, k) item-major, biases are
+(rows, 1), ``implicit`` is SVD++'s (n + 1, k) table whose row n is the zero
+padding row.  Thresholds ``(t_p, t_q)`` of 0 disable pruning numerically, so
+the dense baseline and the pruned path share one code path.
+
+Training updates the tables **in place**: :func:`train_step` and
+:func:`train_epoch_scan` write into ``params`` and ``opt_state`` and return
+them, where the reference returns new arrays (and donates the old ones).  At
+the dpmf size (a 51.2 GB user table) there is no room for a second copy.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,6 +21,9 @@ import torch
 from repro_torch.core.ranks import effective_ranks, rank_mask
 from repro_torch.device import DeviceLike, check_on, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.optim.optimizers import RowOptimizer
+
+Batch = Dict[str, torch.Tensor]
 
 
 class MFParams(NamedTuple):
@@ -49,21 +58,24 @@ def init_params(
     """
     dev = resolve_device(device)
 
+    if init_method not in ("normal", "uniform", "libmf"):
+        raise ValueError(f"unknown init {init_method!r}")
+
     def draw(rows):
+        # scaled in place: at the dpmf size a temporary would be another 51 GB
         shape = (rows, k)
         if init_method == "normal":
-            return scale * torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+            return torch.randn(shape, generator=generator, dtype=dtype, device=dev).mul_(scale)
         u = torch.rand(shape, generator=generator, dtype=dtype, device=dev)
         if init_method == "uniform":
             lim = scale * (3.0 ** 0.5)  # same std as the normal init
-            return (2.0 * u - 1.0) * lim
-        if init_method == "libmf":
-            return u * (k ** -0.5)
-        raise ValueError(f"unknown init {init_method!r}")
+            return u.mul_(2.0).sub_(1.0).mul_(lim)
+        return u.mul_(k ** -0.5)
 
-    p, q, y = draw(num_users), draw(num_items), draw(num_items + 1)
+    p, q = draw(num_users), draw(num_items)
+    y = draw(num_items + 1) if variant == "svdpp" else None
     with_bias = variant in ("bias", "svdpp")
-    if variant == "svdpp":
+    if y is not None:
         y[num_items] = 0.0
     return MFParams(
         p=p,
@@ -71,7 +83,7 @@ def init_params(
         user_bias=torch.zeros((num_users, 1), dtype=dtype, device=dev) if with_bias else None,
         item_bias=torch.zeros((num_items, 1), dtype=dtype, device=dev) if with_bias else None,
         global_mean=torch.tensor(global_mean, dtype=dtype, device=dev) if with_bias else None,
-        implicit=y if variant == "svdpp" else None,
+        implicit=y,
     )
 
 
@@ -79,15 +91,18 @@ def params_from_numpy(
     fields: Mapping[str, Optional[np.ndarray]], device: DeviceLike = None
 ) -> MFParams:
     """Build :class:`MFParams` from ``{field: array or None}`` (e.g. the
-    reference's ``params._asdict()`` as numpy), on ``device``."""
+    reference's ``params._asdict()`` as numpy), on ``device``.  The tables
+    are copies: training updates them in place, and must not write through
+    into the caller's arrays."""
     dev = resolve_device(device)
 
     def conv(name):
         v = fields.get(name)
         if v is None:
             return None
-        # read-only arrays (e.g. views of JAX buffers) are copied first
-        return torch.as_tensor(np.require(np.asarray(v), requirements="W")).to(dev)
+        # read-only arrays (e.g. views of JAX buffers) are made writable
+        # first; the one copy happens in .to()
+        return torch.as_tensor(np.require(np.asarray(v), requirements="W")).to(dev, copy=True)
 
     return MFParams(*(conv(name) for name in MFParams._fields))
 
@@ -163,3 +178,211 @@ def predict_all_items(
             + params.item_bias[:, 0][None, :]
         )
     return scores
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+class MFOptState(NamedTuple):
+    """Row-optimizer state per table; None where the table is None."""
+
+    p: Dict[str, torch.Tensor]
+    q: Dict[str, torch.Tensor]
+    user_bias: Optional[Dict[str, torch.Tensor]]
+    item_bias: Optional[Dict[str, torch.Tensor]]
+    implicit: Optional[Dict[str, torch.Tensor]]
+
+
+def init_opt_state(params: MFParams, opt: RowOptimizer) -> MFOptState:
+    def init(table):
+        return None if table is None else opt.init(table)
+
+    return MFOptState(p=init(params.p), q=init(params.q), user_bias=init(params.user_bias),
+                      item_bias=init(params.item_bias), implicit=init(params.implicit))
+
+
+def _metrics(err, pair_ranks, w, k) -> Dict[str, torch.Tensor]:
+    """Weighted mean |err| and work fraction of one batch, as device scalars."""
+    denom = torch.clamp(torch.sum(w), min=1e-9)  # weighted mean, not deflated
+    return {
+        "abs_err": torch.sum(torch.abs(err) * w) / denom,
+        "work_fraction": torch.sum(pair_ranks.float() * w) / (denom * k),
+    }
+
+
+def _train_step(
+    params: MFParams,
+    opt_state: MFOptState,
+    batch: Batch,
+    t_p: torch.Tensor,
+    t_q: torch.Tensor,
+    lr,
+    dim_mask: torch.Tensor,  # (k,) twin-learners / strategy mask
+    *,
+    opt: RowOptimizer,
+    lam: float,
+    use_fused_kernel: bool = False,
+) -> Tuple[MFParams, MFOptState, Dict[str, torch.Tensor]]:
+    """One minibatched, dynamically pruned MF update (Algs. 2 + 3), in place.
+
+    ``use_fused_kernel`` sends every plain-SGD case without implicit
+    feedback (FunkSVD and BiasSVD, weighted or not) through the fused kernel
+    (``kernels.ops.fused_mf_sgd``: the CUDA kernel on the card, its plain
+    version on the CPU); every other (variant, optimizer) pair takes the
+    masked tensor formulation with the same semantics.  Duplicate rows in a
+    batch accumulate (scatter-add).  An optional ``batch["weight"]`` (B,)
+    gates rows out of the update and the metrics, never the prediction.
+    ``t_p``/``t_q`` should be tensors on the tables' device: a Python float
+    there costs a host-to-device copy per step.  The metrics are device
+    scalars; nothing here waits on the card.
+    """
+    u, i, r = batch["user"], batch["item"], batch["rating"].float()
+    hist = batch.get("hist")
+    weight = batch.get("weight")
+    k = params.p.shape[-1]
+
+    pu = _user_vector(params, u, hist)
+    qi = params.q[i]
+    r_u = effective_ranks(pu, t_p)
+    r_i = effective_ranks(qi, t_q)
+    pair_ranks = torch.minimum(r_u, r_i)
+    w = torch.ones_like(r) if weight is None else weight.float()
+
+    if use_fused_kernel and opt.name == "sgd" and params.implicit is None:
+        has_bias = params.user_bias is not None
+        bu = params.user_bias[u, 0] if has_bias else None
+        bi = params.item_bias[i, 0] if has_bias else None
+        new_pu, new_qi, new_bu, new_bi, err = kops.fused_mf_sgd(
+            pu, qi, r, t_p, t_q,
+            lr=1.0,  # lr and the strategy mask fold into the delta below
+            lam=lam, bias_u=bu, bias_i=bi,
+            global_mean=params.global_mean if has_bias else 0.0,
+            weight=weight, device=params.p.device,
+        )
+        # delta = (new - old) * lr * dim_mask, formed in the kernel's output
+        # buffers, then scattered (duplicate-safe) into the tables
+        dp = new_pu.sub_(pu).float().mul_(lr).mul_(dim_mask)
+        dq = new_qi.sub_(qi).float().mul_(lr).mul_(dim_mask)
+        params.p.index_add_(0, u, dp.to(params.p.dtype))
+        params.q.index_add_(0, i, dq.to(params.q.dtype))
+        if has_bias:
+            params.user_bias[:, 0].index_add_(0, u, ((new_bu - bu) * lr).to(params.user_bias.dtype))
+            params.item_bias[:, 0].index_add_(0, i, ((new_bi - bi) * lr).to(params.item_bias.dtype))
+        return params, opt_state, _metrics(err, pair_ranks, w, k)
+
+    pred_mask = rank_mask(pair_ranks, k) * dim_mask[None, :]
+    mask = pred_mask * w[:, None]  # gates updates; predictions use pred_mask
+    pred = torch.sum(pu.float() * qi.float() * pred_mask, dim=-1)
+    if params.user_bias is not None:
+        pred = pred + params.global_mean + params.user_bias[u, 0] + params.item_bias[i, 0]
+    err = r - pred
+
+    # gradients of 0.5 err^2 + 0.5 lam ||.||^2 at the gathered (old) rows;
+    # every gather below happens before the table it reads is updated
+    g_p = (lam * pu - err[:, None] * qi).float()
+    g_q = (lam * qi - err[:, None] * pu).float()
+    g_y = None
+    if params.implicit is not None and hist is not None:
+        # dL/dy_j = -err * q_i / sqrt(|N(u)|) for each j in N(u), masked
+        n_items = params.implicit.shape[0] - 1
+        counts = torch.sum((hist < n_items).float(), dim=1, keepdim=True)
+        coef = err[:, None] * torch.rsqrt(torch.clamp(counts, min=1.0))
+        g_y = -(coef[:, None, :] * (qi * pred_mask)[:, None, :]) * torch.ones(
+            (1, hist.shape[1], 1), device=qi.device)
+        g_y = g_y + lam * params.implicit[hist]
+    if params.user_bias is not None:
+        g_bu = (lam * params.user_bias[u] - err[:, None]).float()
+        g_bi = (lam * params.item_bias[i] - err[:, None]).float()
+
+    opt.apply_rows(params.p, opt_state.p, u, g_p, mask, lr)
+    opt.apply_rows(params.q, opt_state.q, i, g_q, mask, lr)
+    if params.user_bias is not None:
+        w_col = w[:, None]
+        opt.apply_rows(params.user_bias, opt_state.user_bias, u, g_bu, w_col, lr)
+        opt.apply_rows(params.item_bias, opt_state.item_bias, i, g_bi, w_col, lr)
+    if g_y is not None:
+        flat_idx = hist.reshape(-1)
+        # pred_mask-based mask: the row weight rides in once, through mask
+        flat_mask = torch.repeat_interleave(mask, hist.shape[1], dim=0) * (
+            flat_idx < n_items).float()[:, None]
+        opt.apply_rows(params.implicit, opt_state.implicit, flat_idx,
+                       g_y.reshape(-1, k), flat_mask, lr)
+        params.implicit[n_items] = 0.0  # keep the padding row inert
+    return params, opt_state, _metrics(err, pair_ranks, w, k)
+
+
+train_step = _train_step
+
+
+def _eval_mae(params: MFParams, batch: Batch, t_p, t_q) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum |err| and weighted count over a (possibly weight-masked) eval batch."""
+    pred, _ = predict_pairs(params, batch["user"], batch["item"], t_p, t_q, batch.get("hist"))
+    w = batch.get("weight")
+    w = torch.ones_like(pred) if w is None else w
+    abs_err = torch.abs(batch["rating"].float() - pred) * w
+    return torch.sum(abs_err), torch.sum(w)
+
+
+eval_mae = _eval_mae
+
+
+def train_epoch_scan(
+    params: MFParams,
+    opt_state: MFOptState,
+    batches: Batch,       # each value (steps, B) -- data/loader.PackedRatings
+    t_p: torch.Tensor,
+    t_q: torch.Tensor,
+    lr,
+    dim_mask: torch.Tensor,
+    hist: Optional[torch.Tensor] = None,   # (m, H) device-resident SVD++ history
+    *,
+    opt: RowOptimizer,
+    lam: float,
+    use_fused_kernel: bool = False,
+) -> Tuple[MFParams, MFOptState, Dict[str, torch.Tensor]]:
+    """A whole epoch: :func:`train_step` folded over the packed batches.
+
+    A device-side loop: the batches already lie on the card, the metrics
+    accumulate as device scalars (sum of per-batch means, divided once), and
+    nothing in the loop waits on the card.  The one host sync of an epoch is
+    the caller's, when it reads the returned scalars.  The SVD++ history is
+    passed whole and gathered per step.
+    """
+    steps = batches["user"].shape[0]
+    err_sum = torch.zeros((), dtype=torch.float32, device=params.p.device)
+    work_sum = torch.zeros((), dtype=torch.float32, device=params.p.device)
+    for s in range(steps):
+        batch = {key: value[s] for key, value in batches.items()}
+        if hist is not None:
+            batch["hist"] = hist[batch["user"]]
+        params, opt_state, m = _train_step(
+            params, opt_state, batch, t_p, t_q, lr, dim_mask,
+            opt=opt, lam=lam, use_fused_kernel=use_fused_kernel,
+        )
+        err_sum = err_sum + m["abs_err"]
+        work_sum = work_sum + m["work_fraction"]
+    denom = float(max(steps, 1))
+    return params, opt_state, {"abs_err": err_sum / denom, "work_fraction": work_sum / denom}
+
+
+def eval_epoch_scan(
+    params: MFParams,
+    batches: Batch,       # each value (steps, B), weight-padded tail
+    t_p,
+    t_q,
+    hist: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum |err| and weighted count over pre-packed eval batches, as device
+    scalars (the :func:`eval_mae` treatment of a whole pass)."""
+    tot = torch.zeros((), dtype=torch.float32, device=params.p.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=params.p.device)
+    for s in range(batches["user"].shape[0]):
+        batch = {key: value[s] for key, value in batches.items()}
+        if hist is not None:
+            batch["hist"] = hist[batch["user"]]
+        step_sum, step_cnt = _eval_mae(params, batch, t_p, t_q)
+        tot = tot + step_sum
+        cnt = cnt + step_cnt
+    return tot, cnt

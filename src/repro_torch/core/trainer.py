@@ -1,0 +1,338 @@
+"""The DP-MF trainer: the paper's overall procedure (Figs. 6 and 10).
+
+Counterpart of ``repro/core/trainer.py``, in memory.  Schedule:
+
+  epoch 0   : standard (unpruned) training; no thresholds exist yet
+  after it  : measure (mu, sigma) of P and Q -> T_p, T_q      (§4.2, once)
+              rearrange the latent axis by joint sparsity      (§4.3, once)
+  epoch 1.. : dynamically pruned training                      (§4.4)
+
+The dense baseline is the same trainer at ``pruning_rate = 0``.  Everything
+runs on ``cuda`` unless the trainer is given ``device="cpu"``; on the card
+the fused SGD step (``use_fused_kernel=True`` with ``optimizer="sgd"``)
+goes through the hand-written ``fused_mf_sgd`` kernel.
+
+Not ported yet, and refused with ``NotImplementedError`` rather than run as
+something else: the out-of-core store mode (ROADMAP A5), the implicit and
+BPR objectives (A4) and per-epoch ranking metrics (A3).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import checkpoint as ckpt_lib
+from repro_torch.core import mf, rearrange, threshold
+from repro_torch.data import loader
+from repro_torch.data.ratings import RatingsDataset, build_user_history
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim.optimizers import RowOptimizer
+from repro_torch.optim.schedules import twin_learners_mask
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    k: int = 50
+    epochs: int = 15
+    batch_size: int = 4096
+    lr: float = 0.05
+    lam: float = 0.02
+    pruning_rate: float = 0.0          # 0 disables pruning (dense baseline)
+    optimizer: str = "adagrad"         # sgd | momentum | adagrad | adadelta | adam
+    strategy: str = "standard"         # standard | twin  (paper §5.3)
+    init_method: str = "normal"        # normal | uniform | libmf
+    variant: str = "funk"              # funk | bias | svdpp
+    objective: str = "explicit"        # implicit and bpr: ROADMAP A4
+    use_fused_kernel: bool = False     # the fused kernel for sgd without SVD++
+    epoch_mode: str = "scan"           # scan: device-resident epoch loop
+    #                                  # python: per-batch host loop
+    seed: int = 0
+    eval_batch_size: int = 8192
+    max_hist: int = 32                 # svd++ implicit history length
+    rearrange: bool = True             # Alg. 1; False = ablation
+    ranking_topk: int = 0              # > 0: ROADMAP A3
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every_epochs: int = 0   # 0 = only final
+    keep_checkpoints: int = 3
+    store_dir: Optional[str] = None    # out-of-core training: ROADMAP A5
+
+
+@dataclasses.dataclass
+class EpochRecord:
+    """One epoch's logged measurements (``DPMFTrainer.history`` entries)."""
+
+    epoch: int
+    wall_time_s: float
+    train_abs_err: float
+    test_mae: float
+    work_fraction: float   # mean k_eff / k: the work-proportional cost
+    t_p: float
+    t_q: float
+
+
+def _check_supported(config: TrainConfig) -> None:
+    if config.epoch_mode not in ("scan", "python"):
+        raise ValueError(f"unknown epoch_mode {config.epoch_mode!r}")
+    if config.objective not in ("explicit", "implicit", "bpr"):
+        raise ValueError(f"unknown objective {config.objective!r}")
+    if config.objective != "explicit":
+        raise NotImplementedError(
+            f"objective {config.objective!r} is not ported yet (ROADMAP A4); "
+            "the port trains the explicit objective")
+    if config.store_dir is not None:
+        raise NotImplementedError(
+            "store-backed (out-of-core) training is not ported yet (ROADMAP A5)")
+    if config.ranking_topk > 0:
+        raise NotImplementedError(
+            "per-epoch ranking metrics are not ported yet (ROADMAP A3)")
+
+
+class DPMFTrainer:
+    """End-to-end trainer implementing the paper, with checkpoint/restart.
+
+    ``params`` and ``opt_state`` are public: a caller may replace ``params``
+    (for example with factors carried over by ``mf.params_from_numpy``)
+    before :meth:`run`, and then rebuilds ``opt_state`` with
+    ``mf.init_opt_state(trainer.params, trainer.opt)``.
+    """
+
+    def __init__(
+        self,
+        config: TrainConfig,
+        train_ds: Optional[RatingsDataset] = None,
+        test_ds: Optional[RatingsDataset] = None,
+        *,
+        device: DeviceLike = None,
+    ):
+        _check_supported(config)
+        if train_ds is None:
+            raise ValueError("train_ds is required (store mode is ROADMAP A5)")
+        self.config = config
+        self.device = resolve_device(device)
+        self.opt = RowOptimizer(name=config.optimizer)
+        self.train_ds = train_ds
+        self.test_ds = test_ds
+        self.hist = (
+            build_user_history(train_ds, config.max_hist) if config.variant == "svdpp" else None
+        )
+        self._hist_dev = (
+            None if self.hist is None
+            else torch.as_tensor(self.hist, dtype=torch.int64).to(self.device)
+        )
+        self._packed_train = self._packed_eval = None
+        if config.epoch_mode == "scan":
+            # upload the ratings once; the batch size is clamped so a tiny
+            # dataset trains as one batch per epoch instead of zero steps
+            self._packed_train = loader.pack_ratings(
+                train_ds, min(config.batch_size, max(len(train_ds), 1)), device=self.device)
+            if test_ds is not None:
+                self._packed_eval = loader.pack_eval_batches(
+                    test_ds, config.eval_batch_size, device=self.device)
+
+        generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.params = mf.init_params(
+            generator, train_ds.num_users, train_ds.num_items, config.k,
+            variant=config.variant, init_method=config.init_method,
+            global_mean=train_ds.global_mean, device=self.device,
+        )
+        self.opt_state = mf.init_opt_state(self.params, self.opt)
+        self.t_p = self._scalar(0.0)
+        self.t_q = self._scalar(0.0)
+        self.perm: Optional[torch.Tensor] = None
+        # the joint sparsity (Eq. 10) of the latent dims in ``perm`` order,
+        # set by calibrate(); two runs whose perms differ can show it was a
+        # near-tie
+        self.joint_sparsity: Optional[torch.Tensor] = None
+        self.epoch = 0
+        self.history: List[EpochRecord] = []
+        self._ckpt = (
+            ckpt_lib.AsyncCheckpointer(config.checkpoint_dir, keep=config.keep_checkpoints)
+            if config.checkpoint_dir else None
+        )
+
+    def _scalar(self, value) -> torch.Tensor:
+        return torch.as_tensor(value, dtype=torch.float32).to(self.device)
+
+    # -- checkpoint/restart ------------------------------------------------
+    def _state_tree(self) -> Dict[str, Any]:
+        perm = self.perm
+        if perm is None:
+            perm = torch.arange(self.config.k, dtype=torch.int32, device=self.device)
+        return {"params": self.params, "opt_state": self.opt_state,
+                "t_p": self.t_p, "t_q": self.t_q, "perm": perm}
+
+    def save(self, step: int) -> None:
+        """Checkpoint the state tree as ``step`` (asynchronously)."""
+        if self._ckpt is None:
+            return
+        metadata = {"epoch": self.epoch, "seed": self.config.seed,
+                    "pruning_rate": self.config.pruning_rate}
+        self._ckpt.save(step, self._state_tree(), metadata=metadata)
+
+    def maybe_restore(self) -> bool:
+        """Resume from the newest checkpoint in ``checkpoint_dir``, if any.
+        Reads the reference trainer's checkpoints as well as the port's."""
+        directory = self.config.checkpoint_dir
+        if directory is None or ckpt_lib.latest_step(directory) is None:
+            return False
+        tree, meta = ckpt_lib.restore(directory, self._state_tree())
+
+        def up(value):
+            return None if value is None else torch.as_tensor(value).to(self.device)
+
+        self.params = mf.MFParams(*(up(v) for v in tree["params"]))
+        self.opt_state = mf.MFOptState(*(
+            None if state is None else {key: up(v) for key, v in state.items()}
+            for state in tree["opt_state"]
+        ))
+        self.t_p = self._scalar(tree["t_p"])
+        self.t_q = self._scalar(tree["t_q"])
+        self.perm = up(tree["perm"])
+        self.epoch = int(meta["epoch"])
+        return True
+
+    # -- the paper's one-time calibration (after epoch 0) --------------------
+    def calibrate(self) -> None:
+        """Solve ``(T_p, T_q)`` (Eq. 7/8) and permute the latent axis by
+        joint sparsity (Alg. 1) in the factors and in every 2-D optimizer
+        state of width k, in place and in row chunks."""
+        cfg = self.config
+        if cfg.pruning_rate <= 0.0:
+            return
+        self.t_p, self.t_q = threshold.thresholds_from_matrices(
+            self.params.p, self.params.q, cfg.pruning_rate)
+        if not cfg.rearrange:  # ablation: prune without Algorithm 1
+            self.perm = torch.arange(cfg.k, dtype=torch.int32, device=self.device)
+            return
+        result = rearrange.rearrangement(self.params.p, self.params.q, self.t_p, self.t_q)
+        self.perm, self.joint_sparsity = result.perm, result.joint_sparsity
+        tables = [self.params.p, self.params.q]
+        if self.params.implicit is not None:
+            tables.append(self.params.implicit)
+        for state in (self.opt_state.p, self.opt_state.q, self.opt_state.implicit):
+            for value in (state or {}).values():
+                if value.dim() == 2 and value.shape[1] == cfg.k:
+                    tables.append(value)
+        rearrange.apply_perm_tree(tables, self.perm)
+
+    # -- epochs --------------------------------------------------------------
+    def run_epoch(self) -> EpochRecord:
+        cfg = self.config
+        pruning_active = cfg.pruning_rate > 0.0 and self.epoch >= 1
+        t_p = self.t_p if pruning_active else self._scalar(0.0)
+        t_q = self.t_q if pruning_active else self._scalar(0.0)
+        dim_mask = (
+            twin_learners_mask(cfg.k, self.epoch, device=self.device)
+            if cfg.strategy == "twin"
+            else torch.ones((cfg.k,), dtype=torch.float32, device=self.device)
+        )
+        start = time.perf_counter()
+        if cfg.epoch_mode == "scan":
+            batches = self._packed_train.epoch_batches(cfg.seed, self.epoch)
+            self.params, self.opt_state, metrics = mf.train_epoch_scan(
+                self.params, self.opt_state, batches, t_p, t_q, cfg.lr, dim_mask,
+                self._hist_dev, opt=self.opt, lam=cfg.lam,
+                use_fused_kernel=cfg.use_fused_kernel,
+            )
+            # the epoch's single host sync: two scalars
+            abs_err = float(metrics["abs_err"])
+            work = float(metrics["work_fraction"])
+        else:
+            # per-batch host loop; the metrics still accumulate on the
+            # device and are read once after the loop
+            err_sum = self._scalar(0.0)
+            work_sum = self._scalar(0.0)
+            steps = 0
+            for batch_np in loader.iterate_batches(
+                self.train_ds, cfg.batch_size, seed=cfg.seed, epoch=self.epoch, hist=self.hist,
+            ):
+                batch = {key: torch.as_tensor(value).to(self.device)
+                         for key, value in batch_np.items()}
+                self.params, self.opt_state, metrics = mf.train_step(
+                    self.params, self.opt_state, batch, t_p, t_q, cfg.lr, dim_mask,
+                    opt=self.opt, lam=cfg.lam, use_fused_kernel=cfg.use_fused_kernel,
+                )
+                err_sum = err_sum + metrics["abs_err"]
+                work_sum = work_sum + metrics["work_fraction"]
+                steps += 1
+            abs_err = float(err_sum) / max(steps, 1)
+            work = float(work_sum) / max(steps, 1)
+        wall = time.perf_counter() - start
+
+        test_mae = self.evaluate(t_p, t_q) if self.test_ds is not None else float("nan")
+        record = EpochRecord(
+            epoch=self.epoch, wall_time_s=wall, train_abs_err=abs_err, test_mae=test_mae,
+            work_fraction=work, t_p=float(t_p), t_q=float(t_q),
+        )
+        self.history.append(record)
+        if self.epoch == 0:
+            self.calibrate()  # the paper: once, right after the first epoch
+        self.epoch += 1
+        if (self._ckpt is not None and cfg.checkpoint_every_epochs
+                and self.epoch % cfg.checkpoint_every_epochs == 0):
+            self.save(self.epoch)
+        return record
+
+    def run(self) -> List[EpochRecord]:
+        """Train the remaining epochs, then save a final checkpoint."""
+        for _ in range(self.epoch, self.config.epochs):
+            self.run_epoch()
+        self.finish()
+        return self.history
+
+    def finish(self) -> None:
+        """Save a final checkpoint and wait until it is published (nothing
+        without ``checkpoint_dir``)."""
+        if self._ckpt is not None:
+            self.save(self.epoch)
+            self._ckpt.wait()
+
+    def evaluate(self, t_p=None, t_q=None) -> float:
+        """Test MAE (Eq. 12) at the given (default: current) thresholds."""
+        if self.test_ds is None:
+            return float("nan")
+        t_p = self.t_p if t_p is None else t_p
+        t_q = self.t_q if t_q is None else t_q
+        if self.config.epoch_mode == "scan":
+            total, count = mf.eval_epoch_scan(self.params, self._packed_eval, t_p, t_q,
+                                              self._hist_dev)
+            return float(total) / max(float(count), 1.0)
+        total = self._scalar(0.0)
+        count = self._scalar(0.0)
+        for batch_np in loader.iterate_batches(
+            self.test_ds, self.config.eval_batch_size, shuffle=False,
+            drop_remainder=False, hist=self.hist,
+        ):
+            batch = {key: torch.as_tensor(value).to(self.device)
+                     for key, value in batch_np.items()}
+            s, c = mf.eval_mae(self.params, batch, t_p, t_q)
+            total = total + s
+            count = count + c
+        return float(total) / max(float(count), 1.0)
+
+    # -- summary metrics matching the paper's Eqs. 12-14 ---------------------
+    def total_train_time(self) -> float:
+        return sum(r.wall_time_s for r in self.history)
+
+    def mean_work_fraction(self) -> float:
+        pruned = [r.work_fraction for r in self.history if r.epoch >= 1]
+        return float(np.mean(pruned)) if pruned else 1.0
+
+
+def percentage_mae(mae_accelerated: float, mae_original: float) -> float:
+    """Eq. 13."""
+    return (mae_accelerated - mae_original) / mae_original * 100.0
+
+
+def work_speedup(history: List[EpochRecord]) -> float:
+    """Work-proportional speedup: dense MACs over executed MACs across the
+    whole run (epoch 0 is always dense, as in the paper)."""
+    total = len(history)
+    if total == 0:
+        return 1.0
+    executed = sum(r.work_fraction for r in history)
+    return total / max(executed, 1e-9)

@@ -24,14 +24,24 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("pruned_matmul", "pruned_topk")
+SOURCES = ("fused_mf_sgd", "pruned_matmul", "pruned_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
+_F = ctypes.c_float
 _SIGNATURES = {
+    "fused_mf_sgd": {
+        # p_rows, q_rows, rating, bias_u, bias_i, weight, t_p, t_q, mu, lr, lam,
+        # new_p, new_q, new_bu, new_bi, err, b, k, dtype, stream
+        "fused_mf_sgd_launch": (
+            [_P] * 9 + [_F, _F] + [_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int, _P],
+            ctypes.c_int,
+        ),
+    },
     "pruned_matmul": {
         # p, q, r_u, r_i, out, m, n, k, in_dtype, out_dtype, stream
         "pruned_matmul_launch": (

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.ranks import effective_ranks
 from repro_torch.device import DeviceLike, check_on, resolve_device
+from repro_torch.kernels.fused_mf_sgd import Result, fused_mf_sgd_rows
 from repro_torch.kernels.pruned_matmul import pruned_matmul_ranked
 from repro_torch.kernels.pruned_topk import (  # noqa: F401  (layout helpers)
     TOPK_MAX,
@@ -72,4 +73,45 @@ def pruned_topk(
     return pruned_topk_ranked(
         p.float().contiguous(), q.float().contiguous(), r_u, r_i, bias, topk,
         block_n=block_n,
+    )
+
+
+def fused_mf_sgd(
+    p_rows: torch.Tensor,
+    q_rows: torch.Tensor,
+    ratings: torch.Tensor,
+    t_p,
+    t_q,
+    *,
+    lr: float,
+    lam: float,
+    bias_u: Optional[torch.Tensor] = None,
+    bias_i: Optional[torch.Tensor] = None,
+    global_mean=0.0,
+    weight: Optional[torch.Tensor] = None,
+    device: DeviceLike = None,
+) -> Result:
+    """Fused Alg. 2 + Alg. 3 over a batch of gathered rows.
+
+    Returns ``(new_p_rows, new_q_rows, new_bias_u, new_bias_i, err)`` with
+    ``err`` shaped (B,); the bias outputs are None when the inputs are.
+    Per-row biases and the global mean fold into the prediction (BiasSVD);
+    ``weight`` gates the updates.  Thresholds and the global mean may be
+    floats or tensors; tensors already on ``device`` cost no host sync.
+    """
+    dev = resolve_device(device)
+    check_on(dev, p_rows=p_rows, q_rows=q_rows, ratings=ratings, bias_u=bias_u,
+             bias_i=bias_i, weight=weight)
+
+    def scalar(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
+
+    has_bias = bias_u is not None
+    return fused_mf_sgd_rows(
+        p_rows.contiguous(), q_rows.contiguous(), ratings.float().contiguous(),
+        scalar(t_p), scalar(t_q), lr=lr, lam=lam,
+        bias_u=bias_u.float().contiguous() if has_bias else None,
+        bias_i=bias_i.float().contiguous() if has_bias else None,
+        global_mean=scalar(global_mean) if has_bias else None,
+        weight=None if weight is None else weight.float().contiguous(),
     )

@@ -1,8 +1,10 @@
 """Dense PyTorch oracles for the kernels, exact to the paper's loops.
 
-Counterpart of ``repro/kernels/ref.py`` (serving subset).  These functions
-materialize what the kernels never do (the (m, n) score matrix) and are what
-the tests hold every path against; no serving path calls them.
+Counterpart of ``repro/kernels/ref.py`` (all of it but ``bpr_step_ref``,
+which comes with the BPR workload).  These functions materialize what the
+kernels never do (the (m, n) score matrix, the (B, k) masks) and are what the
+tests hold every path against; :func:`fused_mf_sgd_ref` is also the plain
+version of the fused training kernel, which a CPU tensor runs.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.ranks import rank_mask
+from repro_torch.core.ranks import effective_ranks, rank_mask
 
 
 def masked_factors(rows: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
@@ -52,6 +54,54 @@ def pruned_pair_dot_ref(p_rows, q_rows, r_u, r_i) -> torch.Tensor:
     return torch.sum(pm * qm, dim=-1)
 
 
+def fused_mf_sgd_ref(
+    p_rows: torch.Tensor,   # (b, k) gathered user factors
+    q_rows: torch.Tensor,   # (b, k) gathered item factors
+    ratings: torch.Tensor,  # (b,)
+    t_p,
+    t_q,
+    *,
+    lr: float,
+    lam: float,
+    bias_u: Optional[torch.Tensor] = None,   # (b,) gathered user biases
+    bias_i: Optional[torch.Tensor] = None,   # (b,) gathered item biases
+    global_mean=0.0,
+    weight: Optional[torch.Tensor] = None,   # (b,) update gate
+):
+    """Alg. 2 + Alg. 3 fused: masked dot, error, masked SGD row updates.
+
+    Returns ``(new_p_rows, new_q_rows, new_bias_u, new_bias_i, err)``; the
+    bias outputs are None when the inputs are.  Ranks come from the current
+    row values; the update touches only ``t < min(r_u, r_i)``.  ``weight``
+    scales the updates only (0 = inert row); the prediction, biases and
+    global mean included, is always the full model output.
+    """
+    k = p_rows.shape[-1]
+    r_u = effective_ranks(p_rows, t_p)
+    r_i = effective_ranks(q_rows, t_q)
+    mask = rank_mask(torch.minimum(r_u, r_i), k, torch.float32)
+    w = (
+        torch.ones((p_rows.shape[0],), dtype=torch.float32, device=p_rows.device)
+        if weight is None else weight.float()
+    )
+    pf, qf = p_rows.float(), q_rows.float()
+    pred = torch.sum(pf * qf * mask, dim=-1)
+    if bias_u is not None:
+        mu = torch.as_tensor(global_mean, dtype=torch.float32, device=pred.device)
+        pred = pred + mu.reshape(()) + bias_u.float() + bias_i.float()
+    err = ratings.float() - pred
+
+    wm = mask * w[:, None]
+    new_p = pf + lr * (err[:, None] * qf - lam * pf) * wm
+    new_q = qf + lr * (err[:, None] * pf - lam * qf) * wm
+    new_bu = new_bi = None
+    if bias_u is not None:
+        buf, bif = bias_u.float(), bias_i.float()
+        new_bu = (buf + lr * (err - lam * buf) * w).to(bias_u.dtype)
+        new_bi = (bif + lr * (err - lam * bif) * w).to(bias_i.dtype)
+    return new_p.to(p_rows.dtype), new_q.to(q_rows.dtype), new_bu, new_bi, err
+
+
 def early_stop_dot_loop(
     p_row: np.ndarray, q_row: np.ndarray, t_p: float, t_q: float
 ) -> float:
@@ -62,3 +112,25 @@ def early_stop_dot_loop(
             break
         acc += float(p_row[t]) * float(q_row[t])
     return acc
+
+
+def early_stop_update_loop(
+    p_row: np.ndarray,
+    q_row: np.ndarray,
+    rating: float,
+    t_p: float,
+    t_q: float,
+    lr: float,
+    lam: float,
+):
+    """Algorithm 3 (scalar): prediction with Alg. 2 then truncated Eq. 5/6."""
+    pred = early_stop_dot_loop(p_row, q_row, t_p, t_q)
+    err = rating - pred
+    new_p = p_row.astype(np.float64).copy()
+    new_q = q_row.astype(np.float64).copy()
+    for t in range(p_row.shape[0]):
+        if abs(float(p_row[t])) < t_p or abs(float(q_row[t])) < t_q:
+            break
+        new_p[t] = p_row[t] + lr * (err * q_row[t] - lam * p_row[t])
+        new_q[t] = q_row[t] + lr * (err * p_row[t] - lam * q_row[t])
+    return new_p, new_q, err

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import mf
+from repro_torch.core import mf, trainer
 from repro_torch.core.ranks import effective_ranks
-from repro_torch.kernels import ops, pruned_matmul, pruned_topk, ref
+from repro_torch.data.ratings import synthetic_ratings, train_test_split
+from repro_torch.kernels import fused_mf_sgd, ops, pruned_matmul, pruned_topk, ref
+from repro_torch.optim.optimizers import RowOptimizer
 from repro_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.gpu
@@ -133,3 +135,129 @@ def test_predict_all_items_on_cuda(cuda):
     cpu_params = mf.MFParams(*(None if v is None else v.cpu() for v in params))
     want = mf.predict_all_items(cpu_params, users.cpu(), 0.05, 0.05, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def _sgd_args(rng, b, k, dev, *, dtype=torch.float32, grid=False, bias_weight=False):
+    draw = (lambda *s: _grid(rng, s, dev)) if grid else (lambda *s: _normal(rng, s, dev))
+    args = [draw(b, k).to(dtype), draw(b, k).to(dtype),
+            torch.tensor(rng.integers(1, 6, b).astype(np.float32), device=dev)]
+    extra = {}
+    if bias_weight:
+        extra = dict(bias_u=draw(b), bias_i=draw(b), global_mean=torch.tensor([3.0], device=dev),
+                     weight=torch.tensor((rng.integers(0, 3, b) / 2).astype(np.float32), device=dev))
+    return args, extra
+
+
+@pytest.mark.parametrize("b,k", [(1001, 16), (33, 50), (4099, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [0.0, 0.06])
+@pytest.mark.parametrize("bias_weight", [False, True])
+def test_fused_mf_sgd_kernel_matches_plain(cuda, b, k, dtype, t, bias_weight):
+    rng = np.random.default_rng(b + k)
+    args, extra = _sgd_args(rng, b, k, cuda, dtype=dtype, bias_weight=bias_weight)
+    tt = torch.tensor([t], device=cuda)
+    before = fused_mf_sgd.launches
+    got = fused_mf_sgd.fused_mf_sgd_rows(*args, tt, tt, lr=0.05, lam=0.02, **extra)
+    want = fused_mf_sgd.fused_mf_sgd_plain(*args, tt, tt, lr=0.05, lam=0.02, **extra)
+    torch.cuda.synchronize()
+    assert fused_mf_sgd.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,k", [(3000, 128), (77, 50)])
+def test_fused_mf_sgd_kernel_grid_bitwise(cuda, b, k):
+    rng = np.random.default_rng(7)
+    args, extra = _sgd_args(rng, b, k, cuda, grid=True, bias_weight=True)
+    t_p, t_q = torch.tensor([1 / 8], device=cuda), torch.tensor([1 / 4], device=cuda)
+    got = fused_mf_sgd.fused_mf_sgd_rows(*args, t_p, t_q, lr=1 / 16, lam=1 / 32, **extra)
+    want = fused_mf_sgd.fused_mf_sgd_plain(*args, t_p, t_q, lr=1 / 16, lam=1 / 32, **extra)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fused_mf_sgd_raises_on_misuse(cuda):
+    rng = np.random.default_rng(0)
+    (p, q, r), extra = _sgd_args(rng, 64, 32, cuda, bias_weight=True)
+    t = torch.tensor([0.0], device=cuda)
+    rows = fused_mf_sgd.fused_mf_sgd_rows
+    with pytest.raises(ValueError, match="must lie on"):
+        rows(p, q, r, torch.tensor([0.0]), t, lr=0.1, lam=0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rows(p.t().contiguous().t(), q, r, t, t, lr=0.1, lam=0.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rows(p.double(), q.double(), r, t, t, lr=0.1, lam=0.0)
+    with pytest.raises(ValueError, match="both bias columns"):
+        rows(p, q, r, t, t, lr=0.1, lam=0.0, bias_u=extra["bias_u"])
+    wide = torch.zeros((2, fused_mf_sgd.MAX_K + 1), device=cuda)
+    with pytest.raises(ValueError, match="k <="):
+        rows(wide, wide, r[:2], t, t, lr=0.1, lam=0.0)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ops.fused_mf_sgd(p.cpu(), q.cpu(), r.cpu(), 0.0, 0.0, lr=0.1, lam=0.0)
+
+
+@pytest.mark.parametrize("variant,opt_name,fused,weighted", [
+    ("funk", "sgd", True, False), ("bias", "sgd", True, True),
+    ("funk", "adagrad", False, True), ("svdpp", "momentum", False, False)])
+def test_train_step_on_cuda_matches_cpu(cuda, monkeypatch, variant, opt_name, fused, weighted):
+    """Two steps on the card against the same on the CPU, at 1e-5.  (Adam is
+    left out: its first step divides g by |g| + 1e-8, which turns a rounding
+    difference in a near-zero gradient into a step of size lr.)"""
+    m, n, k, b = 300, 200, 64, 2048
+    g = torch.Generator().manual_seed(3)
+    cpu = mf.init_params(g, m, n, k, variant=variant, global_mean=3.0, device="cpu")
+    gpu = mf.MFParams(*(None if v is None else v.to(cuda) for v in cpu))
+    opt = RowOptimizer(opt_name)
+    cpu_state, gpu_state = mf.init_opt_state(cpu, opt), mf.init_opt_state(gpu, opt)
+    rng = np.random.default_rng(4)
+    batch = {"user": torch.tensor(rng.integers(0, m, b)), "item": torch.tensor(rng.integers(0, n, b)),
+             "rating": torch.tensor(rng.integers(1, 6, b).astype(np.float32))}
+    if weighted:
+        batch["weight"] = torch.tensor((rng.integers(0, 3, b) / 2).astype(np.float32))
+    if variant == "svdpp":
+        batch["hist"] = torch.tensor(rng.integers(0, n + 1, (b, 6)))
+    gpu_batch = {key: v.to(cuda) for key, v in batch.items()}
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(fused_mf_sgd, "fused_mf_sgd_plain", no_plain)
+    before = fused_mf_sgd.launches
+    for t in (0.0, 0.05):
+        mf.train_step(gpu, gpu_state, gpu_batch, torch.tensor(t, device=cuda),
+                      torch.tensor(t, device=cuda), 0.05, torch.ones(k, device=cuda), opt=opt,
+                      lam=0.02, use_fused_kernel=fused)
+        monkeypatch.undo()
+        mf.train_step(cpu, cpu_state, batch, torch.tensor(t), torch.tensor(t), 0.05, torch.ones(k),
+                      opt=opt, lam=0.02, use_fused_kernel=fused)
+        monkeypatch.setattr(fused_mf_sgd, "fused_mf_sgd_plain", no_plain)
+    assert fused_mf_sgd.launches == before + (2 if fused else 0)
+    for name, gv, cv in zip(cpu._fields, gpu, cpu):
+        if cv is not None:
+            torch.testing.assert_close(gv.cpu(), cv, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_trainer_on_cuda_matches_cpu(cuda):
+    train, test = train_test_split(synthetic_ratings(300, 200, 12000, seed=0), 0.2, seed=0)
+    cfg = trainer.TrainConfig(k=32, epochs=3, batch_size=512, pruning_rate=0.3, optimizer="sgd",
+                              use_fused_kernel=True, lr=0.01)
+    rng = np.random.default_rng(0)
+    init = {"p": rng.normal(0, 0.1, (300, 32)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (200, 32)).astype(np.float32)}
+    runs = {}
+    for device in ("cpu", cuda):
+        t = trainer.DPMFTrainer(cfg, train, test, device=device)
+        t.params = mf.params_from_numpy(init, device=device)
+        t.opt_state = mf.init_opt_state(t.params, t.opt)
+        before = fused_mf_sgd.launches
+        runs[str(device)] = t.run()
+        launched = fused_mf_sgd.launches - before
+    assert launched == 3 * (len(train) // 512)
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        for field in ("train_abs_err", "test_mae", "work_fraction", "t_p", "t_q"):
+            assert abs(getattr(g, field) - getattr(c, field)) <= 1e-4 * max(abs(getattr(c, field)), 1e-12)

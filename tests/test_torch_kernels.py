@@ -16,7 +16,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.ranks import effective_ranks
 from repro_torch.device import check_on
-from repro_torch.kernels import ops, pruned_matmul, pruned_topk, ref
+from repro_torch.kernels import build, fused_mf_sgd, ops, pruned_matmul, pruned_topk, ref
 
 CSRC = Path(pruned_topk.__file__).parent / "csrc"
 
@@ -183,6 +183,118 @@ def test_public_wrappers_need_a_device():
 
 
 # ---------------------------------------------------------------------------
+# fused_mf_sgd
+# ---------------------------------------------------------------------------
+
+
+def _sgd_inputs(b, k, *, seed=1, grid=False, bias=False, weight=False):
+    rng = np.random.default_rng(seed)
+    draw = (lambda *s: _grid(rng, s)) if grid else (
+        lambda *s: rng.normal(0, 0.1, s).astype(np.float32))
+    out = {"p": draw(b, k), "q": draw(b, k),
+           "r": (rng.integers(1, 6, (b,)) if grid else rng.uniform(1, 5, (b,))).astype(np.float32)}
+    if bias:
+        out.update(bu=draw(b), bi=draw(b), mu=np.float32(3.0 if grid else 3.1))
+    if weight:  # some rows inert, some half-weighted
+        out["w"] = (rng.integers(0, 3, (b,)) / 2.0).astype(np.float32)
+    return out
+
+
+def _reference_sgd(x, t, lr, lam, dtype, block_b):
+    """(interpret-mode kernel, dense oracle) answers of the JAX package."""
+    args = (jnp.asarray(x["p"], dtype), jnp.asarray(x["q"], dtype), jnp.asarray(x["r"]))
+    extra = {}
+    if "bu" in x:
+        extra.update(bias_u=jnp.asarray(x["bu"]), bias_i=jnp.asarray(x["bi"]),
+                     global_mean=jnp.float32(x["mu"]))
+    if "w" in x:
+        extra["weight"] = jnp.asarray(x["w"])
+    kernel = jops.fused_mf_sgd(*args, t, t, lr=lr, lam=lam, block_b=block_b,
+                               interpret=True, **extra)
+    oracle = jref.fused_mf_sgd_ref(*args, jnp.float32(t), jnp.float32(t), lr=lr, lam=lam,
+                                   **extra)
+    return kernel, oracle
+
+
+def _port_sgd(x, t, lr, lam, dtype):
+    tdt = getattr(torch, dtype)
+    extra = {}
+    if "bu" in x:
+        extra.update(bias_u=torch.tensor(x["bu"]), bias_i=torch.tensor(x["bi"]),
+                     global_mean=float(x["mu"]))
+    if "w" in x:
+        extra["weight"] = torch.tensor(x["w"])
+    before = fused_mf_sgd.launches
+    out = ops.fused_mf_sgd(torch.tensor(x["p"]).to(tdt), torch.tensor(x["q"]).to(tdt),
+                           torch.tensor(x["r"]), t, t, lr=lr, lam=lam, device="cpu", **extra)
+    assert fused_mf_sgd.launches == before  # CPU tensors never launch
+    return out
+
+
+def _assert_sgd_close(got, want, tol, exact=False):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is None:
+            continue
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if exact:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,k,bb", [(64, 32, 16), (33, 50, 8), (7, 16, 16), (256, 128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [0.0, 0.06])
+def test_fused_mf_sgd_matches_reference(b, k, bb, dtype, t):
+    """The reference's own sweep (tests/test_kernels.py), unbiased and
+    unweighted: the port's plain version against the interpret-mode kernel
+    and the dense oracle."""
+    x = _sgd_inputs(b, k)
+    got = _port_sgd(x, t, 0.05, 0.02, dtype)
+    assert got[2] is None and got[3] is None
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in _reference_sgd(x, t, 0.05, 0.02, getattr(jnp, dtype), bb):
+        _assert_sgd_close(got, want, tol)
+
+
+@pytest.mark.parametrize("bias,weight", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("t", [0.0, 0.06])
+def test_fused_mf_sgd_bias_and_weight(bias, weight, t):
+    x = _sgd_inputs(45, 24, seed=3, bias=bias, weight=weight)
+    got = _port_sgd(x, t, 0.05, 0.02, "float32")
+    for want in _reference_sgd(x, t, 0.05, 0.02, jnp.float32, 16):
+        _assert_sgd_close(got, want, 1e-5)
+    if weight:  # weight-0 rows leave their factors and biases untouched
+        inert = x["w"] == 0
+        np.testing.assert_array_equal(got[0].numpy()[inert], x["p"][inert])
+        if bias:
+            np.testing.assert_array_equal(got[2].numpy()[inert], x["bu"][inert])
+
+
+@pytest.mark.parametrize("t", [0.0, 1 / 8, 3 / 8])
+def test_fused_mf_sgd_grid_bitwise(t):
+    """1/8-grid rows, integer ratings, lr and lam powers of two: every
+    product is exact, so all three formulations agree bitwise."""
+    x = _sgd_inputs(40, 24, seed=4, grid=True, bias=True, weight=True)
+    got = _port_sgd(x, t, 1 / 16, 1 / 32, "float32")
+    for want in _reference_sgd(x, t, 1 / 16, 1 / 32, jnp.float32, 8):
+        _assert_sgd_close(got, want, 0.0, exact=True)
+
+
+def test_fused_mf_sgd_matches_scalar_algorithm_3():
+    """The plain version against the paper's Algorithm 3 transcribed loop."""
+    x = _sgd_inputs(9, 12, seed=5)
+    new_p, new_q, _, _, err = _port_sgd(x, 0.07, 0.05, 0.02, "float32")
+    for row in range(9):
+        want_p, want_q, want_e = ref.early_stop_update_loop(
+            x["p"][row], x["q"][row], float(x["r"][row]), 0.07, 0.07, 0.05, 0.02)
+        np.testing.assert_allclose(new_p[row].numpy(), want_p, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(new_q[row].numpy(), want_q, rtol=1e-5, atol=1e-6)
+        assert abs(float(err[row]) - want_e) < 1e-5
+
+
+# ---------------------------------------------------------------------------
 # the launch geometry around the CUDA kernel (checked here, run on the card)
 # ---------------------------------------------------------------------------
 
@@ -205,3 +317,9 @@ def test_kernel_constants_match_sources():
     assert int(consts["kTopkMax"]) == pruned_topk.TOPK_MAX
     assert int(consts["kBM"]) == pruned_topk.BLOCK_M
     assert int(consts["kBN"]) == pruned_topk.BLOCK_N
+
+
+def test_fused_kernel_constants_match_source():
+    src = (CSRC / "fused_mf_sgd.cu").read_text()
+    assert f"k > {fused_mf_sgd.MAX_K}" in src
+    assert "fused_mf_sgd" in build.SOURCES
