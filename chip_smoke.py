@@ -14,7 +14,9 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    PyTorch versions on the card at the serving path's shapes, without and
    with pruning (T = 0 and T for rate 0.3), plus an exact case on 1/8-grid
    factors, and times kernel, plain version and a PyTorch yardstick with
-   CUDA events (TF32 off); then builds the dpmf model at full size (FunkSVD,
+   CUDA events (TF32 off); times ``pruned_topk`` at top-1, 100, 1024 and
+   4096 and holds the full-size top-4096 launch against the plain version;
+   then builds the dpmf model at full size (FunkSVD,
    k = 128, 100M users x 10M items, float32, random factors from a seed)
    with thresholds for rate 0.3 and serves it through ``ServingEngine``
    (``topk`` for 1024 users at top-100, ``recommend``, 32 requests through
@@ -71,6 +73,7 @@ SEED = 0
 N_USERS, N_ITEMS, K = 100_000_000, 10_000_000, 128   # src/repro/configs/dpmf.py
 RATE = 0.3
 TOPK = 100
+WIDE_TOPK = 4096   # past the 1024 lists the first kernel could keep
 TOPK_USERS, MATMUL_USERS = 256, 64
 PLAIN_BLOCK_N = 65536
 # training main path: dpmf's train_1m batch, lr and lam; sgd + fused kernel
@@ -214,19 +217,34 @@ def serving_path(dev):
         st[label] = dict(ms=ms, plain_ms=plain_ms, yard_ms=yard_ms, bound_ms=b_ms, bound_by=b_by)
 
     # -- breakdown: list length and scoring alone --------------------------------
-    log("## pruned_topk breakdown: the same launch at top-1 and top-1024, and the "
-        "scores alone (pruned_matmul writing the 256 x 10M matrix)")
+    log("## pruned_topk breakdown: the same launch at top-1, top-100, top-1024 and "
+        "top-4096 (selection = top-100 minus top-1), the scores alone (pruned_matmul "
+        "writing the 256 x 10M matrix), and top-4096 held against the plain version")
     for label, t_p, t_q in (("T=0", 0.0, 0.0), (f"rate {RATE}", t_p30, t_q30)):
         r_u, r_i = effective_ranks(p_topk, t_p), effective_ranks(q, t_q)
+        got_s, got_i = pruned_topk.pruned_topk_ranked(p_topk, q, r_u, r_i, zero_bias, WIDE_TOPK)
+        want_s, want_i = pruned_topk.pruned_topk_plain(
+            p_topk, q, r_u, r_i, zero_bias, WIDE_TOPK, block_n=PLAIN_BLOCK_N)
+        torch.cuda.synchronize()
+        st = stats["pruned_topk"]
+        st["err"] = max(st["err"], compare_topk(
+            got_s, got_i, want_s, want_i, f"pruned_topk {label} top-{WIDE_TOPK}"))
+        del got_s, got_i, want_s, want_i
         times = {
             f"top-{n}": time_ms(lambda n=n: pruned_topk.pruned_topk_ranked(
                 p_topk, q, r_u, r_i, zero_bias, n), 3)
-            for n in (1, 1024)
+            for n in (1, TOPK, 1024, WIDE_TOPK)
         }
+        times[f"selection at top-{TOPK}"] = times[f"top-{TOPK}"] - times["top-1"]
         times["scores only"] = time_ms(
             lambda: pruned_matmul.pruned_matmul_ranked(p_topk, q, r_u, r_i), 3)
+        st[label]["breakdown_ms"] = times
         torch.cuda.empty_cache()
-        log(f"  {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+        # the depth the kernel runs each 128-user x 128-item tile to
+        tile_bound = torch.minimum(r_u.view(-1, 128).amax(1)[:, None], r_i.view(-1, 128).amax(1)[None, :])
+        depth = float(((tile_bound + 7) // 8 * 8).float().mean())
+        log(f"  {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+            + f"; mean tile depth {depth:.2f} of {K}")
 
     # -- kernel phase: pruned_matmul -------------------------------------------
     log(f"## pruned_matmul: {MATMUL_USERS} users x {N_ITEMS} items x k={K}, float32 out")
@@ -371,6 +389,7 @@ def serving_path(dev):
             "dense_ms": stats[name]["T=0"]["ms"], "dense_bound_ms": stats[name]["T=0"]["bound_ms"],
         }
         if name == "pruned_topk":
+            row["breakdown_ms"] = st["breakdown_ms"]
             row["yardstick_ms"] = st["yard_ms"]
             row["yardstick"] = "torch.addmm + torch.topk on pre-masked operands (two calls)"
         rows.append(row)

@@ -51,10 +51,10 @@ _SIGNATURES = {
         ),
     },
     "pruned_topk": {
-        # p, q, r_u, r_i, bias, part_s, part_i, out_s, out_i,
+        # p, q, r_u, r_i, bias, part_s, part_i, keys, out_s, out_i,
         # m, n, k, topk, items_per_split, splits, stream
         "pruned_topk_launch": (
-            [_P] * 9 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            [_P] * 10 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
             ctypes.c_int,
         ),

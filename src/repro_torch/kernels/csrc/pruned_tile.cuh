@@ -1,6 +1,5 @@
-// Shared device code of the pruned kernels: one rank-masked fp32 score tile
-// with a per-tile K bound, plus the (score desc, index asc) order and the
-// warp routines that keep a running top-k list under it.
+// Device code of the pruned product kernel: one rank-masked fp32 score tile
+// with a per-tile K bound.
 //
 // score_tile computes, for the BM x BN tile at (row0, col0),
 //     acc[u][i] = sum_{t < min(r_u[u], r_i[i])} p[u, t] * q[i, t]
@@ -20,8 +19,6 @@
 #include <cuda_runtime.h>
 
 namespace pruned {
-
-constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -102,58 +99,5 @@ __device__ __forceinline__ void score_tile(
   }
   __syncthreads();  // every thread has read the bound and ranks before reuse
 }
-
-// The serving order: higher score first, the lower item index on a tie.
-__device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
-
-// Worst entry of a warp's list ls/li[0, len) under the serving order (the
-// lowest position among exact duplicates, which only empty slots can be).
-// Every lane returns the same (ws, wi, wp).
-__device__ __forceinline__ void warp_worst(
-    const float* ls, const int* li, int len, float& ws, int& wi, int& wp) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.0f;
-  int i = 0, pos = -1;
-  for (int j = lane; j < len; j += 32) {
-    const float sj = ls[j];
-    const int ij = li[j];
-    if (pos < 0 || better(s, i, sj, ij)) { s = sj; i = ij; pos = j; }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float s2 = __shfl_xor_sync(kFullMask, s, off);
-    const int i2 = __shfl_xor_sync(kFullMask, i, off);
-    const int p2 = __shfl_xor_sync(kFullMask, pos, off);
-    const bool take = p2 >= 0 && (pos < 0 || better(s, i, s2, i2) ||
-                                  (s == s2 && i == i2 && p2 < pos));
-    if (take) { s = s2; i = i2; pos = p2; }
-  }
-  ws = s; wi = i; wp = pos;
-}
-
-// Fold the candidates a warp flagged in `mask` (lane b holds (cs, ci)) into
-// its list: each one that still beats the current worst replaces it, and the
-// worst is found again.  After warm-up almost every candidate was already
-// rejected by the one compare that built `mask`.
-__device__ __forceinline__ void warp_insert(
-    unsigned mask, float cs, int ci, float* ls, int* li, int len,
-    float& ws, int& wi, int& wp) {
-  const int lane = threadIdx.x & 31;
-  while (mask) {
-    const int b = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const float s = __shfl_sync(kFullMask, cs, b);
-    const int i = __shfl_sync(kFullMask, ci, b);
-    if (better(s, i, ws, wi)) {
-      if (lane == 0) { ls[wp] = s; li[wp] = i; }
-      __syncwarp();
-      warp_worst(ls, li, len, ws, wi, wp);
-    }
-  }
-}
-
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 }  // namespace pruned

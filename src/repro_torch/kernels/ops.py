@@ -18,7 +18,6 @@ from repro_torch.device import DeviceLike, check_on, resolve_device
 from repro_torch.kernels.fused_mf_sgd import Result, fused_mf_sgd_rows
 from repro_torch.kernels.pruned_matmul import pruned_matmul_ranked
 from repro_torch.kernels.pruned_topk import (  # noqa: F401  (layout helpers)
-    TOPK_MAX,
     pruned_topk_ranked,
     stream_topk_tiles,
     tile_catalog,

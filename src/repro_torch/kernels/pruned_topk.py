@@ -13,11 +13,21 @@ operations; pruning shrinks both, the FMAs by the pair work fraction.  The
 TPU kernel carries the running top-k through a sequential item axis and so
 runs one grid row per 128 users, which would leave most of 132 SMs idle.
 The design instead splits the catalog over a grid of (splits x user tiles),
-folds each 128 x 128 score tile into per-user lists that a candidate enters
-only by beating the list's worst (one compare per score after warm-up), and
-merges the per-split lists in a second kernel.  ``topk`` is capped at
-:data:`TOPK_MAX` by the kernel's shared-memory staging lists; above it the
-wrapper raises on CUDA (the CPU path takes any ``topk <= n``).
+one block of 128 users per SM.  A block keeps its users' rows in shared
+memory and streams item factors through a two-stage ``cp.async`` ring, so
+loads overlap the FMAs; each 128-item tile runs only to its rank bound in
+steps of 8.  It filters its scores in registers against each user's bar
+(the last entry of the user's list, raised to a bar pooled from the
+entries that a group of splits publish), appends the few that pass to a per-user
+buffer of :data:`BUFFER` slots in shared memory, and merges buffers into
+the users' sorted lists in device memory as two sorted runs (a warp sorts
+the candidates, and each entry's slot is its index plus a binary-searched
+count of the other run ahead of it).  A second kernel folds the per-split
+lists with the same merge.  No shared-memory array has ``topk`` entries,
+so any ``topk <= n`` runs on CUDA as on the CPU.  The price of a large
+``topk`` is scratch, ``splits x m x topk x 8`` bytes: :func:`split_geometry`
+keeps it within :data:`SCRATCH_BYTES` by taking fewer splits, so above a
+few thousand ``topk`` trades parallelism (blocks in flight) for memory.
 """
 from __future__ import annotations
 
@@ -29,10 +39,11 @@ from repro_torch.kernels import build
 
 launches = 0  # kernel launches by :func:`pruned_topk_ranked` (CUDA only)
 
-TOPK_MAX = 1024  # pruned_topk.cu's kTopkMax
-BLOCK_M = 128    # users per block of the partial kernel
-BLOCK_N = 128    # items per score tile; a split is a multiple of it
-_BLOCKS_PER_SM = 2
+BLOCK_M = 128    # users per block of the partial kernel (kBM)
+BLOCK_N = 128    # items per score tile; a split is a multiple of it (kBN)
+BUFFER = 64      # candidate slots per user in shared memory (kBuf)
+SCRATCH_BYTES = 256 << 20  # cap on the per-split lists, splits x m x topk x 8 B
+BLOCKS_PER_SM = 1  # one partial block per SM (its shared memory)
 
 
 def tile_catalog(qm: torch.Tensor, bias: torch.Tensor, block_n: int):
@@ -83,13 +94,16 @@ def pruned_topk_plain(p, q, r_u, r_i, bias, topk: int, *, block_n: int = 1024):
     return stream_topk_tiles(pm, q_tiles, b_tiles, offs, topk=topk)
 
 
-def split_geometry(m: int, n: int, num_sms: int):
-    """Catalog splits for ``m`` users: about two blocks per SM in all, each
-    split a whole number of ``BLOCK_N`` tiles.  Returns
+def split_geometry(m: int, n: int, num_sms: int, topk: int):
+    """Catalog splits for ``m`` users: about one block per SM in all, each
+    split a whole number of ``BLOCK_N`` tiles, and no more splits than keep
+    the per-split lists (``splits x m x topk`` entries of 8 bytes) within
+    :data:`SCRATCH_BYTES` (one split always).  Returns
     ``(splits, items_per_split)``."""
     user_tiles = -(-m // BLOCK_M)
     tiles = -(-n // BLOCK_N)
-    splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * num_sms // user_tiles)))
+    fit = SCRATCH_BYTES // (8 * m * topk)
+    splits = max(1, min(tiles, -(-BLOCKS_PER_SM * num_sms // user_tiles), fit))
     per = -(-tiles // splits) * BLOCK_N
     return -(-n // per), per
 
@@ -98,11 +112,8 @@ def _launch(p, q, r_u, r_i, bias, topk):
     global launches
     m, k = p.shape
     n = q.shape[0]
-    if not 0 < topk <= min(n, TOPK_MAX):
-        raise ValueError(
-            f"topk must be in [1, {min(n, TOPK_MAX)}] on CUDA (the kernel's "
-            f"ceiling is {TOPK_MAX}), got {topk}"
-        )
+    if not 0 < topk <= n:
+        raise ValueError(f"topk must be in [1, {n}], got {topk}")
     if q.shape[1] != k:
         raise ValueError(f"q {tuple(q.shape)} does not match p {tuple(p.shape)}")
     if r_u.shape != (m,) or r_i.shape != (n,) or bias.shape != (n,):
@@ -120,13 +131,15 @@ def _launch(p, q, r_u, r_i, bias, topk):
     if m == 0:
         return out_s, out_i
     num_sms = torch.cuda.get_device_properties(p.device).multi_processor_count
-    splits, per = split_geometry(m, n, num_sms)
+    splits, per = split_geometry(m, n, num_sms, topk)
     part_s = torch.empty((splits, m, topk), dtype=torch.float32, device=p.device)
     part_i = torch.empty((splits, m, topk), dtype=torch.int32, device=p.device)
+    keys = torch.empty((splits, m), dtype=torch.int64, device=p.device)
     lib = build.library("pruned_topk")
     err = lib.pruned_topk_launch(
         p.data_ptr(), q.data_ptr(), r_u.data_ptr(), r_i.data_ptr(), bias.data_ptr(),
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        part_s.data_ptr(), part_i.data_ptr(), keys.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(),
         m, n, k, topk, per, splits,
         torch.cuda.current_stream(p.device).cuda_stream,
     )

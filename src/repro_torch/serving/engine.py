@@ -33,7 +33,6 @@ from repro_torch.core import mf
 from repro_torch.core.ranks import effective_ranks, rank_mask
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.pruned_topk import (
-    TOPK_MAX,
     pruned_topk_ranked,
     stream_topk_tiles,
     tile_catalog,
@@ -274,9 +273,8 @@ class ServingEngine:
 
     @staticmethod
     def _validate_for(snap: _Snapshot, user_ids, topk: int) -> np.ndarray:
-        limit = snap.n_items if snap.device.type == "cpu" else min(snap.n_items, TOPK_MAX)
-        if not 0 < topk <= limit:
-            raise ValueError(f"topk must be in [1, {limit}] on {snap.device.type}, got {topk}")
+        if not 0 < topk <= snap.n_items:
+            raise ValueError(f"topk must be in [1, {snap.n_items}], got {topk}")
         ids = np.asarray(user_ids, np.int64).reshape(-1)
         # checked on the host before any gather: an out-of-range index on
         # CUDA is a device-side assert that poisons the context

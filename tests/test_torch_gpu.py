@@ -56,7 +56,9 @@ def test_pruned_matmul_kernel_matches_plain(cuda, m, n, k, dtype, out_dtype, t):
 
 @pytest.mark.parametrize("m,n,k,t,topk", [
     (40, 700, 24, 0.0, 9), (40, 700, 24, 0.05, 700), (3, 50, 8, 0.0, 50),
-    (300, 20000, 128, 0.05, 100), (1, 3000, 64, 0.02, 1024)])
+    (300, 20000, 128, 0.05, 100), (1, 3000, 64, 0.02, 1024),
+    (129, 129, 40, 0.0, 1), (1, 50000, 128, 0.0, 2000), (256, 100000, 128, 0.05, 4096),
+    (70, 3000, 30, 0.02, 50), (50, 5000, 200, 0.05, 300), (20, 2000, 130, 0.0, 64)])
 def test_pruned_topk_kernel_matches_oracle(cuda, m, n, k, t, topk):
     rng = np.random.default_rng(1)
     p, q = _normal(rng, (m, k), cuda), _normal(rng, (n, k), cuda)
@@ -76,7 +78,8 @@ def test_pruned_topk_kernel_matches_oracle(cuda, m, n, k, t, topk):
 
 @pytest.mark.parametrize("m,n,k,t_p,t_q,topk", [
     (20, 80, 24, 1 / 8, 1 / 8, 17), (200, 3000, 24, 0.0, 0.0, 1024),
-    (200, 30000, 64, 1 / 16, 1 / 8, 100), (256, 200000, 128, 0.0, 0.0, 100)])
+    (200, 30000, 64, 1 / 16, 1 / 8, 100), (256, 200000, 128, 0.0, 0.0, 100),
+    (129, 50000, 32, 0.0, 0.0, 3000), (1, 129, 8, 0.0, 0.0, 1), (64, 20000, 200, 1 / 8, 1 / 8, 100)])
 def test_pruned_topk_kernel_grid_ties_bitwise(cuda, m, n, k, t_p, t_q, topk):
     """1/8-grid factors with duplicated items: exact ties, exact scores."""
     rng = np.random.default_rng(2)
@@ -90,11 +93,56 @@ def test_pruned_topk_kernel_grid_ties_bitwise(cuda, m, n, k, t_p, t_q, topk):
     assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_s.cpu(), want_s)
 
 
-def test_pruned_topk_ceiling_raises_on_cuda(cuda):
-    n = pruned_topk.TOPK_MAX + 10
-    p, q = torch.ones((2, 4), device=cuda), torch.ones((n, 4), device=cuda)
-    with pytest.raises(ValueError, match="ceiling"):
-        ops.pruned_topk(p, q, 0.0, 0.0, pruned_topk.TOPK_MAX + 1)
+@pytest.mark.parametrize("topk", [1025, 3000, 6000])
+def test_pruned_topk_wide_lists_match_oracle(cuda, topk):
+    """No topk ceiling on CUDA: up to topk = n, through the kernel."""
+    rng = np.random.default_rng(3)
+    m, n, k = 40, 6000, 32
+    p, q = _normal(rng, (m, k), cuda), _normal(rng, (n, k), cuda)
+    bias = _normal(rng, (n,), cuda, scale=0.3)
+    before = pruned_topk.launches
+    got_s, got_i = ops.pruned_topk(p, q, 0.05, 0.05, topk, item_bias=bias)
+    r_u, r_i = effective_ranks(p, 0.05), effective_ranks(q, 0.05)
+    want_s, want_i = ref.pruned_topk_ref(p, q, r_u, r_i, topk, item_bias=bias)
+    torch.cuda.synchronize()
+    assert pruned_topk.launches == before + 1
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
+    near = (got_s - want_s).abs() <= 1e-5 + 1e-5 * want_s.abs()
+    assert not torch.any((got_i != want_i) & ~near)
+    if topk == n:
+        assert torch.equal(got_i.sort(dim=1).values.cpu(),
+                           torch.arange(n, dtype=torch.int32).expand(m, n))
+
+
+@pytest.mark.parametrize("case,m,n,k,topk,one_split", [
+    ("ascending", 300, 20000, 8, 100, False),   # every item a candidate
+    ("ascending", 129, 5000, 8, 1500, False),
+    ("ascending", 64, 20000, 8, 100, True),
+    ("equal", 129, 3000, 8, 1030, False),       # only the index decides
+    ("equal", 1, 129, 8, 1, False),
+    ("equal", 2, 20000, 8, 300, True),
+    ("normal", 129, 129, 24, 1, False),
+    ("normal", 1, 129, 24, 129, False),
+    ("normal", 64, 20000, 32, 100, True)])
+def test_pruned_topk_kernel_buffer_stress(cuda, monkeypatch, case, m, n, k, topk, one_split):
+    """Inputs that fill the candidate buffers, exact ties, ragged user tiles
+    and a single catalog split, held exactly against the stable sort."""
+    rng = np.random.default_rng(4)
+    if case == "normal":
+        p, q = _grid(rng, (m, k), cuda), _grid(rng, (n, k), cuda)
+        bias = _grid(rng, (n,), cuda)
+    else:
+        p, q = torch.zeros((m, k), device=cuda), torch.zeros((n, k), device=cuda)
+        bias = (torch.arange(n, device=cuda, dtype=torch.float32) if case == "ascending"
+                else torch.zeros(n, device=cuda))
+    if one_split:
+        monkeypatch.setattr(pruned_topk, "split_geometry",
+                            lambda m, n, sms, topk: (1, -(-n // pruned_topk.BLOCK_N) * pruned_topk.BLOCK_N))
+    r_u = torch.full((m,), k, dtype=torch.int32, device=cuda)
+    r_i = torch.full((n,), k, dtype=torch.int32, device=cuda)
+    got_s, got_i = pruned_topk.pruned_topk_ranked(p, q, r_u, r_i, bias, topk)
+    want_s, want_i = ref.pruned_topk_ref(p, q, r_u, r_i, topk, item_bias=bias)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
 
 
 def test_engine_on_cuda_matches_cpu_engine(cuda, monkeypatch):

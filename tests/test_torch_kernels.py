@@ -302,21 +302,27 @@ def test_fused_mf_sgd_matches_scalar_algorithm_3():
 @pytest.mark.parametrize("m", [1, 127, 128, 256, 1024])
 @pytest.mark.parametrize("n", [1, 128, 129, 700, 10_000_000])
 @pytest.mark.parametrize("num_sms", [1, 132])
-def test_split_geometry_covers_catalog(m, n, num_sms):
-    splits, per = pruned_topk.split_geometry(m, n, num_sms)
+@pytest.mark.parametrize("topk", [1, 100, 1024, 5000])
+def test_split_geometry_covers_catalog(m, n, num_sms, topk):
+    topk = min(topk, n)
+    splits, per = pruned_topk.split_geometry(m, n, num_sms, topk)
     assert per % pruned_topk.BLOCK_N == 0 and per > 0
     assert (splits - 1) * per < n <= splits * per  # every split non-empty
     user_tiles = -(-m // pruned_topk.BLOCK_M)
-    assert splits * user_tiles <= max(user_tiles, 2 * num_sms + user_tiles)
+    per_sm = pruned_topk.BLOCKS_PER_SM
+    assert splits * user_tiles <= max(user_tiles, per_sm * num_sms + user_tiles)
+    # the per-split lists stay within the scratch budget (one split always)
+    assert splits == 1 or splits * m * topk * 8 <= pruned_topk.SCRATCH_BYTES
 
 
 def test_kernel_constants_match_sources():
     """The Python wrappers' geometry is the CUDA sources' own."""
     src = (CSRC / "pruned_topk.cu").read_text()
     consts = dict(re.findall(r"\b(k\w+) = (\d+)", src))
-    assert int(consts["kTopkMax"]) == pruned_topk.TOPK_MAX
     assert int(consts["kBM"]) == pruned_topk.BLOCK_M
     assert int(consts["kBN"]) == pruned_topk.BLOCK_N
+    assert int(consts["kBuf"]) == pruned_topk.BUFFER
+    assert "kTopkMax" not in src  # no topk ceiling
 
 
 def test_fused_kernel_constants_match_source():

@@ -18,7 +18,6 @@ from repro.core import mf as jmf
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch.checkpoint.checkpoint import CorruptCheckpointError, load_raw
 from repro_torch.core import mf
-from repro_torch.kernels import pruned_topk
 from repro_torch.serving import MicroBatcher, RequestQueue, ServingEngine
 from repro_torch.serving.engine import load_mf_checkpoint
 
@@ -121,10 +120,23 @@ def test_engine_validates_requests():
             engine.topk([0], bad_k)
     s, i = engine.topk([], 3)
     assert s.shape == (0, 3) and i.shape == (0, 3)
-    # the CPU path takes any topk <= n, past the CUDA kernel's ceiling
-    wide = ServingEngine(_grid_params(2, pruned_topk.TOPK_MAX + 8, 2), device="cpu")
-    s, i = wide.topk([1], pruned_topk.TOPK_MAX + 8)
-    assert sorted(i[0].tolist()) == list(range(pruned_topk.TOPK_MAX + 8))
+    # any topk <= n, wider than a kernel tile or the old 1024 ceiling
+    wide = ServingEngine(_grid_params(2, 1032, 2), device="cpu")
+    s, i = wide.topk([1], 1032)
+    assert sorted(i[0].tolist()) == list(range(1032))
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_engine_topk_limit_is_the_catalog_on_every_device(device):
+    """The engine takes any topk <= n_items on CUDA as on the CPU (the
+    kernel has no ceiling of its own)."""
+    from types import SimpleNamespace
+
+    snap = SimpleNamespace(n_items=5000, num_users=3, device=torch.device(device))
+    ids = ServingEngine._validate_for(snap, [0, 2], 5000)
+    assert ids.tolist() == [0, 2]
+    with pytest.raises(ValueError, match=r"topk must be in \[1, 5000\]"):
+        ServingEngine._validate_for(snap, [0], 5001)
 
 
 def _write_reference_checkpoint(directory, jparams, t_p, t_q):
