@@ -21,7 +21,10 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    with thresholds for rate 0.3 and serves it through ``ServingEngine``
    (``topk`` for 1024 users at top-100, ``recommend``, 32 requests through
    the queue, ``predict_all_items`` for 64 users), with the serving kernels'
-   launch counts set to 0 just before and read just after;
+   launch counts set to 0 just before and read just after, then times
+   ``predict_all_items``' parts (user ranks, ``effective_ranks(q)``, the
+   kernel, the rest) with CUDA events; ``pruned_matmul``'s bound is given
+   both for fp32 CUDA cores and for the 3xTF32 tensor-core products it runs;
 4. frees the serving model, then holds ``fused_mf_sgd`` against its plain
    version at the training step's shape (B = 2^20 rows, k = 128, float32) at
    T = 0 and at rate 0.3, with and without bias and weight columns, plus a
@@ -65,6 +68,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+TF32_PASSES = 3           # pruned_matmul's 3xTF32: three TF32 products per fp32 one
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 RTOL = ATOL = 1e-5
 BF16_TOL = 2e-2
@@ -128,8 +133,8 @@ def factor_bytes(r_u, r_i, itemsize):
     return itemsize * float(need_u + need_i) + 4.0 * (r_u.numel() + r_i.numel())
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -268,12 +273,16 @@ def serving_path(dev):
         flops = pair_flops(r_u, r_i, K)
         nbytes = factor_bytes(r_u, r_i, 4) + 4.0 * MATMUL_USERS * N_ITEMS
         b_ms, b_by = bound(flops, nbytes)
+        # the units the kernel runs its products on: 3 TF32 passes on the tensor cores
+        tc_ms, tc_by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
         log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul on "
-            f"pre-masked operands {lib_ms:.3f} ms; bound {b_ms:.3f} ms "
-            f"({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
+            f"pre-masked operands {lib_ms:.3f} ms; bound {b_ms:.3f} ms on fp32 CUDA cores "
+            f"({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB), {tc_ms:.3f} ms as "
+            f"{TF32_PASSES}xTF32 on the tensor cores ({tc_by})")
         st = stats["pruned_matmul"]
         st["err"] = max(st["err"], err)
-        st[label] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        st[label] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         bound_tc_ms=tc_ms, bound_tc_by=tc_by)
         torch.cuda.empty_cache()
 
     # -- exact case: 1/8-grid factors, T = 0 -----------------------------------
@@ -372,6 +381,24 @@ def serving_path(dev):
           "predict_all_items within rtol/atol of plain")
     log(f"  peak device memory (max_memory_allocated) {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    # -- where predict_all_items' time goes (CUDA events, after the counted run)
+    pu = mf._user_vector(params, mm_users, None)
+    r_u = effective_ranks(pu, t_p)
+    parts = {
+        "gather p[u] + effective_ranks of the users": lambda: effective_ranks(
+            mf._user_vector(params, mm_users, None), t_p),
+        f"effective_ranks(q) over {N_ITEMS} items": lambda: effective_ranks(q, t_q),
+        "pruned_matmul kernel": lambda: pruned_matmul.pruned_matmul_ranked(pu, q, r_u, engine.r_i),
+        "whole predict_all_items": lambda: mf.predict_all_items(params, mm_users, t_p, t_q),
+    }
+    part_ms = {name: time_ms(fn, 3) for name, fn in parts.items()}
+    part_ms["rest"] = part_ms["whole predict_all_items"] - sum(
+        v for name, v in part_ms.items() if name != "whole predict_all_items")
+    log(f"  predict_all_items for {MATMUL_USERS} users, by part: "
+        + "; ".join(f"{name} {v:.3f} ms" for name, v in part_ms.items()))
+    del pu, r_u
+    torch.cuda.empty_cache()
+
     rows = []
     main_label = f"rate {RATE}"
     for name, replaces, source in (
@@ -388,6 +415,10 @@ def serving_path(dev):
             "bound_by": st["bound_by"], "library_ms": st.get("lib_ms"),
             "dense_ms": stats[name]["T=0"]["ms"], "dense_bound_ms": stats[name]["T=0"]["bound_ms"],
         }
+        if name == "pruned_matmul":
+            row["bound_tc_ms"] = st["bound_tc_ms"]
+            row["dense_bound_tc_ms"] = stats[name]["T=0"]["bound_tc_ms"]
+            row["predict_all_items_ms"] = part_ms
         if name == "pruned_topk":
             row["breakdown_ms"] = st["breakdown_ms"]
             row["yardstick_ms"] = st["yard_ms"]

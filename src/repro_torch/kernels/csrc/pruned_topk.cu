@@ -64,6 +64,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -137,23 +139,6 @@ size_t partial_smem_bytes(int k) {
 
 __device__ __forceinline__ int swz(int row, int chunk) { return (chunk ^ (row & 7)) << 2; }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Copy t in [t0, t0 + depth) of 128 rows (row r at src + (first + r) * k)
 // into a ring stage; element t of row r is zero-filled unless t < rank[r]
 // (ranks clamped to [0, k]).  kVec = 4 uses 16-byte copies (k % 4 == 0,
@@ -167,14 +152,14 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
     for (int e = threadIdx.x; e < 128 * per_row; e += kThreads) {
       const int r = e / per_row, c = e - r * per_row, t = t0 + 4 * c;
       const int bytes = 4 * min(max(min(rank[r], k) - t, 0), 4);
-      cp_async16(dst + r * kKC + swz(r, c), bytes ? src + (first + r) * k + t : src, bytes);
+      cpasync::copy16(dst + r * kKC + swz(r, c), bytes ? src + (first + r) * k + t : src, bytes);
     }
   } else {
     for (int e = threadIdx.x; e < 128 * depth; e += kThreads) {
       const int r = e / depth, tt = e - r * depth, t = t0 + tt;
       const int bytes = t < min(rank[r], k) ? 4 : 0;
-      cp_async4(dst + r * kKC + swz(r, tt >> 2) + (tt & 3),
-                bytes ? src + (first + r) * k + t : src, bytes);
+      cpasync::copy4(dst + r * kKC + swz(r, tt >> 2) + (tt & 3),
+                     bytes ? src + (first + r) * k + t : src, bytes);
     }
   }
 }
@@ -190,11 +175,11 @@ __device__ __forceinline__ void stage_line(void* dst, const void* src, int64_t f
     if (threadIdx.x < 32) {
       const int64_t e = first + 4 * threadIdx.x;
       const int bytes = limit - e >= 4 ? 16 : limit > e ? 4 * static_cast<int>(limit - e) : 0;
-      cp_async16(d + 4 * threadIdx.x, bytes ? s + e : s, bytes);
+      cpasync::copy16(d + 4 * threadIdx.x, bytes ? s + e : s, bytes);
     }
   } else if (threadIdx.x < 128) {
     const int64_t e = first + threadIdx.x;
-    cp_async4(d + threadIdx.x, e < limit ? s + e : s, e < limit ? 4 : 0);
+    cpasync::copy4(d + threadIdx.x, e < limit ? s + e : s, e < limit ? 4 : 0);
   }
 }
 
@@ -496,8 +481,8 @@ __global__ void __launch_bounds__(kThreads, 1) pruned_topk_partial(
   stage_line<kVec>(sm.ri[0], r_i, split_lo, split_hi);
   stage_line<kVec>(sm.ri[1], r_i, split_lo + kBN, split_hi);
   stage_line<kVec>(sm.bs[0], bias, split_lo, split_hi);
-  cp_async_commit();
-  cp_async_wait_all();
+  cpasync::commit();
+  cpasync::wait<0>();
   __syncthreads();
   const int bu = max(max(sm.umax[0], sm.umax[1]), max(sm.umax[2], sm.umax[3]));
   if (kResident) {  // the user rows, once, up to their largest rank
@@ -515,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, 1) pruned_topk_partial(
     if (!kResident) stage_rows<kVec>(rows + slot * kBM * kKC, p, row0, k, sm.ru, t0, t1 - t0);
   };
   stage(0, split_lo, sm.ri[0], 0, min(kKC, kt));
-  cp_async_commit();
+  cpasync::commit();
 
   float acc[kTM][kTN];
   // Bit mm * kTN + nn of `pend`: the score acc[mm][nn] of the last tile
@@ -529,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, 1) pruned_topk_partial(
     // block, grow rarer and spread over the warps), the k-th by warp
     // k % kWarps.  The first barrier is also this tile's first: its chunk
     // has landed and the other stage is free.
-    cp_async_wait_all();
+    cpasync::wait<0>();
     while (__syncthreads_or(pend != 0)) {
       unsigned full[kBM / 32];
 #pragma unroll
@@ -591,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, 1) pruned_topk_partial(
     const int chunks = kt > kKC ? (kt + kKC - 1) / kKC : 1;
     for (int c = 0; c < chunks; ++c) {
       if (c > 0) {
-        cp_async_wait_all();
+        cpasync::wait<0>();
         __syncthreads();  // this chunk has landed; the other stage is free
       }
       if (c == 0 && has_next) next_kt = depth_of(sm.ri[(j + 1) % 3]);
@@ -603,13 +588,13 @@ __global__ void __launch_bounds__(kThreads, 1) pruned_topk_partial(
         if (!(j & 1) && threadIdx.x < kBM) {
           const bool mine = static_cast<int>(threadIdx.x) < users;
           for (int g = 0; g < group; ++g)
-            cp_async8(&sm.pooled[g][threadIdx.x],
-                      keys + static_cast<int64_t>(group0 + g) * m + row0 + (mine ? threadIdx.x : 0),
-                      mine ? 8 : 0);
+            cpasync::copy8(&sm.pooled[g][threadIdx.x],
+                           keys + static_cast<int64_t>(group0 + g) * m + row0 + (mine ? threadIdx.x : 0),
+                           mine ? 8 : 0);
         }
       }
       if (c == 0 && j + 2 < tiles) stage_line<kVec>(sm.ri[(j + 2) % 3], r_i, col0 + 2 * kBN, split_hi);
-      cp_async_commit();
+      cpasync::commit();
 
       const int t0 = c * kKC, depth = min(kKC, kt - t0);
       const float* qb = sm.qs[slot];

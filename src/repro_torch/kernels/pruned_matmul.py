@@ -6,15 +6,30 @@ Replaces the TPU kernel ``pruned_matmul_padded``
 ``out[u, i] = sum_{t < min(r_u[u], r_i[i])} p[u, t] * q[i, t]`` for all pairs
 with whole K-blocks past each tile's rank bound skipped.
 
-On the H100 (``csrc/pruned_matmul.cu``): fp32 FMAs outside the tensor cores
-peak at 67 TFLOP/s, and the (m, n) output is written once, so at the serving
-shapes (a few dozen users against a 10M-item catalog at k = 128) the kernel
-sits near the balance point of FLOPs and bytes; with pruning on, the tile
-bound ``min(max r_u, max r_i)`` cuts both the FMAs and the q columns read,
-which leaves it bound by the output write.  The design keeps the bound
-per 64 x 128 output tile, masks each loaded element by its own row's rank,
-and masks the ragged M, N and K edges in the kernel, so no padded copy of
-``q`` (5 GB at the full catalog) is ever made.
+On the H100 (``csrc/pruned_matmul.cu``) the (m, n) output is written once,
+so at the serving shape (64 users against a 10M-item catalog, k = 128, f32)
+its 2.56 GB of stores set the floor, and the item rows' rank prefixes add
+scattered reads; dense, the 5.12 GB of ``q`` add to it and the products,
+even on the tensor cores, take about as long as the bytes.  The kernel:
+
+- runs persistent blocks, two per SM, over (64-user, 128-item) tiles, so
+  any ``m`` runs, with the user tile resident in shared memory;
+- streams each tile's item rows through a three-stage ``cp.async`` ring,
+  each 16-byte copy cut at its own row's rank (zero-filled past it), so
+  ``q`` is read per row, not to the tile bound ``min(max r_u, max r_i)`` at
+  which the tile's K loop ends (each warp stops at its own 32 x 32 block's);
+- computes the products on the tensor cores as 3xTF32 ``mma.sync`` (each
+  f32 operand split into two TF32 parts, error of the order of an fp32
+  product; bfloat16 is exact in TF32 and takes one pass);
+- stages each finished tile in shared memory and writes it with one TMA
+  bulk store per output row while the next chunks load and multiply.
+
+The launcher picks the copies and stores from the shapes and pointers: rows
+off 16-byte alignment (``k * itemsize % 16``, or a base pointer) take 4-byte
+copies (f32) or plain loads (bf16), output rows off it plain stores.  The
+ragged M, N and K edges are masked in the kernel, so no padded copy of ``q``
+(5 GB at the full catalog) is ever made.  ``k`` is at most :data:`MAX_K` on
+CUDA.
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0  # kernel launches by :func:`pruned_matmul_ranked` (CUDA only)
+MAX_K = 512  # the widest rows pruned_matmul.cu takes (its user tile stays resident)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,6 +65,8 @@ def _launch(p, q, r_u, r_i, out_dtype) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if r_u.dtype != torch.int32 or r_i.dtype != torch.int32:
         raise ValueError("ranks must be int32")
+    if k > MAX_K:
+        raise ValueError(f"pruned_matmul takes k <= {MAX_K} on CUDA, got {k}")
     out = torch.empty((m, n), dtype=out_dtype, device=p.device)
     if m == 0 or n == 0:
         return out

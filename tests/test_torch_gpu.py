@@ -35,7 +35,11 @@ def _grid(rng, shape, dev):
     return torch.tensor((rng.integers(-16, 17, shape) / 8.0).astype(np.float32), device=dev)
 
 
-@pytest.mark.parametrize("m,n,k", [(100, 77, 40), (257, 300, 129), (1, 1000, 128), (64, 5000, 128)])
+# (200, 3001, 130): several user tiles, n % 4 != 0, k % 4 != 0 (f32) and
+# k % 8 != 0 (bf16); (64, 300000, 128): every block walks many item tiles;
+# (130, 1003, 20): f32 rows 16-byte aligned, bf16 rows not.
+@pytest.mark.parametrize("m,n,k", [(100, 77, 40), (257, 300, 129), (1, 1000, 128), (64, 5000, 128),
+                                   (200, 3001, 130), (64, 300000, 128), (130, 1003, 20)])
 @pytest.mark.parametrize("dtype,out_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)])
@@ -52,6 +56,55 @@ def test_pruned_matmul_kernel_matches_plain(cuda, m, n, k, dtype, out_dtype, t):
     assert got.dtype == out_dtype
     tol = 1e-5 if (dtype, out_dtype) == (torch.float32, torch.float32) else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["mid-chunk", "zero"])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_pruned_matmul_kernel_ranks_set(cuda, case, dtype, out_dtype):
+    """Ranks given directly: ending inside a 16-byte copy and a 32-deep chunk
+    for most rows, or all 0 (exact zeros)."""
+    rng = np.random.default_rng(5)
+    m, n, k = 150, 2000, 128
+    p, q = _normal(rng, (m, k), cuda).to(dtype), _normal(rng, (n, k), cuda).to(dtype)
+    if case == "zero":
+        r_u = torch.zeros(m, dtype=torch.int32, device=cuda)
+        r_i = torch.zeros(n, dtype=torch.int32, device=cuda)
+    else:
+        odd = np.array([1, 3, 5, 13, 19, 33, 45, 63, 77, 101, 127, 128])
+        r_u = torch.tensor(rng.choice(odd, m).astype(np.int32), device=cuda)
+        r_i = torch.tensor(rng.choice(odd, n).astype(np.int32), device=cuda)
+    got = pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i, out_dtype=out_dtype)
+    want = pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i, out_dtype=out_dtype)
+    if case == "zero":
+        assert torch.equal(got, torch.zeros_like(got))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_pruned_matmul_raises_on_misuse(cuda):
+    p = torch.zeros((4, 8), device=cuda)
+    r = torch.full((4,), 8, dtype=torch.int32, device=cuda)
+    ranked = pruned_matmul.pruned_matmul_ranked
+    with pytest.raises(ValueError, match="must lie on"):
+        ranked(p, p.cpu(), r, r)
+    with pytest.raises(ValueError, match="int32"):
+        ranked(p, p, r.long(), r)
+    wide = torch.zeros((4, pruned_matmul.MAX_K + 1), device=cuda)
+    with pytest.raises(ValueError, match="k <="):
+        ranked(wide, wide, r, r)
+
+
+@pytest.mark.parametrize("t", [0.0, 1 / 8])
+def test_pruned_matmul_kernel_grid_exact(cuda, t):
+    """1/8-grid factors: every product and partial sum is exact, so the
+    kernel's 3xTF32 sums equal the plain fp32 product bit for bit."""
+    rng = np.random.default_rng(6)
+    p, q = _grid(rng, (130, 128), cuda), _grid(rng, (5003, 128), cuda)
+    r_u, r_i = effective_ranks(p, t), effective_ranks(q, t)
+    got = pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i)
+    want = pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("m,n,k,t,topk", [

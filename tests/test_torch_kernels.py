@@ -329,3 +329,17 @@ def test_fused_kernel_constants_match_source():
     src = (CSRC / "fused_mf_sgd.cu").read_text()
     assert f"k > {fused_mf_sgd.MAX_K}" in src
     assert "fused_mf_sgd" in build.SOURCES
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_kernel_sources_include_only_present_headers(name):
+    """Every local header a kernel includes is in ``csrc/``, and so in the
+    build digest."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for header in re.findall(r'#include "([^"]+)"', src):
+        assert (CSRC / header).is_file(), header
+
+
+def test_pruned_matmul_width_limit_matches_source():
+    src = (CSRC / "pruned_matmul.cu").read_text()
+    assert f"kMaxK = {pruned_matmul.MAX_K};" in src
