@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: drives its serving and training paths
-on one card.
+"""Chip smoke of the PyTorch/CUDA port: drives its serving, swap, training
+and ranking-evaluation paths on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -25,6 +25,12 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    ``predict_all_items``' parts (user ranks, ``effective_ranks(q)``, the
    kernel, the rest) with CUDA events; ``pruned_matmul``'s bound is given
    both for fp32 CUDA cores and for the 3xTF32 tensor-core products it runs;
+   then hot-swaps the served model to a new ``q`` with 1% of the items
+   perturbed, by the touched-rows patch (twice: the first call pays its
+   kernels' lazy loads) and by a full rebuild at a moved ``T_q``, each held
+   bitwise against a fresh engine, and serves 1024 users under an eviction
+   remap that spills a quarter of them, who must get the fallback ranking
+   (counts set to 0 before the swaps and read after);
 4. frees the serving model, then holds ``fused_mf_sgd`` against its plain
    version at the training step's shape (B = 2^20 rows, k = 128, float32) at
    T = 0 and at rate 0.3, with and without bias and weight columns, plus a
@@ -39,10 +45,27 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    made with numpy from the seed (users uniform, items power-law so the
    scatter-adds collide, integer ratings 1-5) and 2^20 test ratings; the
    kernel counts are set to 0 just before ``run()`` and read just after;
+   every epoch also logs HR/NDCG/recall@10 over 512 test users (two
+   256-user ``pruned_topk`` launches an epoch, counted); the last epoch's
+   ids are held against the plain version's and one evaluation is timed;
    then one more full-size step is held against the plain masked step
    recomputed on the CPU over the touched rows only, and the stages of the
    step are timed one by one;
-7. prints a ``kernels`` JSON line and, last, the device JSON line.
+7. ranking evaluation: ``evaluate_engine`` (the ``pruned_topk`` kernel)
+   against ``evaluate_oracle`` (``pruned_matmul`` and a stable sort of the
+   (B, n) scores) at T = 0 on 1/8-grid factors, 100k users x 1M items x
+   k = 128, 512 users in 16-user batches, half of each user's 20 held-out
+   items drawn from the oracle's top-100: the reports must be equal and
+   every user must hit (counts set to 0 before and read after); then each
+   batch of ``engine.topk`` is held against ``dense_topk`` and one batch of
+   ``predict_all_items`` against the plain ``pruned_matmul``, exactly;
+8. inputs the kernels refused before: ``pruned_topk`` at 65535 x 128 + 1
+   users in one call, ``pruned_matmul`` at k = 520 and 1024 and
+   ``fused_mf_sgd`` at k = 1030 and 2048, each against its plain version
+   (random factors within the tolerance, 1/8-grid factors exactly) and
+   timed;
+9. prints a ``kernels`` JSON line (``launches`` summed over the counted
+   paths, with ``launches_by_path``) and, last, the device JSON line.
 
 Tolerances: rtol = atol = 1e-5 for float32 (fp32 sums in another order),
 2e-2 for bfloat16; indices identical except where the two compared scores
@@ -80,6 +103,8 @@ RATE = 0.3
 TOPK = 100
 WIDE_TOPK = 4096   # past the 1024 lists the first kernel could keep
 TOPK_USERS, MATMUL_USERS = 256, 64
+RANKING_TOPK = 10  # the trainer's per-epoch HR/NDCG/recall@10
+C6_ITEMS, C6_ROWS = 200_000, 1 << 16  # pruned_matmul items, fused_mf_sgd row pairs at k > 512
 PLAIN_BLOCK_N = 65536
 # training main path: dpmf's train_1m batch, lr and lam; sgd + fused kernel
 BATCH, TRAIN_STEPS, EPOCHS = 1 << 20, 8, 3
@@ -91,6 +116,7 @@ LR, LAM = 0.05, 0.02
 ITEM_OFFSET = 10_000
 
 failures: list = []
+PATH_LAUNCHES: dict = {}  # path -> {kernel: launches in that path's counted run}
 
 
 def log(*args):
@@ -346,6 +372,7 @@ def serving_path(dev):
     t_mm = time.perf_counter() - t0
     wall = time.perf_counter() - t_main
     launches = {"pruned_topk": pruned_topk.launches, "pruned_matmul": pruned_matmul.launches}
+    PATH_LAUNCHES["serving"] = launches
     served = len(users) + len(recs) + len(queued)
     log(f"  launches on the serving path: {launches}")
     log(f"  engine.topk: {len(users)} users in {t_topk:.3f} s ({len(users) / t_topk:.1f} req/s); "
@@ -396,8 +423,9 @@ def serving_path(dev):
         v for name, v in part_ms.items() if name != "whole predict_all_items")
     log(f"  predict_all_items for {MATMUL_USERS} users, by part: "
         + "; ".join(f"{name} {v:.3f} ms" for name, v in part_ms.items()))
-    del pu, r_u
+    del pu, r_u, scores_all, want, pm_u
     torch.cuda.empty_cache()
+    swap_stats = swap_path(dev, engine, params, t_p, t_q, users)
 
     rows = []
     main_label = f"rate {RATE}"
@@ -410,7 +438,7 @@ def serving_path(dev):
         st = stats[name][main_label]
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": stats[name]["err"],
+            "max_abs_err": stats[name]["err"],
             "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st.get("lib_ms"),
             "dense_ms": stats[name]["T=0"]["ms"], "dense_bound_ms": stats[name]["T=0"]["bound_ms"],
@@ -420,11 +448,292 @@ def serving_path(dev):
             row["dense_bound_tc_ms"] = stats[name]["T=0"]["bound_tc_ms"]
             row["predict_all_items_ms"] = part_ms
         if name == "pruned_topk":
+            row["swap"] = swap_stats
             row["breakdown_ms"] = st["breakdown_ms"]
             row["yardstick_ms"] = st["yard_ms"]
             row["yardstick"] = "torch.addmm + torch.topk on pre-masked operands (two calls)"
         rows.append(row)
     return rows
+
+
+def swap_path(dev, engine, params, t_p, t_q, users):
+    """The served dpmf model hot-swapped at full size: a new q with 1% of
+    the items perturbed, first by the touched-rows patch and then by a full
+    rebuild at a moved item threshold, each against a fresh engine on the
+    same params; then an eviction remap under which the evicted users get
+    the bias-only fallback.  The kernels' counts are set to 0 just before
+    and read just after."""
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.serving import ServingEngine
+
+    log(f"## hot swap at full size: 1% of the {N_ITEMS} items perturbed, then a moved T_q, "
+        "then an eviction remap")
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    touched = torch.randperm(N_ITEMS, generator=gen, device=dev)[: N_ITEMS // 100]
+    q_new = params.q.clone()
+    q_new[touched] = decaying_factors(gen, touched.numel(), dev)
+    new_params = params._replace(q=q_new)
+    touched_np = touched.cpu().numpy()
+    batch = users[:256]
+    out = {}
+
+    def equal(got, want):
+        return np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    for key in ("patch_first_ms", "patch_ms"):  # the first pays the lazy loads of its kernels
+        t0 = time.perf_counter()
+        engine.swap(new_params, touched_users=[], touched_items=touched_np)
+        out[key] = (time.perf_counter() - t0) * 1e3
+    got_patch = engine.topk(batch, TOPK)
+    t_q2 = t_q * 1.25
+    t0 = time.perf_counter()
+    engine.swap(new_params, t_p, t_q2)
+    out["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+    got_rebuild = engine.topk(batch, TOPK)
+    remap = np.arange(N_USERS, dtype=np.int32)
+    evicted_users = users[::4]
+    remap[evicted_users] = -1
+    t0 = time.perf_counter()
+    engine.swap(new_params, t_p, t_q, user_remap=remap, remap_epoch=1)
+    out["remap_ms"] = (time.perf_counter() - t0) * 1e3
+    got_remap = engine.topk(users, TOPK)
+    torch.cuda.synchronize()
+    launches = {"pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["swap"] = launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["extra_gb"] = out["peak_gb"] - base_gb
+    log(f"  launches: {launches}; swap (patch, {touched.numel()} items) {out['patch_first_ms']:.1f} "
+        f"ms the first time, {out['patch_ms']:.1f} ms again, "
+        f"swap (rebuild, T_q x 1.25) {out['rebuild_ms']:.1f} ms, swap (remap epoch 1) "
+        f"{out['remap_ms']:.1f} ms; device memory {base_gb:.2f} GB before, peak "
+        f"{out['peak_gb']:.2f} GB (+{out['extra_gb']:.2f} GB)")
+    check(launches["pruned_topk"] > 0, f"pruned_topk launched on the swap path ({launches})")
+    check(engine.version == 4 and engine.remap_epoch == 1, "four swaps published")
+
+    fresh = ServingEngine(new_params, t_p, t_q, max_batch=256)
+    want = fresh.topk(users, TOPK)
+    check(equal(got_patch, (want[0][:256], want[1][:256])),
+          "patch swap equals a fresh engine on the new params, bit for bit")
+    fresh2 = ServingEngine(new_params, t_p, t_q2, max_batch=256)
+    check(equal(got_rebuild, fresh2.topk(batch, TOPK)),
+          "rebuild swap (T_q x 1.25) equals a fresh engine, bit for bit")
+    del fresh, fresh2
+    evicted = remap[users] < 0
+    fs, fi = engine._snap.fallback_topk(TOPK)
+    check(bool((got_remap[1][evicted] == fi).all() and (got_remap[0][evicted] == fs).all())
+          and np.array_equal(fi, np.arange(TOPK)),
+          f"{int(evicted.sum())} evicted users get the fallback (funk: items 0..{TOPK - 1})")
+    check(np.array_equal(got_remap[1][~evicted], want[1][~evicted])
+          and np.array_equal(got_remap[0][~evicted], want[0][~evicted]),
+          "resident users under the remap get their own rows, bit for bit")
+    return out
+
+
+def grid_tensor(gen, shape, dev):
+    """Values on the 1/8 grid in [-2, 2]: products and sums stay exact."""
+    return torch.randint(-16, 17, shape, generator=gen, device=dev).float() / 8
+
+
+def repairs_phase(dev):
+    """Inputs the kernels refused before: more than 65535 x 128 users for
+    pruned_topk (C5), rows wider than 512 for pruned_matmul and wider than
+    1024 for fused_mf_sgd (C6); each against its plain version, random
+    factors within the tolerance and 1/8-grid factors exactly."""
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.kernels import fused_mf_sgd, pruned_matmul, pruned_topk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    out = {}
+
+    m, n, k, topk = 65535 * pruned_topk.BLOCK_M + 1, 256, 8, 10
+    log(f"## C5: pruned_topk at {m} users (65535 x 128 + 1) x {n} items x k={k}, top-{topk}, "
+        "1/8-grid factors, T = 1/8")
+    p, q, bias = grid_tensor(gen, (m, k), dev), grid_tensor(gen, (n, k), dev), grid_tensor(gen, (n,), dev)
+    r_u, r_i = effective_ranks(p, 1 / 8), effective_ranks(q, 1 / 8)
+    before = pruned_topk.launches
+    got_s, got_i = pruned_topk.pruned_topk_ranked(p, q, r_u, r_i, bias, topk)
+    launched = pruned_topk.launches - before
+    same = True
+    for lo in range(0, m, 1 << 21):
+        hi = min(lo + (1 << 21), m)
+        want_s, want_i = pruned_topk.pruned_topk_plain(p[lo:hi], q, r_u[lo:hi], r_i, bias, topk,
+                                                       block_n=n)
+        same &= bool(torch.equal(got_s[lo:hi], want_s) and torch.equal(got_i[lo:hi], want_i))
+    check(launched == 1 and same, f"C5: pruned_topk at m = {m} in one call equals the plain "
+                                  "version exactly")
+    ms = time_ms(lambda: pruned_topk.pruned_topk_ranked(p, q, r_u, r_i, bias, topk), 3)
+    plain_ms = time_ms(lambda: [pruned_topk.pruned_topk_plain(
+        p[lo:lo + (1 << 21)], q, r_u[lo:lo + (1 << 21)], r_i, bias, topk, block_n=n)
+        for lo in range(0, m, 1 << 21)], 1)
+    b_ms, b_by = bound(pair_flops(r_u, r_i, k),
+                       factor_bytes(r_u, r_i, 4) + 4.0 * n + 8.0 * m * topk)
+    log(f"  kernel {ms:.3f} ms, plain (in 2^21-user pieces) {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by})")
+    out["pruned_topk"] = {f"m={m}": dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)}
+    del p, q, bias, r_u, r_i, got_s, got_i, want_s, want_i
+    torch.cuda.empty_cache()
+
+    mu, mn = MATMUL_USERS, C6_ITEMS
+    log(f"## C6: pruned_matmul at {mu} users x {mn} items, k = 520 and 1024 (column slices of "
+        f"{pruned_matmul.MAX_K}), float32")
+    out["pruned_matmul"] = {}
+    for kw in (520, 1024):
+        for label, rows, t in (("random", None, 0.02), ("grid", grid_tensor, 0.0)):
+            if rows is None:
+                p = torch.randn((mu, kw), generator=gen, device=dev).mul_(0.1)
+                q = torch.randn((mn, kw), generator=gen, device=dev).mul_(0.1)
+            else:
+                p, q = rows(gen, (mu, kw), dev), rows(gen, (mn, kw), dev)
+            r_u, r_i = effective_ranks(p, t), effective_ranks(q, t)
+            before = pruned_matmul.launches
+            got = pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i)
+            launched = pruned_matmul.launches - before
+            want = pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i)
+            err = float((got - want).abs().max())
+            ok = torch.equal(got, want) if rows is not None else bool(
+                torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+            check(ok and launched == len(pruned_matmul.column_slices(kw)),
+                  f"C6: pruned_matmul k={kw} {label} (T={t}) "
+                  f"{'exactly equal' if rows is not None else f'within rtol/atol {RTOL}'} "
+                  f"({launched} launches, max abs err {err:.3e})")
+            if rows is None:
+                ms = time_ms(lambda: pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i), 5)
+                plain_ms = time_ms(lambda: pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i), 2)
+                flops = pair_flops(r_u, r_i, kw)
+                nbytes = factor_bytes(r_u, r_i, 4) + 4.0 * mu * mn
+                b_ms, b_by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+                log(f"  k={kw} T={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                    f"{b_ms:.3f} ms as 3xTF32 ({b_by})")
+                out["pruned_matmul"][f"k={kw}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                                       bound_by=b_by, max_abs_err=err)
+            del p, q, got, want
+    torch.cuda.empty_cache()
+
+    b = C6_ROWS
+    log(f"## C6: fused_mf_sgd at B = {b} row pairs, k = 1030 and 2048 (1024-wide pieces)")
+    out["fused_mf_sgd"] = {}
+    for kw in (1030, 2048):
+        for label, rows, t_p, t_q in (("random", None, 0.02, 0.02), ("grid", grid_tensor, 1 / 8, 1 / 4)):
+            if rows is None:
+                pr = torch.randn((b, kw), generator=gen, device=dev).mul_(0.1)
+                qr = torch.randn((b, kw), generator=gen, device=dev).mul_(0.1)
+                lr, lam = LR, LAM
+            else:
+                pr, qr = rows(gen, (b, kw), dev), rows(gen, (b, kw), dev)
+                # no small values before column 1100: ranks fall in the second piece
+                pr[:, :1100] = torch.where(pr[:, :1100] == 0, 0.5, pr[:, :1100])
+                qr[:, :1100] = torch.where(qr[:, :1100].abs() < 1 / 4, 0.5, qr[:, :1100])
+                lr, lam = 1 / 16, 1 / 32
+            ratings = torch.randint(1, 6, (b,), generator=gen, device=dev).float()
+            tp, tq = torch.tensor([t_p], device=dev), torch.tensor([t_q], device=dev)
+            before = fused_mf_sgd.launches
+            got = fused_mf_sgd.fused_mf_sgd_rows(pr, qr, ratings, tp, tq, lr=lr, lam=lam)
+            launched = fused_mf_sgd.launches - before
+            want = fused_mf_sgd.fused_mf_sgd_plain(pr, qr, ratings, tp, tq, lr=lr, lam=lam)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want) if g is not None)
+            if rows is None:
+                ok = all(torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+                         for g, w in zip(got, want) if g is not None)
+            else:
+                ok = all(torch.equal(g, w) for g, w in zip(got, want) if g is not None)
+            check(ok and launched == 1,
+                  f"C6: fused_mf_sgd k={kw} {label} "
+                  f"{'exactly equal' if rows is not None else f'within rtol/atol {RTOL}'} "
+                  f"(max abs err {err:.3e})")
+            if rows is None:
+                ms = time_ms(lambda: fused_mf_sgd.fused_mf_sgd_rows(
+                    pr, qr, ratings, tp, tq, lr=lr, lam=lam), 10)
+                plain_ms = time_ms(lambda: fused_mf_sgd.fused_mf_sgd_plain(
+                    pr, qr, ratings, tp, tq, lr=lr, lam=lam), 3)
+                nbytes = 4.0 * b * kw * 4 + 8.0 * b
+                b_ms, b_by = bound(16.0 * b * kw, nbytes)
+                log(f"  k={kw}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+                    f"({b_by}); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+                out["fused_mf_sgd"][f"k={kw}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                                      bound_by=b_by, max_abs_err=err)
+            del pr, qr, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranking_eval_phase(dev):
+    """evaluate_engine (the pruned_topk kernel) against evaluate_oracle
+    (predict_all_items through pruned_matmul, then a stable sort of the
+    (B, n) scores) at T = 0 on 1/8-grid factors, where the two must give
+    the same report; the kernels' counts are set to 0 just before and read
+    just after.  Half of each user's held-out items come from the oracle's
+    own top-k, so the reports measure hits; outside the counted run every
+    16-user batch of engine.topk is held id for id and score for score
+    against dense_topk, and one batch of predict_all_items against the
+    plain pruned_matmul."""
+    from repro_torch.core import mf
+    from repro_torch.data.ratings import RatingsDataset
+    from repro_torch.eval import ranking
+    from repro_torch.kernels import pruned_matmul, pruned_topk
+    from repro_torch.serving import ServingEngine
+
+    m, n, users, per_user, from_top, batch = 100_000, N_ITEMS // 10, 512, 20, 10, 16
+    log(f"## ranking evaluation: evaluate_engine vs evaluate_oracle, {m} users x {n} items x "
+        f"k={K}, 1/8-grid factors, T = 0, top-{TOPK}, {users} users in {batch}-user batches, "
+        f"{per_user} held-out items each ({from_top} from the oracle's top-{TOPK})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    params = mf.MFParams(p=grid_tensor(gen, (m, K), dev), q=grid_tensor(gen, (n, K), dev),
+                         user_bias=None, item_bias=None, global_mean=None, implicit=None)
+    rng = np.random.default_rng(SEED + 4)
+    chosen = np.sort(rng.choice(m, users, replace=False)).astype(np.int32)
+    # the oracle's top-k of the chosen users (comparison launches, not counted)
+    oracle = [ranking.dense_topk(params, chosen[lo:lo + batch], TOPK)
+              for lo in range(0, users, batch)]
+    oracle_i = np.concatenate([i for _, i in oracle])
+    picks = np.argsort(rng.random((users, TOPK)), axis=1)[:, :from_top]
+    items = np.concatenate([np.take_along_axis(oracle_i, picks, axis=1),
+                            rng.integers(0, n, (users, per_user - from_top))], axis=1)
+    held = RatingsDataset(
+        user=np.repeat(chosen, per_user), item=items.reshape(-1).astype(np.int32),
+        rating=rng.integers(1, 6, users * per_user).astype(np.float32), num_users=m, num_items=n)
+    relevance = ranking.relevance_from_dataset(held)
+    engine = ServingEngine(params, 0.0, 0.0, device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # the same batches on both sides: the reports sum per-batch float32
+    # sums, so equal reports need equal batches
+    got = ranking.evaluate_engine(engine, topk=TOPK, relevance=relevance, batch_size=batch)
+    engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ranking.evaluate_oracle(params, topk=TOPK, relevance=relevance, batch_size=batch)
+    oracle_s = time.perf_counter() - t0
+    launches = {"pruned_topk": pruned_topk.launches, "pruned_matmul": pruned_matmul.launches}
+    log(f"  launches: {launches}; evaluate_engine {engine_s * 1e3:.1f} ms, "
+        f"evaluate_oracle {oracle_s * 1e3:.1f} ms; report {got.as_dict()}")
+    check(np.array_equal(relevance[0], chosen), f"{users} users with held-out items")
+    check(got == want, "evaluate_engine equals evaluate_oracle exactly at T = 0 on the grid")
+    check(got.users == users and got.hr == 1.0 and got.recall >= from_top / per_user,
+          f"every user hits; recall at least {from_top}/{per_user}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched by the ranking evaluation ({count})")
+    PATH_LAUNCHES["ranking"] = launches
+
+    same = True
+    for b, lo in enumerate(range(0, users, batch)):
+        got_s, got_i = engine.topk(chosen[lo:lo + batch], TOPK)
+        same &= np.array_equal(got_s, oracle[b][0]) and np.array_equal(got_i, oracle[b][1])
+    check(same, f"engine.topk equals dense_topk in all {users // batch} batches, "
+                "ids and scores exactly")
+    u = torch.as_tensor(chosen[:batch].astype(np.int64), device=dev)
+    full_u = torch.full((batch,), K, dtype=torch.int32, device=dev)
+    full_i = torch.full((n,), K, dtype=torch.int32, device=dev)
+    scores = mf.predict_all_items(params, u, 0.0, 0.0, device=dev)
+    plain = pruned_matmul.pruned_matmul_plain(params.p[u], params.q, full_u, full_i)
+    check(torch.equal(scores, plain),
+          f"predict_all_items ({batch} x {n}) equals the plain pruned_matmul exactly")
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +887,8 @@ def training_main_path(dev):
     from repro_torch.core.ranks import effective_ranks
     from repro_torch.core.trainer import DPMFTrainer, TrainConfig
     from repro_torch.data import loader
-    from repro_torch.kernels import fused_mf_sgd
+    from repro_torch.eval import ranking
+    from repro_torch.kernels import fused_mf_sgd, pruned_topk
 
     log(f"## training main path: dpmf FunkSVD {N_USERS} users x {N_ITEMS} items x k={K}, "
         f"float32; sgd + fused kernel, lr {LR}, lam {LAM}, rate {RATE}, batch {BATCH}, "
@@ -594,7 +904,7 @@ def training_main_path(dev):
     torch.cuda.reset_peak_memory_stats()
     cfg = TrainConfig(k=K, epochs=EPOCHS, batch_size=BATCH, lr=LR, lam=LAM, pruning_rate=RATE,
                       optimizer="sgd", use_fused_kernel=True, epoch_mode="scan", seed=SEED,
-                      eval_batch_size=BATCH)
+                      eval_batch_size=BATCH, ranking_topk=RANKING_TOPK)
     t0 = time.perf_counter()
     trainer = DPMFTrainer(cfg, train, test)
     torch.cuda.synchronize()
@@ -606,12 +916,14 @@ def training_main_path(dev):
     history = trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"fused_mf_sgd": fused_mf_sgd.launches}
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["training"] = launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  launches on the training path: {launches}; run() {run_s:.2f} s")
     for r in history:
         log(f"  epoch {r.epoch}: train err {r.train_abs_err:.6f}, test mae {r.test_mae:.6f}, "
-            f"work {r.work_fraction:.6f}, T_p {r.t_p:.6g}, T_q {r.t_q:.6g}; train "
+            f"work {r.work_fraction:.6f}, T_p {r.t_p:.6g}, T_q {r.t_q:.6g}, "
+            f"HR@{RANKING_TOPK} {r.hr:.6f} NDCG {r.ndcg:.6f} recall {r.recall:.6f}; train "
             f"{r.wall_time_s:.3f} s = {r.wall_time_s / TRAIN_STEPS * 1e3:.2f} ms a step, "
             f"{len(train) / r.wall_time_s / 1e6:.2f} M ratings/s")
     # aminmax is one reduction; .abs() would be a second 51 GB table
@@ -624,9 +936,60 @@ def training_main_path(dev):
           f"({launches['fused_mf_sgd']})")
     check(all(math.isfinite(v) for r in history for v in (
         r.train_abs_err, r.test_mae, r.work_fraction, r.t_p, r.t_q)), "epoch records finite")
+    packed = trainer._packed_ranking
+    ranking_steps = packed["user"].shape[0]
+    check(all(math.isfinite(v) for r in history for v in (r.hr, r.ndcg, r.recall)),
+          f"HR/NDCG/recall@{RANKING_TOPK} finite from epoch 0")
+    check(launches["pruned_topk"] == EPOCHS * ranking_steps,
+          f"pruned_topk launched {EPOCHS * ranking_steps} times by the ranking evaluation "
+          f"({launches['pruned_topk']}: {ranking_steps} batches of {packed['user'].shape[1]} users "
+          "an epoch)")
     check(history[0].work_fraction == 1.0 and all(r.work_fraction < 1.0 for r in history[1:]),
           "work fraction 1.0 in epoch 0, below 1 after calibration")
     check(peak_gb < 80.0, f"peak device memory under 80 GB ({peak_gb:.2f})")
+
+    # -- the last epoch's ranking sums: kernel ids against the plain version's
+    log(f"## ranking evaluation of the last epoch: kernel against the plain version, "
+        f"{ranking_steps} x {packed['user'].shape[1]} users x {N_ITEMS} items, top-{RANKING_TOPK}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = trainer.evaluate_ranking()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    check(report.hr == history[-1].hr and report.ndcg == history[-1].ndcg
+          and report.recall == history[-1].recall,
+          "evaluate_ranking() again gives the last epoch's record")
+    eval_ms = min(eval_ms, time_ms(trainer.evaluate_ranking, 3))
+    log(f"  one evaluation (host clock, synchronized): {eval_ms:.2f} ms")
+    r_i = effective_ranks(trainer.params.q, trainer.t_q)
+    zero_bias = torch.zeros(N_ITEMS, device=dev)
+    kernel_sums = {key: 0.0 for key in ("hr_sum", "ndcg_sum", "recall_sum", "weight_sum")}
+    plain_sums = dict(kernel_sums)
+    for step in range(ranking_steps):
+        pu = trainer.params.p[packed["user"][step]]
+        r_u = effective_ranks(pu, trainer.t_p)
+        got_s, got_i = pruned_topk.pruned_topk_ranked(pu, trainer.params.q, r_u, r_i, zero_bias,
+                                                      RANKING_TOPK)
+        want_s, want_i = pruned_topk.pruned_topk_plain(pu, trainer.params.q, r_u, r_i, zero_bias,
+                                                       RANKING_TOPK, block_n=PLAIN_BLOCK_N)
+        compare_topk(got_s, got_i, want_s, want_i, f"ranking batch {step}")
+        for ids, sums in ((got_i, kernel_sums), (want_i, plain_sums)):
+            counts = ranking.ranking_counts(ids, packed["relevant"][step], packed["n_valid"][step],
+                                            packed["weight"][step])
+            for key in sums:
+                sums[key] += float(counts[key])
+        del want_s, want_i
+        torch.cuda.empty_cache()
+    via_kernel = ranking.report_from_sums(kernel_sums, RANKING_TOPK)
+    via_plain = ranking.report_from_sums(plain_sums, RANKING_TOPK)
+    log(f"  through the kernel {via_kernel.as_dict()}; through the plain version "
+        f"{via_plain.as_dict()}")
+    check(abs(via_kernel.ndcg - report.ndcg) <= 1e-6 and abs(via_kernel.hr - report.hr) <= 1e-6,
+          "the kernel's ids give the scan's metrics")
+    check(all(abs(getattr(via_kernel, f) - getattr(via_plain, f)) <= 1e-6
+              for f in ("hr", "ndcg", "recall")),
+          "metrics through the kernel and through the plain version within 1e-6")
+    del r_i, zero_bias
+    torch.cuda.empty_cache()
 
     # -- one more full-size step against the plain step on the CPU -------------
     log("## one full-size step against the plain masked step on the CPU (touched rows only)")
@@ -686,7 +1049,7 @@ def training_main_path(dev):
     t0 = time.perf_counter()
     trainer.evaluate()
     log(f"  evaluate() on {len(test)} test ratings {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    return launches
+    return {"launches": launches, "ranking_eval_ms": eval_ms}
 
 
 def main() -> int:
@@ -735,19 +1098,29 @@ def main() -> int:
     rows = phase("serving", serving_path, dev)
     fused = phase("fused_mf_sgd kernel", fused_kernel_phase, dev)
     phase("small trainer", small_trainer_phase)
-    train_launches = phase("training main path", training_main_path, dev)
+    train = phase("training main path", training_main_path, dev)
+    phase("ranking evaluation", ranking_eval_phase, dev)
+    repairs = phase("repairs (C5, C6)", repairs_phase, dev)
 
     main_label = f"rate {RATE}"
     rows.append({
         "name": "fused_mf_sgd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_mf_sgd.cu",
         "replaces": "src/repro/kernels/fused_mf_sgd.py:75",
-        "launches": train_launches["fused_mf_sgd"], "max_abs_err": fused["err"],
+        "max_abs_err": fused["err"],
         "ms": fused[main_label]["ms"], "plain_ms": fused[main_label]["plain_ms"],
         "bound_ms": fused[main_label]["bound_ms"], "bound_by": fused[main_label]["bound_by"],
         "library_ms": None, "dense_ms": fused["T=0"]["ms"],
         "dense_bound_ms": fused["T=0"]["bound_ms"],
     })
+    for row in rows:
+        # launches: the sum over the main paths' counted runs
+        by_path = {path: counts[row["name"]] for path, counts in PATH_LAUNCHES.items()
+                   if row["name"] in counts}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        row["wide"] = repairs[row["name"]]
+    rows[0]["ranking_eval_ms"] = train["ranking_eval_ms"]
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"# {len(failures)} check(s) failed:")

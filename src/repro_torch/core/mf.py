@@ -386,3 +386,52 @@ def eval_epoch_scan(
         tot = tot + step_sum
         cnt = cnt + step_cnt
     return tot, cnt
+
+
+def eval_ranking_epoch_scan(
+    params: MFParams,
+    batches: Batch,       # repro_torch.eval.ranking.pack_ranking_batches output
+    t_p,
+    t_q,
+    hist: Optional[torch.Tensor] = None,   # (m, H) device-resident SVD++ history
+    *,
+    topk: int,
+) -> Dict[str, torch.Tensor]:
+    """Ranking-metrics variant of :func:`eval_epoch_scan`: HR@K / NDCG@K /
+    recall@K sums over pre-packed user batches, as float32 device scalars.
+
+    Item ranks reduce once, outside the loop.  Each batch scores its users
+    against the whole catalog through ``kernels.pruned_topk.pruned_topk_ranked``
+    (the hand-written kernel on CUDA, the streaming merge on the CPU; both
+    break ties to the lower item index, as ``lax.top_k`` does), so no
+    ``(B, n)`` score matrix is made, then folds the ids through
+    :func:`repro_torch.eval.ranking.ranking_counts`.  The per-user constant
+    (user bias + global mean) is omitted: it never changes a ranking; the
+    item bias is kept.  Nothing in the loop waits on the card: the caller's
+    read of the sums is the evaluation's one host sync.
+    """
+    from repro_torch.eval.ranking import ranking_counts
+    from repro_torch.kernels.pruned_topk import pruned_topk_ranked
+
+    dev = params.p.device
+    n = params.q.shape[0]
+    r_i = effective_ranks(params.q, t_q)
+    q = params.q.float().contiguous()
+    bias = (
+        torch.zeros((n,), dtype=torch.float32, device=dev)
+        if params.item_bias is None else params.item_bias[:, 0].float().contiguous()
+    )
+    sums = {
+        key: torch.zeros((), dtype=torch.float32, device=dev)
+        for key in ("hr_sum", "ndcg_sum", "recall_sum", "weight_sum")
+    }
+    weight = batches.get("weight")
+    for s in range(batches["user"].shape[0]):
+        u = batches["user"][s]
+        pu = _user_vector(params, u, None if hist is None else hist[u])
+        r_u = effective_ranks(pu, t_p)
+        _, idx = pruned_topk_ranked(pu.float().contiguous(), q, r_u, r_i, bias, topk)
+        counts = ranking_counts(idx, batches["relevant"][s], batches["n_valid"][s],
+                                None if weight is None else weight[s])
+        sums = {key: sums[key] + counts[key] for key in sums}
+    return sums

@@ -10,11 +10,14 @@ Counterpart of ``repro/core/trainer.py``, in memory.  Schedule:
 The dense baseline is the same trainer at ``pruning_rate = 0``.  Everything
 runs on ``cuda`` unless the trainer is given ``device="cpu"``; on the card
 the fused SGD step (``use_fused_kernel=True`` with ``optimizer="sgd"``)
-goes through the hand-written ``fused_mf_sgd`` kernel.
+goes through the hand-written ``fused_mf_sgd`` kernel.  With
+``ranking_topk > 0`` every epoch also logs HR/NDCG/recall@K over the test
+split (``mf.eval_ranking_epoch_scan``, through the ``pruned_topk`` kernel on
+the card).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run as
-something else: the out-of-core store mode (ROADMAP A5), the implicit and
-BPR objectives (A4) and per-epoch ranking metrics (A3).
+something else: the out-of-core store mode (ROADMAP A5) and the implicit and
+BPR objectives (A4).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.core import mf, rearrange, threshold
 from repro_torch.data import loader
 from repro_torch.data.ratings import RatingsDataset, build_user_history
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.eval import ranking as ranking_eval
 from repro_torch.optim.optimizers import RowOptimizer
 from repro_torch.optim.schedules import twin_learners_mask
 
@@ -54,7 +58,8 @@ class TrainConfig:
     eval_batch_size: int = 8192
     max_hist: int = 32                 # svd++ implicit history length
     rearrange: bool = True             # Alg. 1; False = ablation
-    ranking_topk: int = 0              # > 0: ROADMAP A3
+    ranking_topk: int = 0              # > 0: per-epoch HR/NDCG/recall@K too
+    ranking_max_users: Optional[int] = 512   # eval-user cap for ranking
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 0   # 0 = only final
     keep_checkpoints: int = 3
@@ -63,7 +68,9 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class EpochRecord:
-    """One epoch's logged measurements (``DPMFTrainer.history`` entries)."""
+    """One epoch's logged measurements (``DPMFTrainer.history`` entries).
+    The ranking fields are NaN unless ``TrainConfig.ranking_topk > 0`` and
+    a test split exists."""
 
     epoch: int
     wall_time_s: float
@@ -72,6 +79,9 @@ class EpochRecord:
     work_fraction: float   # mean k_eff / k: the work-proportional cost
     t_p: float
     t_q: float
+    hr: float = float("nan")       # HR@K at ranking_topk
+    ndcg: float = float("nan")     # NDCG@K
+    recall: float = float("nan")   # recall@K
 
 
 def _check_supported(config: TrainConfig) -> None:
@@ -86,9 +96,6 @@ def _check_supported(config: TrainConfig) -> None:
     if config.store_dir is not None:
         raise NotImplementedError(
             "store-backed (out-of-core) training is not ported yet (ROADMAP A5)")
-    if config.ranking_topk > 0:
-        raise NotImplementedError(
-            "per-epoch ranking metrics are not ported yet (ROADMAP A3)")
 
 
 class DPMFTrainer:
@@ -132,6 +139,10 @@ class DPMFTrainer:
             if test_ds is not None:
                 self._packed_eval = loader.pack_eval_batches(
                     test_ds, config.eval_batch_size, device=self.device)
+        self._packed_ranking = None
+        if config.ranking_topk > 0 and test_ds is not None:
+            self._packed_ranking = ranking_eval.pack_ranking_batches(
+                test_ds, 256, max_users=config.ranking_max_users, device=self.device)
 
         generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.params = mf.init_params(
@@ -264,9 +275,12 @@ class DPMFTrainer:
         wall = time.perf_counter() - start
 
         test_mae = self.evaluate(t_p, t_q) if self.test_ds is not None else float("nan")
+        ranking = self.evaluate_ranking(t_p, t_q)
         record = EpochRecord(
             epoch=self.epoch, wall_time_s=wall, train_abs_err=abs_err, test_mae=test_mae,
             work_fraction=work, t_p=float(t_p), t_q=float(t_q),
+            **({"hr": ranking.hr, "ndcg": ranking.ndcg, "recall": ranking.recall}
+               if ranking is not None else {}),
         )
         self.history.append(record)
         if self.epoch == 0:
@@ -313,6 +327,23 @@ class DPMFTrainer:
             total = total + s
             count = count + c
         return float(total) / max(float(count), 1.0)
+
+    def evaluate_ranking(self, t_p=None, t_q=None):
+        """Test-split HR/NDCG/recall@``ranking_topk`` at the given (default:
+        current) thresholds, as a :class:`~repro_torch.eval.ranking.RankingReport`;
+        None unless ``ranking_topk > 0`` and a test split exists.  Runs
+        ``mf.eval_ranking_epoch_scan`` over the batches packed at init and
+        reads its four sums once."""
+        if self._packed_ranking is None:
+            return None
+        t_p = self.t_p if t_p is None else t_p
+        t_q = self.t_q if t_q is None else t_q
+        sums = mf.eval_ranking_epoch_scan(
+            self.params, self._packed_ranking, t_p, t_q, self._hist_dev,
+            topk=self.config.ranking_topk,
+        )
+        values = torch.stack(list(sums.values())).tolist()  # the one host sync
+        return ranking_eval.report_from_sums(dict(zip(sums, values)), self.config.ranking_topk)
 
     # -- summary metrics matching the paper's Eqs. 12-14 ---------------------
     def total_train_time(self) -> float:

@@ -43,10 +43,10 @@ _SIGNATURES = {
         ),
     },
     "pruned_matmul": {
-        # p, q, r_u, r_i, out, m, n, k, in_dtype, out_dtype, stream
+        # p, q, r_u, r_i, out, m, n, k, ld, in_dtype, out_dtype, stream
         "pruned_matmul_launch": (
             [_P] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, _P],
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
             ctypes.c_int,
         ),
     },

@@ -1,8 +1,10 @@
 // All-pairs early-stopped product, the Hopper replacement of the TPU kernel
 // pruned_matmul_padded (src/repro/kernels/pruned_matmul.py):
 //     out[u, i] = sum_{t < min(r_u[u], r_i[i])} p[u, t] * q[i, t]
-// p (m, k) and q (n, k) are row-major float32 or bfloat16, out (m, n) is
-// float32 or bfloat16, sums are float32.
+// p (m, k) and q (n, k) are row-major float32 or bfloat16 with a row stride
+// of ld >= k elements (a column slice of wider rows), out (m, n) is float32 or
+// bfloat16, sums are float32.  Rows wider than kMaxK are the wrapper's: it
+// runs slices of at most kMaxK columns and sums their outputs.
 //
 // What bounds it on the H100: the (m, n) output is written once, so at the
 // serving shape (64 users x 10M items x k = 128, f32) 2.56 GB of stores set
@@ -137,7 +139,7 @@ template <typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads, 2) pruned_matmul_kernel(
     const T* __restrict__ p, const T* __restrict__ q, const int* __restrict__ r_u,
     const int* __restrict__ r_i, OutT* __restrict__ out, int64_t m, int64_t n, int k,
-    int64_t item_tiles, int64_t work, int vec_in, int vec_out) {
+    int64_t ld, int64_t item_tiles, int64_t work, int vec_in, int vec_out) {
   using L = Layout<T, OutT>;
   constexpr int kSQ = L::kSQ, kSO = L::kSO;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -207,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 2) pruned_matmul_kernel(
       const int u = e / kp, t = e - u * kp;
       const int64_t row = row0 + u;
       float x = 0.0f;
-      if (row < m && t < min(max(r_u[row], 0), k)) x = to_float(p[row * k + t]);
+      if (row < m && t < min(max(r_u[row], 0), k)) x = to_float(p[row * ld + t]);
       users_s[u * sa + t] = x;
     }
   };
@@ -228,17 +230,17 @@ __global__ void __launch_bounds__(kThreads, 2) pruned_matmul_kernel(
         if (cc >= per_row) continue;
         const int rank = min(max(rank_of[r], 0), k);
         const int bytes = static_cast<int>(sizeof(T)) * min(max(rank - t, 0), kVec);
-        cpasync::copy16(dst + r * kSQ + cc * kVec, bytes ? q + (col0 + r) * k + t : q, bytes);
+        cpasync::copy16(dst + r * kSQ + cc * kVec, bytes ? q + (col0 + r) * ld + t : q, bytes);
       }
     } else {
       for (int e = tid; e < kBN * len; e += kThreads) {
         const int r = e / len, tt = e - r * len, t = t0 + tt;
         const bool in = t < min(max(rank_of[r], 0), k);
         if constexpr (sizeof(T) == 4) {
-          cpasync::copy4(dst + r * kSQ + tt, in ? q + (col0 + r) * k + t : q, in ? 4 : 0);
+          cpasync::copy4(dst + r * kSQ + tt, in ? q + (col0 + r) * ld + t : q, in ? 4 : 0);
         } else {  // bfloat16 rows off 4-byte alignment: plain loads
           const uint16_t* src = reinterpret_cast<const uint16_t*>(q);
-          reinterpret_cast<uint16_t*>(dst)[r * kSQ + tt] = in ? src[(col0 + r) * k + t] : uint16_t(0);
+          reinterpret_cast<uint16_t*>(dst)[r * kSQ + tt] = in ? src[(col0 + r) * ld + t] : uint16_t(0);
         }
       }
     }
@@ -413,7 +415,7 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 
 template <typename T, typename OutT>
 cudaError_t launch(const void* p, const void* q, const int* r_u, const int* r_i, void* out,
-                   int64_t m, int64_t n, int k, cudaStream_t stream) {
+                   int64_t m, int64_t n, int k, int64_t ld, cudaStream_t stream) {
   const Layout<T, OutT> lay(k);
   auto kernel = pruned_matmul_kernel<T, OutT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -430,32 +432,33 @@ cudaError_t launch(const void* p, const void* q, const int* r_u, const int* r_i,
   const int64_t work = (m + kBM - 1) / kBM * item_tiles;
   const int64_t slots = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(work < slots ? work : slots);
-  const int vec_in = (k * sizeof(T)) % 16 == 0 && aligned16(p) && aligned16(q);
+  const int vec_in = (ld * sizeof(T)) % 16 == 0 && aligned16(p) && aligned16(q);
   const int vec_out = (n * sizeof(OutT)) % 16 == 0 && aligned16(out);
   kernel<<<grid, kThreads, lay.bytes, stream>>>(
       static_cast<const T*>(p), static_cast<const T*>(q), r_u, r_i, static_cast<OutT*>(out), m, n,
-      k, item_tiles, work, vec_in, vec_out);
+      k, ld, item_tiles, work, vec_in, vec_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype codes: 0 = float32, 1 = bfloat16.  ld: the row stride of p and q,
+// in elements.  Returns a cudaError_t.
 extern "C" int pruned_matmul_launch(
     const void* p, const void* q, const int* r_u, const int* r_i, void* out,
-    long long m, long long n, int k, int in_dtype, int out_dtype, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k > kMaxK || in_dtype < 0 || in_dtype > 1 || out_dtype < 0 ||
-      out_dtype > 1)
+    long long m, long long n, int k, long long ld, int in_dtype, int out_dtype, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k > kMaxK || ld < k || in_dtype < 0 || in_dtype > 1 ||
+      out_dtype < 0 || out_dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_dtype == 0 && out_dtype == 0)
-    err = launch<float, float>(p, q, r_u, r_i, out, m, n, k, s);
+    err = launch<float, float>(p, q, r_u, r_i, out, m, n, k, ld, s);
   else if (in_dtype == 0)
-    err = launch<float, __nv_bfloat16>(p, q, r_u, r_i, out, m, n, k, s);
+    err = launch<float, __nv_bfloat16>(p, q, r_u, r_i, out, m, n, k, ld, s);
   else if (out_dtype == 0)
-    err = launch<__nv_bfloat16, float>(p, q, r_u, r_i, out, m, n, k, s);
+    err = launch<__nv_bfloat16, float>(p, q, r_u, r_i, out, m, n, k, ld, s);
   else
-    err = launch<__nv_bfloat16, __nv_bfloat16>(p, q, r_u, r_i, out, m, n, k, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(p, q, r_u, r_i, out, m, n, k, ld, s);
   return static_cast<int>(err);
 }

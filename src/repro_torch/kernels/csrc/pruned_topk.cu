@@ -13,7 +13,8 @@
 // The TPU kernel walks item tiles in sequence inside one grid row per user
 // tile; at a 256-user batch that would be two blocks on a 132-SM card.  Here
 // the catalog is split instead:
-//   1. pruned_topk_partial: grid (splits, user tiles), one block per SM.
+//   1. pruned_topk_partial: grid (splits, user tiles), one block per SM;
+//      the user tiles run over y and then z, so any m takes one launch.
 //      Scoring: the block's 128 user rows, up to the largest of their ranks,
 //      are loaded into shared memory once.  Item factors stream through a
 //      two-stage ring of 128 x 64 chunks with cp.async (16-byte copies that
@@ -443,7 +444,8 @@ __global__ void __launch_bounds__(kThreads, 1) pruned_topk_partial(
   const int kp = (k + 7) & ~7;  // row stride of resident user rows
 
   const int split = blockIdx.x;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t row0 = (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * kBM;
+  if (row0 >= m) return;  // the last z layer's tail: the whole block leaves
   const int64_t split_lo = static_cast<int64_t>(split) * items_per_split;
   const int64_t split_hi = split_lo + items_per_split < n ? split_lo + items_per_split : n;
   const int64_t tiles = (split_hi - split_lo + kBN - 1) / kBN;
@@ -730,8 +732,7 @@ extern "C" int pruned_topk_launch(
   if (m <= 0 || n <= 0 || n >= kEmptyIndex || k <= 0 || topk < 1 || topk > n ||
       splits < 1 || items_per_split <= 0 || items_per_split % kBN != 0 ||
       (splits - 1) * items_per_split >= n ||
-      static_cast<long long>(splits) * items_per_split < n ||
-      (m + kBM - 1) / kBM > 65535)
+      static_cast<long long>(splits) * items_per_split < n)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool resident = ((k + 7) & ~7) <= kResidentK;
@@ -746,7 +747,12 @@ extern "C" int pruned_topk_launch(
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>((m + kBM - 1) / kBM));
+  // User tiles over y, then z: y stays within its limit of 65535.
+  const long long user_tiles = (m + kBM - 1) / kBM;
+  const long long layers = (user_tiles + 65534) / 65535;
+  const dim3 grid(static_cast<unsigned>(splits),
+                  static_cast<unsigned>((user_tiles + layers - 1) / layers),
+                  static_cast<unsigned>(layers));
   kernel<<<grid, kThreads, smem, s>>>(
       p, q, r_u, r_i, bias, part_s, part_i, static_cast<unsigned long long*>(keys), m, n, k,
       topk, items_per_split);

@@ -14,7 +14,10 @@ flops per element.  One warp per row pair keeps both rows in registers, so
 the ranks, the dot product and the updates take one pass over device
 memory; the thresholds and the global mean are read from device memory, so
 a training step never waits on the host.  The kernel masks a ragged ``B``
-itself and takes float32 or bfloat16 rows (math in float32).
+itself and takes float32 or bfloat16 rows (math in float32).  Rows wider
+than :data:`REGISTER_K` do not fit in a warp's registers: a second kernel
+reads them in pieces of that width, once for the ranks and the dot product
+and once for the updates.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.kernels import build, ref
 
 launches = 0  # kernel launches by :func:`fused_mf_sgd_rows` (CUDA only)
 
-MAX_K = 1024  # the widest row fused_mf_sgd.cu takes (32 values per lane)
+REGISTER_K = 1024  # the widest row kept in registers (32 values per lane)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 Result = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
@@ -55,8 +58,8 @@ def _launch(p_rows, q_rows, ratings, t_p, t_q, lr, lam, bias_u, bias_i,
     if p_rows.dtype not in _DTYPE_CODES:
         raise ValueError("fused_mf_sgd takes float32 or bfloat16 rows")
     b, k = p_rows.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_mf_sgd takes 1 <= k <= {MAX_K} on CUDA, got {k}")
+    if k < 1:
+        raise ValueError(f"fused_mf_sgd takes k >= 1 on CUDA, got {k}")
     if (bias_u is None) != (bias_i is None):
         raise ValueError("pass both bias columns or neither")
     columns = {"ratings": ratings, "bias_u": bias_u, "bias_i": bias_i, "weight": weight}

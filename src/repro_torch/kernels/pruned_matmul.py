@@ -28,8 +28,12 @@ The launcher picks the copies and stores from the shapes and pointers: rows
 off 16-byte alignment (``k * itemsize % 16``, or a base pointer) take 4-byte
 copies (f32) or plain loads (bf16), output rows off it plain stores.  The
 ragged M, N and K edges are masked in the kernel, so no padded copy of ``q``
-(5 GB at the full catalog) is ever made.  ``k`` is at most :data:`MAX_K` on
-CUDA.
+(5 GB at the full catalog) is ever made.  Rows wider than :data:`MAX_K`
+(the widest user tile that stays resident) run as column slices of at most
+that width, read in place through the kernel's row stride: each slice's
+ranks are clamped to it, ``clamp(r - c0, 0, width)``, which is exact because
+``min`` commutes with the clamp; the slices' float32 outputs are summed and
+cast once at the end.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0  # kernel launches by :func:`pruned_matmul_ranked` (CUDA only)
-MAX_K = 512  # the widest rows pruned_matmul.cu takes (its user tile stays resident)
+MAX_K = 512  # the widest slice of a launch (pruned_matmul.cu keeps its user tile resident)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,6 +50,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def pruned_matmul_plain(p, q, r_u, r_i, *, out_dtype=torch.float32) -> torch.Tensor:
     """The plain PyTorch version: rank-masked operands, one fp32 product."""
     return ref.pruned_matmul_ref(p, q, r_u, r_i, out_dtype=out_dtype)
+
+
+def column_slices(k: int):
+    """``(c0, width)`` of the latent slices one CUDA call launches: one
+    slice up to :data:`MAX_K` columns, then one per :data:`MAX_K`."""
+    return [(c0, min(MAX_K, k - c0)) for c0 in range(0, k, MAX_K)]
+
+
+def slice_ranks(ranks: torch.Tensor, c0: int, width: int) -> torch.Tensor:
+    """Ranks within the slice ``[c0, c0 + width)``: ``clamp(r - c0, 0,
+    width)``.  ``min(r_u, r_i)`` clamped is the min of the clamped ranks, so
+    the slices' products sum to the whole one."""
+    return torch.clamp(ranks - c0, 0, width).to(torch.int32)
 
 
 def _launch(p, q, r_u, r_i, out_dtype) -> torch.Tensor:
@@ -65,22 +82,33 @@ def _launch(p, q, r_u, r_i, out_dtype) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if r_u.dtype != torch.int32 or r_i.dtype != torch.int32:
         raise ValueError("ranks must be int32")
-    if k > MAX_K:
-        raise ValueError(f"pruned_matmul takes k <= {MAX_K} on CUDA, got {k}")
-    out = torch.empty((m, n), dtype=out_dtype, device=p.device)
-    if m == 0 or n == 0:
-        return out
-    if k == 0:
-        return out.zero_()
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=out_dtype, device=p.device)
     lib = build.library("pruned_matmul")
-    err = lib.pruned_matmul_launch(
-        p.data_ptr(), q.data_ptr(), r_u.data_ptr(), r_i.data_ptr(), out.data_ptr(),
-        m, n, k, _DTYPE_CODES[p.dtype], _DTYPE_CODES[out_dtype],
-        torch.cuda.current_stream(p.device).cuda_stream,
-    )
-    build.check(err, "pruned_matmul kernel launch")
-    launches += 1
-    return out
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    # one slice writes out_dtype directly; several sum in float32
+    acc_dtype = out_dtype if k <= MAX_K else torch.float32
+    out = part = None
+    for c0, width in column_slices(k):
+        if c0 == 0:  # the kernel clamps the first slice's ranks to its width
+            ru, ri, dst = r_u, r_i, torch.empty((m, n), dtype=acc_dtype, device=p.device)
+        else:
+            ru, ri = slice_ranks(r_u, c0, width), slice_ranks(r_i, c0, width)
+            if part is None:
+                part = torch.empty((m, n), dtype=torch.float32, device=p.device)
+            dst = part
+        err = lib.pruned_matmul_launch(
+            p.data_ptr() + c0 * p.element_size(), q.data_ptr() + c0 * q.element_size(),
+            ru.data_ptr(), ri.data_ptr(), dst.data_ptr(), m, n, width, k,
+            _DTYPE_CODES[p.dtype], _DTYPE_CODES[acc_dtype], stream,
+        )
+        build.check(err, "pruned_matmul kernel launch")
+        launches += 1
+        if c0 == 0:
+            out = dst
+        else:
+            out.add_(dst)
+    return out.to(out_dtype)
 
 
 def pruned_matmul_ranked(p, q, r_u, r_i, *, out_dtype=torch.float32) -> torch.Tensor:

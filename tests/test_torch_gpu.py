@@ -90,9 +90,40 @@ def test_pruned_matmul_raises_on_misuse(cuda):
         ranked(p, p.cpu(), r, r)
     with pytest.raises(ValueError, match="int32"):
         ranked(p, p, r.long(), r)
-    wide = torch.zeros((4, pruned_matmul.MAX_K + 1), device=cuda)
-    with pytest.raises(ValueError, match="k <="):
-        ranked(wide, wide, r, r)
+
+
+@pytest.mark.parametrize("k", [pruned_matmul.MAX_K + 8, 1024, 1100])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("t", [0.0, 0.02])
+def test_pruned_matmul_wide_rows_match_plain(cuda, k, dtype, out_dtype, t):
+    """Rows wider than one launch's MAX_K run as column slices, one launch
+    each, summed in float32."""
+    rng = np.random.default_rng(k)
+    p, q = _normal(rng, (70, k), cuda).to(dtype), _normal(rng, (1003, k), cuda).to(dtype)
+    r_u, r_i = effective_ranks(p, t), effective_ranks(q, t)
+    before = pruned_matmul.launches
+    got = pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i, out_dtype=out_dtype)
+    want = pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert pruned_matmul.launches == before + len(pruned_matmul.column_slices(k))
+    assert got.dtype == out_dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("k", [520, 1024])
+@pytest.mark.parametrize("ranks", ["full", "random"])
+def test_pruned_matmul_wide_rows_grid_exact(cuda, k, ranks):
+    rng = np.random.default_rng(k + 1)
+    p, q = _grid(rng, (130, k), cuda), _grid(rng, (2003, k), cuda)
+    if ranks == "full":
+        r_u, r_i = effective_ranks(p, 0.0), effective_ranks(q, 0.0)
+    else:
+        r_u = torch.tensor(rng.integers(0, k + 1, 130).astype(np.int32), device=cuda)
+        r_i = torch.tensor(rng.integers(0, k + 1, 2003).astype(np.int32), device=cuda)
+    got = pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i)
+    assert torch.equal(got, pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i))
 
 
 @pytest.mark.parametrize("t", [0.0, 1 / 8])
@@ -294,11 +325,39 @@ def test_fused_mf_sgd_raises_on_misuse(cuda):
         rows(p.double(), q.double(), r, t, t, lr=0.1, lam=0.0)
     with pytest.raises(ValueError, match="both bias columns"):
         rows(p, q, r, t, t, lr=0.1, lam=0.0, bias_u=extra["bias_u"])
-    wide = torch.zeros((2, fused_mf_sgd.MAX_K + 1), device=cuda)
-    with pytest.raises(ValueError, match="k <="):
-        rows(wide, wide, r[:2], t, t, lr=0.1, lam=0.0)
     with pytest.raises(ValueError, match="lies on cpu"):
         ops.fused_mf_sgd(p.cpu(), q.cpu(), r.cpu(), 0.0, 0.0, lr=0.1, lam=0.0)
+
+
+@pytest.mark.parametrize("k", [fused_mf_sgd.REGISTER_K + 6, 2048, 3000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [0.0, 0.02])
+def test_fused_mf_sgd_wide_rows_match_plain(cuda, k, dtype, t):
+    """Rows wider than the register path: read in 1024-wide pieces."""
+    rng = np.random.default_rng(k)
+    args, extra = _sgd_args(rng, 517, k, cuda, dtype=dtype, bias_weight=True)
+    tt = torch.tensor([t], device=cuda)
+    before = fused_mf_sgd.launches
+    got = fused_mf_sgd.fused_mf_sgd_rows(*args, tt, tt, lr=0.05, lam=0.02, **extra)
+    want = fused_mf_sgd.fused_mf_sgd_plain(*args, tt, tt, lr=0.05, lam=0.02, **extra)
+    torch.cuda.synchronize()
+    assert fused_mf_sgd.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,k", [(3000, 1030), (77, 2048)])
+def test_fused_mf_sgd_wide_rows_grid_bitwise(cuda, b, k):
+    rng = np.random.default_rng(k + 7)
+    args, extra = _sgd_args(rng, b, k, cuda, grid=True, bias_weight=True)
+    t_p, t_q = torch.tensor([1 / 8], device=cuda), torch.tensor([1 / 4], device=cuda)
+    args[0][:, :1500] = torch.where(args[0][:, :1500] == 0, 0.5, args[0][:, :1500])  # late ranks
+    args[1][:, :1500] = torch.where(args[1][:, :1500].abs() < 1 / 4, 0.5, args[1][:, :1500])
+    got = fused_mf_sgd.fused_mf_sgd_rows(*args, t_p, t_q, lr=1 / 16, lam=1 / 32, **extra)
+    want = fused_mf_sgd.fused_mf_sgd_plain(*args, t_p, t_q, lr=1 / 16, lam=1 / 32, **extra)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("variant,opt_name,fused,weighted", [
@@ -362,3 +421,114 @@ def test_trainer_on_cuda_matches_cpu(cuda):
     for g, c in zip(runs["cuda"], runs["cpu"]):
         for field in ("train_abs_err", "test_mae", "work_fraction", "t_p", "t_q"):
             assert abs(getattr(g, field) - getattr(c, field)) <= 1e-4 * max(abs(getattr(c, field)), 1e-12)
+
+
+def test_pruned_topk_takes_users_past_the_grid_limit(cuda):
+    """8,388,481 users: one user tile past 65535 x 128, so the user tiles
+    run over a second grid layer; held exactly against the stable sort in
+    chunks of users, on 1/8-grid factors."""
+    rng = np.random.default_rng(8)
+    m, n, k, topk = 65535 * pruned_topk.BLOCK_M + 1, 300, 8, 5
+    p = torch.randint(-8, 9, (m, k), device=cuda, dtype=torch.int32).float() / 8
+    q, bias = _grid(rng, (n, k), cuda), _grid(rng, (n,), cuda)
+    r_u, r_i = effective_ranks(p, 1 / 8), effective_ranks(q, 1 / 8)
+    before = pruned_topk.launches
+    got_s, got_i = pruned_topk.pruned_topk_ranked(p, q, r_u, r_i, bias, topk)
+    assert pruned_topk.launches == before + 1
+    for lo in range(0, m, 1 << 21):
+        hi = min(lo + (1 << 21), m)
+        want_s, want_i = ref.pruned_topk_ref(p[lo:hi], q, r_u[lo:hi], r_i, topk, item_bias=bias)
+        assert torch.equal(got_s[lo:hi], want_s) and torch.equal(got_i[lo:hi], want_i)
+
+
+def test_eval_ranking_scan_kernel_path_matches_plain(cuda, monkeypatch):
+    """On the card the ranking scan goes through the pruned_topk kernel, one
+    launch a packed batch, never the plain path; on 1/8-grid factors its ids
+    equal the CPU's, so its float32 sums match within 1e-6 relative (the two
+    devices reduce in another order)."""
+    from repro_torch.eval import ranking
+
+    rng = np.random.default_rng(9)
+    m, n, k = 600, 5000, 32
+    g = lambda *s: (rng.integers(-8, 9, s) / 8.0).astype(np.float32)  # noqa: E731
+    fields = {"p": g(m, k), "q": g(n, k), "user_bias": g(m, 1), "item_bias": g(n, 1),
+              "global_mean": np.float32(3.0)}
+    ds = synthetic_ratings(m, n, 20000, seed=1)
+    sums = {}
+    for device in ("cpu", cuda):
+        params = mf.params_from_numpy(fields, device=device)
+        batches = ranking.pack_ranking_batches(ds, 256, device=device)
+        if device == cuda:
+            monkeypatch.setattr(pruned_topk, "pruned_topk_plain", None)
+            before = pruned_topk.launches
+        out = mf.eval_ranking_epoch_scan(params, batches, 1 / 8, 1 / 8, topk=10)
+        sums[str(device)] = {key: float(v) for key, v in out.items()}
+    assert pruned_topk.launches == before + batches["user"].shape[0]
+    for key, want in sums["cpu"].items():
+        assert abs(sums["cuda"][key] - want) <= 1e-6 * abs(want), key
+    assert sums["cuda"]["weight_sum"] > 0 and sums["cuda"]["hr_sum"] > 0
+    cpu = mf.params_from_numpy(fields, device="cpu")
+    r_i = effective_ranks(params.q, 1 / 8)
+    for step in range(batches["user"].shape[0]):
+        u = batches["user"][step]
+        pu = params.p[u]
+        _, got = pruned_topk.pruned_topk_ranked(pu, params.q, effective_ranks(pu, 1 / 8), r_i,
+                                                params.item_bias[:, 0].contiguous(), 10)
+        _, want = ref.pruned_topk_ref(cpu.p[u.cpu()], cpu.q, effective_ranks(cpu.p[u.cpu()], 1 / 8),
+                                      r_i.cpu(), 10, item_bias=cpu.item_bias[:, 0])
+        assert torch.equal(got.cpu(), want)
+
+
+def test_trainer_ranking_metrics_on_cuda_match_cpu(cuda):
+    train, test = train_test_split(synthetic_ratings(300, 200, 12000, seed=0), 0.2, seed=0)
+    cfg = trainer.TrainConfig(k=32, epochs=2, batch_size=512, pruning_rate=0.3, optimizer="sgd",
+                              use_fused_kernel=True, lr=0.01, ranking_topk=10)
+    rng = np.random.default_rng(0)
+    init = {"p": rng.normal(0, 0.1, (300, 32)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (200, 32)).astype(np.float32)}
+    runs = {}
+    for device in ("cpu", cuda):
+        t = trainer.DPMFTrainer(cfg, train, test, device=device)
+        t.params = mf.params_from_numpy(init, device=device)
+        t.opt_state = mf.init_opt_state(t.params, t.opt)
+        runs[str(device)] = t.run()
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        for field in ("hr", "ndcg", "recall"):
+            assert np.isfinite(getattr(g, field))
+            assert abs(getattr(g, field) - getattr(c, field)) <= 1e-6
+
+
+@pytest.mark.parametrize("variant", ["funk", "bias"])
+def test_swap_on_cuda_matches_fresh_engine(cuda, variant):
+    """A touched-items swap on the card serves what a fresh engine on the
+    new params serves, bit for bit, and the previous snapshot's ranks and
+    biases keep their values."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    params = mf.init_params(g, 300, 5000, 32, variant=variant, global_mean=3.0, device="cpu")
+    if variant == "bias":
+        params = params._replace(item_bias=torch.randn((5000, 1), generator=g) * 0.2)
+    engine = ServingEngine(params, 0.05, 0.05, device=cuda, max_batch=64)
+    users = np.arange(0, 300, 3)
+    engine.topk(users, 20)
+    prev = engine._snap
+    r_before, b_before = prev.r_i.clone(), prev.item_bias_vec.clone()
+    touched = np.unique(np.random.default_rng(3).integers(0, 5000, 50))
+    q = params.q.clone()
+    q[touched] += torch.randn((touched.size, 32), generator=g) * 0.2
+    new = params._replace(q=q)
+    if variant == "bias":
+        new = new._replace(item_bias=params.item_bias.clone())
+        new.item_bias[touched] += 1.0
+    engine.swap(new, touched_users=[], touched_items=touched)
+    got_s, got_i = engine.topk(users, 20)
+    want_s, want_i = ServingEngine(new, 0.05, 0.05, device=cuda, max_batch=64).topk(users, 20)
+    assert np.array_equal(got_i, want_i) and np.array_equal(got_s, want_s)
+    assert torch.equal(prev.r_i, r_before) and torch.equal(prev.item_bias_vec, b_before)
+    remap = np.arange(300, dtype=np.int32)
+    remap[::7] = -1
+    engine.swap(new, user_remap=remap, remap_epoch=1)
+    fs, fi = engine._snap.fallback_topk(20)
+    got_s, got_i = engine.topk(users, 20)
+    evicted = remap[users] < 0
+    assert (got_i[evicted] == fi).all() and (got_s[evicted] == fs).all()
+    assert np.array_equal(got_i[~evicted], want_i[~evicted])

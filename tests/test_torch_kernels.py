@@ -327,7 +327,9 @@ def test_kernel_constants_match_sources():
 
 def test_fused_kernel_constants_match_source():
     src = (CSRC / "fused_mf_sgd.cu").read_text()
-    assert f"k > {fused_mf_sgd.MAX_K}" in src
+    consts = dict(re.findall(r"\b(k\w+) = (\d+)", src))
+    assert 32 * int(consts["kMaxLane"]) == fused_mf_sgd.REGISTER_K
+    assert "kPiece = 32 * kMaxLane" in src  # wider rows run in pieces, no cap
     assert "fused_mf_sgd" in build.SOURCES
 
 
@@ -343,3 +345,28 @@ def test_kernel_sources_include_only_present_headers(name):
 def test_pruned_matmul_width_limit_matches_source():
     src = (CSRC / "pruned_matmul.cu").read_text()
     assert f"kMaxK = {pruned_matmul.MAX_K};" in src
+
+
+@pytest.mark.parametrize("k", [520, 1024, 1100])
+@pytest.mark.parametrize("ranks", ["full", "random"])
+def test_pruned_matmul_column_slices_sum_to_whole(k, ranks):
+    """On CUDA, rows wider than ``MAX_K`` run as column slices with their
+    ranks clamped to each slice; on 1/8-grid factors the slices' products
+    sum to the whole product bit for bit."""
+    rng = np.random.default_rng(k)
+    p = torch.tensor((rng.integers(-16, 17, (9, k)) / 8.0).astype(np.float32))
+    q = torch.tensor((rng.integers(-16, 17, (31, k)) / 8.0).astype(np.float32))
+    if ranks == "full":
+        r_u, r_i = effective_ranks(p, 0.0), effective_ranks(q, 0.0)
+    else:
+        r_u = torch.tensor(rng.integers(0, k + 1, 9).astype(np.int32))
+        r_i = torch.tensor(rng.integers(0, k + 1, 31).astype(np.int32))
+    slices = pruned_matmul.column_slices(k)
+    assert [c0 for c0, _ in slices] == list(range(0, k, pruned_matmul.MAX_K))
+    assert sum(w for _, w in slices) == k and max(w for _, w in slices) <= pruned_matmul.MAX_K
+    total = torch.zeros((9, 31))
+    for c0, w in slices:
+        total += pruned_matmul.pruned_matmul_plain(
+            p[:, c0:c0 + w], q[:, c0:c0 + w],
+            pruned_matmul.slice_ranks(r_u, c0, w), pruned_matmul.slice_ranks(r_i, c0, w))
+    assert torch.equal(total, pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i))

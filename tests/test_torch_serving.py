@@ -132,7 +132,9 @@ def test_engine_topk_limit_is_the_catalog_on_every_device(device):
     kernel has no ceiling of its own)."""
     from types import SimpleNamespace
 
-    snap = SimpleNamespace(n_items=5000, num_users=3, device=torch.device(device))
+    # the request-id domain is the snapshot's num_external (num_users
+    # without an eviction remap)
+    snap = SimpleNamespace(n_items=5000, num_users=3, num_external=3, device=torch.device(device))
     ids = ServingEngine._validate_for(snap, [0, 2], 5000)
     assert ids.tolist() == [0, 2]
     with pytest.raises(ValueError, match=r"topk must be in \[1, 5000\]"):

@@ -91,7 +91,7 @@ def main() -> int:
 
         def run(fn):
             err = fn(p.data_ptr(), q.data_ptr(), r_u.data_ptr(), r_i.data_ptr(), out.data_ptr(),
-                     USERS, ITEMS, K, 0, 0, stream)
+                     USERS, ITEMS, K, K, 0, 0, stream)  # width, row stride
             if err:
                 raise RuntimeError(f"launch failed with cudaError_t {err}")
 
