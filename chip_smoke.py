@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: drives its serving, swap, training
-and ranking-evaluation paths on one card.
+"""Chip smoke of the PyTorch/CUDA port: drives its serving, swap, training,
+ranking-evaluation, implicit and BPR and online freshness paths on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -64,7 +64,30 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    ``fused_mf_sgd`` at k = 1030 and 2048, each against its plain version
    (random factors within the tolerance, 1/8-grid factors exactly) and
    timed;
-9. prints a ``kernels`` JSON line (``launches`` summed over the counted
+9. implicit-dpmf: ``DPMFTrainer.run()`` under ``objective="implicit"`` at
+   100M x 10M x k = 128 (8 x 2^20 interactions, alpha 40, 4 negatives each,
+   2 epochs of 40 steps, sgd through ``fused_mf_sgd`` with the confidence
+   as its weight column, lr 0.05 / 201, ranking evaluation every epoch),
+   counts set to 0 just before and read just after; then one weighted step
+   against the plain masked step on the CPU over the touched rows;
+10. bpr-dpmf: one BPR epoch of 8 steps of 2^20 triples at the same size
+   (masked tensor ops: the reference has no kernel for it), then one pruned
+   step against the plain ``bpr_step_ref`` over the touched rows (random
+   factors within the tolerance, 1/8-grid rows exactly), timed;
+11. online-dpmf: at k = 128, 10M items and 20M users (two copies of the
+   tables live at once), an sgd ``OnlineUpdater`` fed 64 rated Poisson
+   batches of 4096 events, 3 batches without new items, a forced
+   recalibration and 64 click batches through ``implicit_microbatches``,
+   new ids at p = 0.001, a ``SnapshotPublisher``
+   swap every 4 batches into a live ``ServingEngine`` answering 4 client
+   threads, delta checkpoints in the rated half, both prequential
+   evaluators (the ranking one through the engine); after every publish a
+   probe batch equals a fresh engine on a copy of the version, a batch
+   started before an apply returns its version's answer, the delta chain
+   folds to the live tables; ``pruned_topk`` counted under ``online``;
+12. runs ``python -m repro_torch.launch.online --use-kernel`` at a small size
+   (exit 0, its report on one line);
+13. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
 Tolerances: rtol = atol = 1e-5 for float32 (fp32 sums in another order),
@@ -79,6 +102,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -114,6 +138,24 @@ LR, LAM = 0.05, 0.02
 # batch) the summed updates of popular items at lr 0.05 grow the tables
 # without bound.
 ITEM_OFFSET = 10_000
+# implicit-dpmf: the confidence 1 + alpha r reaches 1 + 40 * 5 = 201 and
+# multiplies a row's step; dpmf's lr 0.05 times 201 diverges (as C4), so the
+# lr is dpmf's divided by the largest confidence: no weighted step exceeds
+# dpmf's own.  alpha stays the default 40.
+IMPLICIT_ALPHA, IMPLICIT_NEGATIVES, IMPLICIT_EPOCHS = 40.0, 4, 2
+IMPLICIT_LR = LR / (1.0 + IMPLICIT_ALPHA * 5.0)
+# online-dpmf: dpmf's width and catalog, the user table cut to 20M rows.  The
+# served version and the updater's live tables are two copies of p and q
+# (copy on write after each publish), plus one more for the fresh-engine
+# check: at 100M users two copies alone are 112.6 GB.
+ONLINE_USERS = 20_000_000
+ONLINE_BATCH, ONLINE_BATCHES, PUBLISH_EVERY, CLIENTS, PROBE_USERS = 4096, 64, 4, 4, 256
+PATCH_SWAPS = 3   # publishes after a batch without new items (every other one grows q)
+NEW_ID_PROB = 0.001
+# a zipf(1.3) stream puts ~25% of its events on item 0 (~1040 a 4096-event
+# batch), each at confidence 41 in the click half: sgd stays stable while
+# lr * sum(w) * (lam + sigma_0^2) < 2, i.e. lr < 0.0016
+ONLINE_LR = 0.001
 
 failures: list = []
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches in that path's counted run}
@@ -882,6 +924,39 @@ def dpmf_ratings(rng, count):
                           num_items=N_ITEMS)
 
 
+def step_against_cpu(trainer, batch, lr, what):
+    """One full-size fused step of ``trainer``'s tables on the card, held
+    against the plain masked step recomputed on the CPU over the touched
+    rows only (weight column included when the batch has one); returns the
+    step's host-clock ms."""
+    from repro_torch.core import mf
+
+    params, opt = trainer.params, trainer.opt
+    users, user_pos = torch.unique(batch["user"], return_inverse=True)
+    items, item_pos = torch.unique(batch["item"], return_inverse=True)
+    p_before, q_before = params.p[users].cpu(), params.q[items].cpu()
+    dim_mask = torch.ones((K,), device=params.p.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mf.train_step(params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, lr, dim_mask,
+                  opt=opt, lam=LAM, use_fused_kernel=True)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    cpu = mf.MFParams(p=p_before, q=q_before, user_bias=None, item_bias=None,
+                      global_mean=None, implicit=None)
+    cpu_batch = {"user": user_pos.cpu(), "item": item_pos.cpu(), "rating": batch["rating"].cpu()}
+    if "weight" in batch:
+        cpu_batch["weight"] = batch["weight"].cpu()
+    mf.train_step(cpu, mf.init_opt_state(cpu, opt), cpu_batch, trainer.t_p.cpu(),
+                  trainer.t_q.cpu(), lr, dim_mask.cpu(), opt=opt, lam=LAM, use_fused_kernel=False)
+    for name, got, want in (("p", params.p[users].cpu(), cpu.p), ("q", params.q[items].cpu(), cpu.q)):
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+              f"{what}: {len(want)} updated {name} rows within rtol/atol {RTOL} of the CPU "
+              f"(max abs err {err:.3e}, max |value| {float(want.abs().max()):.4f})")
+    return step_ms
+
+
 def training_main_path(dev):
     from repro_torch.core import mf
     from repro_torch.core.ranks import effective_ranks
@@ -997,26 +1072,8 @@ def training_main_path(dev):
     batch = {"user": torch.as_tensor(train.user[:BATCH], dtype=torch.int64).to(dev),
              "item": torch.as_tensor(train.item[:BATCH], dtype=torch.int64).to(dev),
              "rating": torch.as_tensor(train.rating[:BATCH]).to(dev)}
-    users, user_pos = torch.unique(batch["user"], return_inverse=True)
-    items, item_pos = torch.unique(batch["item"], return_inverse=True)
-    p_before, q_before = params.p[users].cpu(), params.q[items].cpu()
     dim_mask = torch.ones((K,), device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mf.train_step(params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, LR, dim_mask,
-                  opt=opt, lam=LAM, use_fused_kernel=True)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    cpu = mf.MFParams(p=p_before, q=q_before, user_bias=None, item_bias=None,
-                      global_mean=None, implicit=None)
-    cpu_batch = {"user": user_pos.cpu(), "item": item_pos.cpu(), "rating": batch["rating"].cpu()}
-    mf.train_step(cpu, mf.init_opt_state(cpu, opt), cpu_batch, trainer.t_p.cpu(),
-                  trainer.t_q.cpu(), LR, dim_mask.cpu(), opt=opt, lam=LAM, use_fused_kernel=False)
-    for name, got, want in (("p", params.p[users].cpu(), cpu.p), ("q", params.q[items].cpu(), cpu.q)):
-        err = float((got - want).abs().max())
-        check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
-              f"step: {len(want)} updated {name} rows within rtol/atol {RTOL} of the CPU "
-              f"(max abs err {err:.3e}, max |value| {float(want.abs().max()):.4f})")
+    step_ms = step_against_cpu(trainer, batch, LR, "step")
     log(f"  one step (host clock, synchronized): {step_ms:.2f} ms")
 
     # -- where a step's time goes: its stages one by one (CUDA events) --------
@@ -1050,6 +1107,579 @@ def training_main_path(dev):
     trainer.evaluate()
     log(f"  evaluate() on {len(test)} test ratings {(time.perf_counter() - t0) * 1e3:.1f} ms")
     return {"launches": launches, "ranking_eval_ms": eval_ms}
+
+
+# ---------------------------------------------------------------------------
+# the workloads: implicit (fused_mf_sgd with a weight column) and BPR
+# ---------------------------------------------------------------------------
+
+
+def ranking_batch_against_plain(trainer, what):
+    """The trainer's first ranking batch through the pruned_topk kernel, as
+    its ranking evaluation launches it, against the plain version on the
+    same inputs (comparison launches, after the path's counted run)."""
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.kernels import pruned_topk
+
+    p, q = trainer.params.p, trainer.params.q
+    pu = p[trainer._packed_ranking["user"][0]]
+    r_u, r_i = effective_ranks(pu, trainer.t_p), effective_ranks(q, trainer.t_q)
+    zero_bias = torch.zeros(q.shape[0], device=q.device)
+    got_s, got_i = pruned_topk.pruned_topk_ranked(pu, q, r_u, r_i, zero_bias, RANKING_TOPK)
+    want_s, want_i = pruned_topk.pruned_topk_plain(pu, q, r_u, r_i, zero_bias, RANKING_TOPK,
+                                                   block_n=PLAIN_BLOCK_N)
+    compare_topk(got_s, got_i, want_s, want_i,
+                 f"{what}: ranking batch of {len(pu)} users x {q.shape[0]} items vs plain")
+    del r_i, zero_bias, want_s, want_i
+    torch.cuda.empty_cache()
+
+
+def implicit_phase(dev):
+    """DPMFTrainer.run() under the implicit objective at full size: the log
+    expanded into positives (confidence 1 + 40 r) and 4 sampled negatives
+    each, sgd through fused_mf_sgd with the weight column; the kernels'
+    counts set to 0 just before run() and read just after; then one more
+    weighted step against the plain masked step on the CPU."""
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.kernels import fused_mf_sgd, pruned_topk
+    from repro_torch.workloads import implicit as implicit_wl
+
+    log(f"## implicit-dpmf: dpmf FunkSVD {N_USERS} x {N_ITEMS} x k={K}, objective implicit "
+        f"(alpha {IMPLICIT_ALPHA}, {IMPLICIT_NEGATIVES} negatives), sgd + fused kernel, lr "
+        f"{IMPLICIT_LR:.6g} (dpmf's {LR} / 201), rate {RATE}, batch {BATCH}, {IMPLICIT_EPOCHS} "
+        f"epochs")
+    rng = np.random.default_rng(SEED + 7)
+    train = dpmf_ratings(rng, TRAIN_STEPS * BATCH)
+    test = dpmf_ratings(rng, BATCH)
+    cfg = TrainConfig(k=K, epochs=IMPLICIT_EPOCHS, batch_size=BATCH, lr=IMPLICIT_LR, lam=LAM,
+                      pruning_rate=RATE, optimizer="sgd", use_fused_kernel=True, seed=SEED,
+                      objective="implicit", implicit_alpha=IMPLICIT_ALPHA,
+                      implicit_negatives=IMPLICIT_NEGATIVES, eval_batch_size=BATCH,
+                      ranking_topk=RANKING_TOPK)
+    host = {}
+    expand = implicit_wl.implicit_dataset
+
+    def timed_expand(*args, **kwargs):  # the trainer's one call, timed on the host clock
+        t0 = time.perf_counter()
+        out = expand(*args, **kwargs)
+        host["implicit_dataset_s"] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    implicit_wl.implicit_dataset = timed_expand
+    try:
+        t0 = time.perf_counter()
+        trainer = DPMFTrainer(cfg, train, test)
+        torch.cuda.synchronize()
+        host["trainer_init_s"] = time.perf_counter() - t0
+    finally:
+        implicit_wl.implicit_dataset = expand
+    rows = len(trainer.train_ds)
+    steps = rows // BATCH
+    weight = trainer._train_weight
+    log(f"  implicit_dataset: {len(train)} interactions -> {rows} rows in "
+        f"{host['implicit_dataset_s']:.2f} s (host); trainer built in "
+        f"{host['trainer_init_s']:.2f} s; confidence max {float(weight.max()):.0f}, mean "
+        f"{float(weight[:len(train)].mean()):.2f} over the positives")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["implicit"] = launches
+    ranking_steps = trainer._packed_ranking["user"].shape[0]
+    log(f"  launches: {launches}; run() {run_s:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for r in history:
+        log(f"  epoch {r.epoch}: train err {r.train_abs_err:.6f}, test mae {r.test_mae:.6f}, "
+            f"work {r.work_fraction:.6f}, HR@{RANKING_TOPK} {r.hr:.6f}; train {r.wall_time_s:.3f} s "
+            f"= {r.wall_time_s / steps * 1e3:.2f} ms a step, {rows / r.wall_time_s / 1e6:.2f} M rows/s")
+    check(launches["fused_mf_sgd"] == IMPLICIT_EPOCHS * steps,
+          f"implicit: fused_mf_sgd launched {IMPLICIT_EPOCHS * steps} times "
+          f"({launches['fused_mf_sgd']})")
+    check(launches["pruned_topk"] == IMPLICIT_EPOCHS * ranking_steps,
+          f"implicit: pruned_topk launched {IMPLICIT_EPOCHS * ranking_steps} times by the ranking "
+          f"evaluation ({launches['pruned_topk']})")
+    check(all(math.isfinite(v) for r in history for v in (
+        r.train_abs_err, r.test_mae, r.work_fraction, r.hr, r.ndcg, r.recall)),
+        "implicit: epoch records finite")
+    check(history[0].work_fraction == 1.0 and history[-1].work_fraction < 1.0,
+          "implicit: work fraction 1.0 in epoch 0, below 1 after calibration")
+    ranking_batch_against_plain(trainer, "implicit")
+
+    log("## implicit: one full-size weighted step against the plain masked step on the CPU")
+    take = np.random.default_rng(SEED + 9).choice(rows, BATCH, replace=False)
+    ds = trainer.train_ds
+    batch = {"user": torch.as_tensor(ds.user[take], dtype=torch.int64).to(dev),
+             "item": torch.as_tensor(ds.item[take], dtype=torch.int64).to(dev),
+             "rating": torch.as_tensor(ds.rating[take]).to(dev),
+             "weight": torch.as_tensor(weight[take]).to(dev)}
+    before = fused_mf_sgd.launches
+    step_ms = step_against_cpu(trainer, batch, IMPLICIT_LR, "implicit step (weights 1-201)")
+    check(fused_mf_sgd.launches == before + 1, "implicit step: one fused_mf_sgd launch")
+    log(f"  one weighted step (host clock, synchronized): {step_ms:.2f} ms")
+    return {"launches": launches, "step_ms": step_ms, **host,
+            "epoch_s": [r.wall_time_s for r in history]}
+
+
+def bpr_against_plain(params, opt, batch, t_p, t_q, lr, lam, what, exact):
+    """One bpr_train_step on the card against the plain bpr_step_ref on the
+    CPU over the touched rows only (re-indexed into small tables)."""
+    from repro_torch.core import mf
+    from repro_torch.kernels import ref
+    from repro_torch.workloads import bpr
+
+    u, i, j = batch["user"], batch["pos"], batch["neg"]
+    users, u_pos = torch.unique(u, return_inverse=True)
+    items, ij_pos = torch.unique(torch.cat([i, j]), return_inverse=True)
+    p_small, q_small = params.p[users].cpu(), params.q[items].cpu()
+    want_p, want_q, _, want_loss = ref.bpr_step_ref(
+        p_small, q_small, u_pos.cpu(), ij_pos[: len(i)].cpu(), ij_pos[len(i):].cpu(),
+        float(t_p), float(t_q), lr=lr, lam=lam)
+    _, _, metrics = bpr.bpr_train_step(
+        params, mf.init_opt_state(params, opt), batch, t_p, t_q, lr,
+        torch.ones((K,), device=params.p.device), opt=opt, lam=lam)
+    got_p, got_q = params.p[users].cpu(), params.q[items].cpu()
+    for name, got, want in (("p", got_p, want_p), ("q", got_q, want_q)):
+        err = float((got - want).abs().max())
+        ok = torch.equal(got, want) if exact else bool(
+            torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+        check(ok, f"{what}: {len(want)} updated {name} rows "
+                  f"{'exactly equal to' if exact else f'within rtol/atol {RTOL} of'} the plain "
+                  f"bpr_step_ref on the CPU (max abs err {err:.3e})")
+    loss_err = abs(float(metrics["abs_err"]) - want_loss)
+    check(loss_err <= 1e-5, f"{what}: BPR loss {float(metrics['abs_err']):.6f} within 1e-5 of the "
+                            f"plain version's ({loss_err:.2e})")
+
+
+def bpr_phase(dev):
+    """One BPR epoch of 8 steps of 2^20 triples through DPMFTrainer at full
+    size (masked tensor ops, no kernel, as in the reference), the ranking
+    evaluation counted; then one pruned step against the plain
+    bpr_step_ref over the touched rows: random factors within 1e-5, and
+    1/8-grid rows exactly."""
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.workloads import bpr
+
+    log(f"## bpr-dpmf: dpmf FunkSVD {N_USERS} x {N_ITEMS} x k={K}, objective bpr, sgd lr {LR}, "
+        f"lam {LAM}, one epoch of {TRAIN_STEPS} steps of {BATCH} triples, rate {RATE} after it")
+    rng = np.random.default_rng(SEED + 8)
+    train = dpmf_ratings(rng, TRAIN_STEPS * BATCH)
+    test = dpmf_ratings(rng, BATCH)
+    cfg = TrainConfig(k=K, epochs=1, batch_size=BATCH, lr=LR, lam=LAM, pruning_rate=RATE,
+                      optimizer="sgd", objective="bpr", seed=SEED, eval_batch_size=BATCH,
+                      ranking_topk=RANKING_TOPK)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = DPMFTrainer(cfg, train, test)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sampler = trainer._bpr_sampler
+    log(f"  trainer built in {init_s:.2f} s (the sampler's positive set included)")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["bpr"] = launches
+    r = history[0]
+    log(f"  launches: {launches}; run() {run_s:.2f} s; epoch 0: BPR loss {r.train_abs_err:.6f}, "
+        f"work {r.work_fraction:.6f}, HR@{RANKING_TOPK} {r.hr:.6f}; train {r.wall_time_s:.3f} s = "
+        f"{r.wall_time_s / TRAIN_STEPS * 1e3:.2f} ms a step (triples drawn and uploaded "
+        f"included); T_p {float(trainer.t_p):.6g}, T_q {float(trainer.t_q):.6g} after it; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(len(history) == 1 and math.isfinite(r.train_abs_err) and r.train_abs_err < 0.75
+          and math.isnan(r.test_mae) and r.work_fraction == 1.0,
+          "bpr: one dense epoch, loss finite near log 2, test MAE NaN")
+    check(math.isfinite(r.hr) and launches["pruned_topk"] > 0,
+          f"bpr: ranking evaluation through pruned_topk ({launches['pruned_topk']})")
+    ranking_batch_against_plain(trainer, "bpr")
+
+    log("## bpr: one pruned step against the plain bpr_step_ref on the CPU (touched rows)")
+    t0 = time.perf_counter()
+    triples = sampler.epoch_triples_numpy(1)  # the epoch the trainer would draw next
+    sample_s = time.perf_counter() - t0
+    log(f"  one epoch's {triples['user'].size} triples drawn on the host in {sample_s:.2f} s")
+    batch = {key: torch.as_tensor(value[0], dtype=torch.int64).to(dev)
+             for key, value in triples.items()}
+    params, opt = trainer.params, trainer.opt
+    bpr_against_plain(params, opt, batch, trainer.t_p, trainer.t_q, LR, LAM,
+                      "bpr step (random factors, rate 0.3)", exact=False)
+    ones = torch.ones((K,), device=dev)
+    step_ms = time_ms(lambda: bpr.bpr_train_step(
+        params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, LR, ones, opt=opt,
+        lam=LAM), 5)
+    log(f"  one BPR step at rate {RATE}: {step_ms:.3f} ms (CUDA events)")
+
+    # 1/8-grid rows, each negative's row a copy of its positive's: every
+    # difference is 0, the sigmoid exactly 0.5, every product and sum exact
+    gb = 1 << 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    u = torch.randint(0, N_USERS, (gb,), generator=gen, device=dev)
+    i = torch.randint(0, N_ITEMS // 2, (gb,), generator=gen, device=dev)
+    j = i + N_ITEMS // 2
+    params.p[u] = grid_tensor(gen, (gb, K), dev)
+    params.q[i] = grid_tensor(gen, (gb, K), dev)
+    params.q[j] = params.q[i]
+    bpr_against_plain(params, opt, {"user": u, "pos": i, "neg": j},
+                      torch.tensor(1 / 8, device=dev), torch.tensor(1 / 4, device=dev),
+                      1 / 16, 1 / 32, "bpr step (1/8-grid rows)", exact=True)
+    return {"launches": launches, "step_ms": step_ms, "sampler_s": sample_s,
+            "epoch_s": r.wall_time_s}
+
+
+# ---------------------------------------------------------------------------
+# the online freshness loop
+# ---------------------------------------------------------------------------
+
+
+def online_phase(dev):
+    """The freshness loop at k = 128, 10M items, 20M users: an sgd
+    OnlineUpdater fed a Poisson stream (rated, then clicks through
+    implicit_microbatches), a live ServingEngine answering 4 client threads,
+    SnapshotPublisher swaps every 4 batches (delta checkpoints to a temp dir
+    in the rated half), both prequential evaluators (the ranking one through
+    the engine).  Checks: no failed request; after every publish a probe
+    batch equals a fresh engine on a copy of the version; a batch started
+    before an apply returns its version's answer; every such probe against
+    the plain version on the version's own tables; the delta chain folds to
+    the live tables; pruned_topk counted under "online".  The clients wait
+    at a gate while a check runs, so the check's launches are counted
+    exactly and taken off the path's count."""
+    import contextlib
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core import mf
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.eval import PrequentialEvaluator, PrequentialRankingEvaluator
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.online import (EventBatch, OnlineUpdater, PoissonSource, SnapshotPublisher,
+                                    fold_deltas, iter_microbatches)
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads import implicit_microbatches, strip_ratings
+
+    log(f"## online-dpmf: k={K}, {N_ITEMS} items, {ONLINE_USERS} users (cut from {N_USERS}: the "
+        f"live tables and the served version are two copies), sgd lr {ONLINE_LR}, rate {RATE}; "
+        f"{ONLINE_BATCHES} rated then {ONLINE_BATCHES} click batches of {ONLINE_BATCH} events, "
+        f"new ids at p = {NEW_ID_PROB}, a publish every {PUBLISH_EVERY}, {CLIENTS} clients at "
+        f"top-{RANKING_TOPK}")
+    torch.cuda.reset_peak_memory_stats()
+
+    def base_tables():  # drawn again, bitwise, for the fold check
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 6)
+        q = decaying_factors(gen, N_ITEMS, dev)
+        return mf.MFParams(p=decaying_factors(gen, ONLINE_USERS, dev), q=q, user_bias=None,
+                           item_bias=None, global_mean=None, implicit=None)
+
+    params = base_tables()
+    t_p, t_q = thresholds_from_matrices(params.p, params.q, RATE)
+    engine = ServingEngine(params, t_p, t_q, max_batch=256)
+    upd = OnlineUpdater(params, None, t_p, t_q, optimizer="sgd", lr=ONLINE_LR, lam=LAM,
+                        pruning_rate=RATE, batch_size=ONLINE_BATCH, seed=SEED)
+    del params  # the engine's version 0, shared with the updater until its first write
+    ckpt_dir = tempfile.mkdtemp(prefix="online_deltas_")
+    # keep every step: no periodic full anchor (a full checkpoint is 15 GB here)
+    pub = SnapshotPublisher(engine, upd, checkpoint_dir=ckpt_dir, keep=1 << 20)
+    preq = PrequentialEvaluator(upd, window=ONLINE_BATCH)
+    rank_eval = PrequentialRankingEvaluator(upd, engine=engine, topk=RANKING_TOPK)
+    probe_rng = np.random.default_rng(SEED + 11)
+    engine.topk(np.arange(256), RANKING_TOPK)  # warm-up, outside the counted run
+    for b in (1, 2, 4, 8):
+        engine.topk(np.arange(b), RANKING_TOPK)
+    torch.cuda.synchronize()
+
+    stop = threading.Event()
+    latencies, failures = [], []
+    lock = threading.Lock()
+    gate = threading.Condition()  # clients wait here while a check runs
+    gate_state = {"closed": False, "in_flight": 0}
+    compare_launches = [0]
+    plain_rows = []  # (engine scores, engine ids, plain scores, plain ids) of every probe
+    out = {"swaps": [], "apply_s": 0.0, "events": 0}
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            with gate:
+                while gate_state["closed"] and not stop.is_set():
+                    gate.wait(timeout=1.0)
+                gate_state["in_flight"] += 1
+            user = int(rng.integers(0, ONLINE_USERS))
+            t0 = time.perf_counter()
+            try:
+                s, i = engine.submit(user, RANKING_TOPK, timeout=60.0).result(timeout=120)
+                ok = s.shape == (RANKING_TOPK,) and bool(np.isfinite(s).all())
+                with lock:
+                    latencies.append(time.perf_counter() - t0)
+                    if not ok:
+                        failures.append(f"user {user}: bad answer")
+            except Exception as exc:  # noqa: BLE001 -- every failure fails the phase
+                with lock:
+                    failures.append(f"user {user}: {exc!r}")
+            finally:
+                with gate:
+                    gate_state["in_flight"] -= 1
+                    gate.notify_all()
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Clients held at the gate with no request in flight, so every
+        pruned_topk launch inside is a check's; they are taken off the
+        online path's count."""
+        with gate:
+            gate_state["closed"] = True
+            while gate_state["in_flight"]:
+                gate.wait()
+        before = pruned_topk.launches
+        try:
+            yield
+        finally:
+            compare_launches[0] += pruned_topk.launches - before
+            with gate:
+                gate_state["closed"] = False
+                gate.notify_all()
+
+    def against_plain(snap, users, got):
+        """The plain version on the version's own tables at its catalog
+        size, ranks recomputed from its thresholds (not the engine's patched
+        r_i); held against the engine's answer after the loop.  It runs over
+        2^21-item slices of the catalog, each slice's list merged after the
+        running one (a stable sort: ties to the lower index, as in one call),
+        so its (items, k) temporaries stay near 1 GB beside the two copies."""
+        p, q = snap.params.p, snap.params.q
+        pu = p[torch.as_tensor(users, dtype=torch.int64, device=dev)]
+        r_u = effective_ranks(pu, snap.t_p)
+        want_s = want_i = None
+        for c0 in range(0, q.shape[0], 1 << 21):
+            qc = q[c0:c0 + (1 << 21)]
+            s, i = pruned_topk.pruned_topk_plain(
+                pu, qc, r_u, effective_ranks(qc, snap.t_q), torch.zeros(len(qc), device=dev),
+                RANKING_TOPK, block_n=PLAIN_BLOCK_N)
+            i = i + c0
+            if want_s is not None:
+                s, sel = torch.sort(torch.cat([want_s, s], 1), dim=1, descending=True,
+                                    stable=True)
+                i = torch.gather(torch.cat([want_i, i], 1), 1, sel)
+            want_s, want_i = s[:, :RANKING_TOPK], i[:, :RANKING_TOPK]
+        plain_rows.append((torch.as_tensor(got[0]), torch.as_tensor(got[1]), want_s.cpu(),
+                           want_i.cpu()))
+
+    def probe_check(what):
+        """The served version against a fresh engine on a copy of its tables,
+        then against the plain version."""
+        with uncounted():
+            held = engine._snap
+            probe = probe_rng.integers(0, held.num_users, PROBE_USERS)
+            got = engine.topk(probe, RANKING_TOPK)
+            against_plain(held, probe, got)  # before the copy: one of them on the card at a time
+            copy = mf.MFParams(*(None if v is None else v.clone() for v in held.params))
+            fresh = ServingEngine(copy, held.t_p.clone(), held.t_q.clone(), max_batch=256)
+            want = fresh.topk(probe, RANKING_TOPK)
+            same = engine._snap is held and all(np.array_equal(a, b) for a, b in zip(got, want))
+            del fresh, copy
+            gc.collect()
+        return same
+
+    served_items = [N_ITEMS]
+
+    def publish(publisher):
+        """One publish; its swap is a recalibration's full rebuild, a growth
+        rebuild (the catalog grew since the last publish) or a patch."""
+        t0 = time.perf_counter()
+        report = publisher.publish()
+        kind = ("recalibration" if report.full_rebuild
+                else "growth" if upd.num_items > served_items[0] else "patch")
+        served_items[0] = upd.num_items
+        out["swaps"].append(dict(kind=kind, swap_ms=report.swap_s * 1e3,
+                                 publish_ms=(time.perf_counter() - t0) * 1e3,
+                                 full_rebuild=report.full_rebuild,
+                                 touched_users=report.touched_users,
+                                 touched_items=report.touched_items, checkpoint=report.kind,
+                                 items=upd.num_items, users=upd.num_users))
+        return probe_check(kind)
+
+    def apply(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upd.apply(batch)
+        torch.cuda.synchronize()
+        out["apply_s"] += time.perf_counter() - t0
+        out["events"] += len(batch)
+
+    probes_ok = True
+    inflight_ok = None
+    engine.start(linger_ms=1.0)
+    threads = [threading.Thread(target=client, args=(100 + c,), daemon=True)
+               for c in range(CLIENTS)]
+    reset_launch_counts()
+    t_loop = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        # -- rated half: test-then-learn, delta checkpoints ---------------------
+        source = PoissonSource(ONLINE_USERS, N_ITEMS, seed=SEED, new_user_prob=NEW_ID_PROB,
+                               new_item_prob=NEW_ID_PROB)
+        for b, batch in enumerate(iter_microbatches(source, ONLINE_BATCH,
+                                                    max_events=ONLINE_BATCH * ONLINE_BATCHES)):
+            rank_eval.score(batch)
+            preq.score(batch)
+            if b == 5:
+                # a batch started on the served version before an apply
+                # returns that version's answer, bit for bit
+                with uncounted():
+                    held = engine._snap
+                    probe = batch.user[batch.user < held.num_users][:PROBE_USERS]
+                    want = engine.topk(probe, RANKING_TOPK)
+                    result = {}
+                    worker = threading.Thread(
+                        target=lambda: result.setdefault("r", engine.topk(probe, RANKING_TOPK)))
+                    worker.start()
+                    apply(batch)
+                    worker.join(timeout=120)
+                    again = engine.topk(probe, RANKING_TOPK)
+                    inflight_ok = "r" in result and all(
+                        np.array_equal(x, y) for r in (result["r"], again)
+                        for x, y in zip(r, want))
+                    against_plain(held, probe, want)
+                    del held  # the version goes when the engine and the updater drop it
+            else:
+                apply(batch)
+            if (b + 1) % PUBLISH_EVERY == 0:
+                probes_ok &= publish(pub)
+        # batches without new items: touched-rows patch swaps
+        patch_source = PoissonSource(upd.num_users, upd.num_items, seed=SEED + 2)
+        for batch in iter_microbatches(patch_source, ONLINE_BATCH,
+                                       max_events=PATCH_SWAPS * ONLINE_BATCH):
+            rank_eval.score(batch)
+            preq.score(batch)
+            apply(batch)
+            probes_ok &= publish(pub)
+        pub.close()
+        rated_events = out["events"]
+        torch.cuda.synchronize()
+
+        # the delta chain folds onto the base tables to the live ones
+        base = base_tables()
+        folded, f_tp, f_tq, _, last = fold_deltas(ckpt_dir, base, t_p, t_q)
+        fold_ok = (all(torch.equal(a, b) for a, b in ((folded.p, upd.params.p),
+                                                      (folded.q, upd.params.q)))
+                   and float(f_tp) == float(upd.t_p) and last == pub.version)
+        chain = len(pub.reports)
+        del base, folded
+
+        # -- recalibration: new thresholds and latent order, a full rebuild ---
+        info = upd.maybe_recalibrate(force=True)
+        pub2 = SnapshotPublisher(engine, upd)  # no checkpoints: a full anchor is 15 GB here
+        probes_ok &= publish(pub2)
+        log(f"  recalibrated: drift {info['drift']:.4f}, T_p {info['t_p'][0]:.6g} -> "
+            f"{info['t_p'][1]:.6g}, T_q {info['t_q'][0]:.6g} -> {info['t_q'][1]:.6g}")
+
+        # -- click half: implicit_microbatches over a rating-free view --------
+        clicks = PoissonSource(upd.num_users, upd.num_items, seed=SEED + 1,
+                               new_user_prob=NEW_ID_PROB, new_item_prob=NEW_ID_PROB)
+        per = 1 + IMPLICIT_NEGATIVES
+        for b, conv in enumerate(implicit_microbatches(
+                strip_ratings(clicks), ONLINE_BATCH, num_items=upd.num_items,
+                alpha=IMPLICIT_ALPHA, negatives=IMPLICIT_NEGATIVES, seed=SEED,
+                max_events=ONLINE_BATCH * ONLINE_BATCHES)):
+            n = len(conv) // per   # the clicks come first, their negatives after
+            rank_eval.score(EventBatch(user=conv.user[:n], item=conv.item[:n], rating=None))
+            apply(conv)
+            if (b + 1) % PUBLISH_EVERY == 0:
+                probes_ok &= publish(pub2)
+        loop_s = time.perf_counter() - t_loop
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=180)
+        engine.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = {"pruned_topk": pruned_topk.launches - compare_launches[0]}
+    PATH_LAUNCHES["online"] = launches
+    got_s, got_i, want_s, want_i = (torch.cat(parts) for parts in zip(*plain_rows))
+    compare_topk(got_s, got_i, want_s, want_i,
+                 f"online: {len(plain_rows)} probes of the served versions ({len(got_s)} users) "
+                 "vs plain")
+
+    lat_ms = np.asarray(latencies) * 1e3
+    stats, rstats = preq.stats, rank_eval.stats
+    by_kind = {}
+    for swap in out["swaps"]:
+        by_kind.setdefault(swap["kind"], []).append(swap["swap_ms"])
+    out.update(
+        loop_s=loop_s, requests=len(latencies), failed=len(failures),
+        p50_ms=float(np.percentile(lat_ms, 50)) if lat_ms.size else float("nan"),
+        p99_ms=float(np.percentile(lat_ms, 99)) if lat_ms.size else float("nan"),
+        events_per_s=out["events"] / out["apply_s"], mae=stats.mae, hr=rstats.hit_rate,
+        mrr=rstats.mrr, peak_gb=torch.cuda.max_memory_allocated() / 1e9, chain_files=chain,
+        swap_ms_by_kind={k: dict(n=len(v), min=min(v), median=float(np.median(v)), max=max(v))
+                         for k, v in by_kind.items()},
+        launches=launches, users=upd.num_users, items=upd.num_items)
+    log(f"  launches: {launches} (comparison launches {compare_launches[0]} not counted); loop "
+        f"{loop_s:.2f} s; {out['events']} update rows ({rated_events} rated events) applied in "
+        f"{out['apply_s']:.2f} s = {out['events_per_s']:.0f} rows/s; tables grew to "
+        f"{upd.num_users} x {upd.num_items}")
+    for kind, v in out["swap_ms_by_kind"].items():
+        log(f"  swap ({kind}): {v['n']} swaps, min {v['min']:.2f} / median {v['median']:.2f} / "
+            f"max {v['max']:.2f} ms (host clock, synchronized)")
+    log(f"  clients: {len(latencies)} requests, {len(failures)} failed; p50 {out['p50_ms']:.2f} "
+        f"ms, p99 {out['p99_ms']:.2f} ms (submit to result, under the loop)")
+    log(f"  prequential: MAE {stats.mae:.4f} over {stats.events} rated events; HR@{RANKING_TOPK} "
+        f"{rstats.hit_rate:.4f}, MRR {rstats.mrr:.4f} over {rstats.events} events (cohorts "
+        f"{rstats.cohorts}); peak device memory {out['peak_gb']:.2f} GB")
+    check(not failures and len(latencies) > 0,
+          f"online: {len(latencies)} client requests, none failed or dropped "
+          f"({failures[:3]})")
+    check(probes_ok, f"online: after each of {len(out['swaps'])} publishes a probe of "
+                     f"{PROBE_USERS} users equals a fresh engine on a copy of the version, bit "
+                     "for bit")
+    check(bool(inflight_ok), "online: a batch started before an apply returns its version's "
+                             "answer bit for bit (during and after the apply)")
+    check(fold_ok, f"online: the chain of {chain} delta checkpoints folds onto the base tables "
+                   "to the live tables bitwise")
+    check({"growth", "patch", "recalibration"} <= set(by_kind),
+          f"online: growth, patch and recalibration swaps ({sorted(by_kind)})")
+    check(launches["pruned_topk"] > 0, f"online: pruned_topk launched on the online path "
+                                       f"({launches['pruned_topk']})")
+    largest = {name: float(max(-lo, hi)) for name, (lo, hi) in (
+        ("p", torch.aminmax(upd.params.p)), ("q", torch.aminmax(upd.params.q)))}
+    check(math.isfinite(stats.mae) and math.isfinite(rstats.hit_rate)
+          and all(math.isfinite(v) for v in largest.values()),
+          f"online: prequential MAE and HR finite, tables finite (max |p|, |q|: {largest})")
+    return out
+
+
+def online_launcher_phase():
+    """``python -m repro_torch.launch.online`` on the card at a small size
+    with --use-kernel: it must exit 0; its report is printed on one line."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.online", "--use-kernel", "--device", "cuda",
+           "--scale", "0.05", "--train-epochs", "3", "--events", "2000", "--batch-events", "64",
+           "--swap-every", "4", "--clients", "4", "--source", "poisson"]
+    log(f"## online launcher: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    report = json.loads(text[text.index("{"):]) if "{" in text else {}
+    log(f"  exit {proc.returncode} in {wall:.1f} s; report:")
+    log("  " + json.dumps(report))
+    if proc.returncode != 0:
+        log(proc.stderr[-3000:])
+    check(proc.returncode == 0 and report.get("requests_failed") == 0
+          and report.get("device") == "cuda" and report.get("requests_ok", 0) > 0,
+          "online launcher on the card: exit 0, no failed request")
+    return report
 
 
 def main() -> int:
@@ -1101,6 +1731,10 @@ def main() -> int:
     train = phase("training main path", training_main_path, dev)
     phase("ranking evaluation", ranking_eval_phase, dev)
     repairs = phase("repairs (C5, C6)", repairs_phase, dev)
+    implicit = phase("implicit-dpmf", implicit_phase, dev)
+    bpr_stats = phase("bpr-dpmf", bpr_phase, dev)
+    online = phase("online-dpmf", online_phase, dev)
+    launcher = phase("online launcher", online_launcher_phase)
 
     main_label = f"rate {RATE}"
     rows.append({
@@ -1121,6 +1755,16 @@ def main() -> int:
         row["launches_by_path"] = by_path
         row["wide"] = repairs[row["name"]]
     rows[0]["ranking_eval_ms"] = train["ranking_eval_ms"]
+    rows[2]["implicit_step_ms"] = implicit["step_ms"]
+    workloads = {
+        "implicit": {k: v for k, v in implicit.items() if k != "launches"},
+        "bpr": {k: v for k, v in bpr_stats.items() if k != "launches"},
+        "online": {k: v for k, v in online.items() if k not in ("launches", "swaps")},
+        "online_launcher": {k: launcher.get(k) for k in (
+            "event_rate_per_s", "swap_ms_p50", "latency_ms_p50", "latency_ms_p99",
+            "requests_ok", "requests_failed")},
+    }
+    log("# workloads " + json.dumps(workloads))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"# {len(failures)} check(s) failed:")

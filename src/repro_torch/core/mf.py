@@ -328,6 +328,22 @@ def _eval_mae(params: MFParams, batch: Batch, t_p, t_q) -> Tuple[torch.Tensor, t
 eval_mae = _eval_mae
 
 
+def _epoch_loop(step_fn, params, opt_state, batches):
+    """``step_fn(params, opt_state, batch)`` folded over packed ``(steps, B)``
+    batches, the metrics summed as device scalars (sum of per-batch means,
+    divided once), as the reference's ``_epoch_scan``."""
+    steps = batches["user"].shape[0]
+    err_sum = torch.zeros((), dtype=torch.float32, device=params.p.device)
+    work_sum = torch.zeros((), dtype=torch.float32, device=params.p.device)
+    for s in range(steps):
+        params, opt_state, m = step_fn(params, opt_state,
+                                       {key: value[s] for key, value in batches.items()})
+        err_sum = err_sum + m["abs_err"]
+        work_sum = work_sum + m["work_fraction"]
+    denom = float(max(steps, 1))
+    return params, opt_state, {"abs_err": err_sum / denom, "work_fraction": work_sum / denom}
+
+
 def train_epoch_scan(
     params: MFParams,
     opt_state: MFOptState,
@@ -350,21 +366,13 @@ def train_epoch_scan(
     the caller's, when it reads the returned scalars.  The SVD++ history is
     passed whole and gathered per step.
     """
-    steps = batches["user"].shape[0]
-    err_sum = torch.zeros((), dtype=torch.float32, device=params.p.device)
-    work_sum = torch.zeros((), dtype=torch.float32, device=params.p.device)
-    for s in range(steps):
-        batch = {key: value[s] for key, value in batches.items()}
+    def step(p, s, batch):
         if hist is not None:
             batch["hist"] = hist[batch["user"]]
-        params, opt_state, m = _train_step(
-            params, opt_state, batch, t_p, t_q, lr, dim_mask,
-            opt=opt, lam=lam, use_fused_kernel=use_fused_kernel,
-        )
-        err_sum = err_sum + m["abs_err"]
-        work_sum = work_sum + m["work_fraction"]
-    denom = float(max(steps, 1))
-    return params, opt_state, {"abs_err": err_sum / denom, "work_fraction": work_sum / denom}
+        return _train_step(p, s, batch, t_p, t_q, lr, dim_mask,
+                           opt=opt, lam=lam, use_fused_kernel=use_fused_kernel)
+
+    return _epoch_loop(step, params, opt_state, batches)
 
 
 def eval_epoch_scan(

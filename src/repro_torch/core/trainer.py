@@ -15,9 +15,15 @@ goes through the hand-written ``fused_mf_sgd`` kernel.  With
 split (``mf.eval_ranking_epoch_scan``, through the ``pruned_topk`` kernel on
 the card).
 
+Three objectives (``repro_torch.workloads``): ``explicit`` (the paper's
+squared rating error), ``implicit`` (WALS: the log is expanded once at init
+into positives and sampled negatives, the confidence riding the step's
+weight column, so sgd with ``use_fused_kernel`` takes the ``fused_mf_sgd``
+kernel with a weight column) and ``bpr`` (pairwise, on per-epoch sampled
+triples; the test MAE is NaN, the ranking metrics carry).
+
 Not ported yet, and refused with ``NotImplementedError`` rather than run as
-something else: the out-of-core store mode (ROADMAP A5) and the implicit and
-BPR objectives (A4).
+something else: the out-of-core store mode (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.eval import ranking as ranking_eval
 from repro_torch.optim.optimizers import RowOptimizer
 from repro_torch.optim.schedules import twin_learners_mask
+from repro_torch.workloads import bpr as bpr_wl
+from repro_torch.workloads import implicit as implicit_wl
 
 
 @dataclasses.dataclass
@@ -50,7 +58,9 @@ class TrainConfig:
     strategy: str = "standard"         # standard | twin  (paper §5.3)
     init_method: str = "normal"        # normal | uniform | libmf
     variant: str = "funk"              # funk | bias | svdpp
-    objective: str = "explicit"        # implicit and bpr: ROADMAP A4
+    objective: str = "explicit"        # explicit | implicit | bpr
+    implicit_alpha: float = 40.0       # implicit confidence c = 1 + alpha * r
+    implicit_negatives: int = 4        # sampled unobserved items a positive
     use_fused_kernel: bool = False     # the fused kernel for sgd without SVD++
     epoch_mode: str = "scan"           # scan: device-resident epoch loop
     #                                  # python: per-batch host loop
@@ -84,15 +94,24 @@ class EpochRecord:
     recall: float = float("nan")   # recall@K
 
 
-def _check_supported(config: TrainConfig) -> None:
+def _check_supported(config: TrainConfig, train_ds) -> None:
+    """The reference's validation, in its order; then the refusals of what
+    is not ported."""
     if config.epoch_mode not in ("scan", "python"):
         raise ValueError(f"unknown epoch_mode {config.epoch_mode!r}")
     if config.objective not in ("explicit", "implicit", "bpr"):
         raise ValueError(f"unknown objective {config.objective!r}")
     if config.objective != "explicit":
-        raise NotImplementedError(
-            f"objective {config.objective!r} is not ported yet (ROADMAP A4); "
-            "the port trains the explicit objective")
+        if config.store_dir is not None:
+            raise ValueError("store-backed training supports only the explicit objective")
+        if config.epoch_mode != "scan":
+            raise ValueError(f"objective {config.objective!r} requires epoch_mode='scan'")
+        if config.variant == "svdpp":
+            raise ValueError(
+                "svdpp histories assume a rated log; use variant 'funk' or 'bias' "
+                "with implicit/bpr objectives")
+        if train_ds is None:
+            raise ValueError(f"objective {config.objective!r} requires train_ds")
     if config.store_dir is not None:
         raise NotImplementedError(
             "store-backed (out-of-core) training is not ported yet (ROADMAP A5)")
@@ -115,12 +134,23 @@ class DPMFTrainer:
         *,
         device: DeviceLike = None,
     ):
-        _check_supported(config)
+        _check_supported(config, train_ds)
         if train_ds is None:
             raise ValueError("train_ds is required (store mode is ROADMAP A5)")
         self.config = config
         self.device = resolve_device(device)
         self.opt = RowOptimizer(name=config.optimizer)
+        self._train_weight = None   # implicit confidence column
+        self._bpr_sampler = None
+        if config.objective == "implicit":
+            # one-time expansion: positives + sampled negatives, with the
+            # WALS confidence column carried as per-example weights
+            train_ds, self._train_weight = implicit_wl.implicit_dataset(
+                train_ds, alpha=config.implicit_alpha,
+                negatives=config.implicit_negatives, seed=config.seed)
+            if test_ds is not None:
+                # held-out interactions as preference-1 targets
+                test_ds = implicit_wl.binarize_positives(test_ds)
         self.train_ds = train_ds
         self.test_ds = test_ds
         self.hist = (
@@ -131,11 +161,16 @@ class DPMFTrainer:
             else torch.as_tensor(self.hist, dtype=torch.int64).to(self.device)
         )
         self._packed_train = self._packed_eval = None
+        if config.objective == "bpr":
+            self._bpr_sampler = bpr_wl.BPRSampler(
+                train_ds, config.batch_size, seed=config.seed, device=self.device)
         if config.epoch_mode == "scan":
             # upload the ratings once; the batch size is clamped so a tiny
             # dataset trains as one batch per epoch instead of zero steps
-            self._packed_train = loader.pack_ratings(
-                train_ds, min(config.batch_size, max(len(train_ds), 1)), device=self.device)
+            if self._bpr_sampler is None:
+                self._packed_train = loader.pack_ratings(
+                    train_ds, min(config.batch_size, max(len(train_ds), 1)),
+                    weight=self._train_weight, device=self.device)
             if test_ds is not None:
                 self._packed_eval = loader.pack_eval_batches(
                     test_ds, config.eval_batch_size, device=self.device)
@@ -242,7 +277,16 @@ class DPMFTrainer:
             else torch.ones((cfg.k,), dtype=torch.float32, device=self.device)
         )
         start = time.perf_counter()
-        if cfg.epoch_mode == "scan":
+        if self._bpr_sampler is not None:
+            # pairwise epoch: freshly sampled triples; abs_err is the BPR loss
+            triples = self._bpr_sampler.epoch_triples(self.epoch)
+            self.params, self.opt_state, metrics = bpr_wl.bpr_epoch_scan(
+                self.params, self.opt_state, triples, t_p, t_q, cfg.lr, dim_mask,
+                opt=self.opt, lam=cfg.lam,
+            )
+            abs_err = float(metrics["abs_err"])
+            work = float(metrics["work_fraction"])
+        elif cfg.epoch_mode == "scan":
             batches = self._packed_train.epoch_batches(cfg.seed, self.epoch)
             self.params, self.opt_state, metrics = mf.train_epoch_scan(
                 self.params, self.opt_state, batches, t_p, t_q, cfg.lr, dim_mask,
@@ -306,8 +350,10 @@ class DPMFTrainer:
             self._ckpt.wait()
 
     def evaluate(self, t_p=None, t_q=None) -> float:
-        """Test MAE (Eq. 12) at the given (default: current) thresholds."""
-        if self.test_ds is None:
+        """Test MAE (Eq. 12) at the given (default: current) thresholds; NaN
+        without a test split and under ``bpr`` (pairwise scores have no
+        rating scale)."""
+        if self.test_ds is None or self.config.objective == "bpr":
             return float("nan")
         t_p = self.t_p if t_p is None else t_p
         t_q = self.t_q if t_q is None else t_q

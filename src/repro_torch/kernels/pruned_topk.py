@@ -31,6 +31,8 @@ few thousand ``topk`` trades parallelism (blocks in flight) for memory.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +40,8 @@ from repro_torch.core.ranks import rank_mask
 from repro_torch.kernels import build
 
 launches = 0  # kernel launches by :func:`pruned_topk_ranked` (CUDA only)
+# an engine's worker thread and its caller's thread launch at the same time
+_launches_lock = threading.Lock()
 
 BLOCK_M = 128    # users per block of the partial kernel (kBM)
 BLOCK_N = 128    # items per score tile; a split is a multiple of it (kBN)
@@ -144,7 +148,8 @@ def _launch(p, q, r_u, r_i, bias, topk):
         torch.cuda.current_stream(p.device).cuda_stream,
     )
     build.check(err, "pruned_topk kernel launch")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out_s, out_i
 
 

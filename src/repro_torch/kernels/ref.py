@@ -1,10 +1,10 @@
 """Dense PyTorch oracles for the kernels, exact to the paper's loops.
 
-Counterpart of ``repro/kernels/ref.py`` (all of it but ``bpr_step_ref``,
-which comes with the BPR workload).  These functions materialize what the
-kernels never do (the (m, n) score matrix, the (B, k) masks) and are what the
-tests hold every path against; :func:`fused_mf_sgd_ref` is also the plain
-version of the fused training kernel, which a CPU tensor runs.
+Counterpart of ``repro/kernels/ref.py``.  These functions materialize what
+the kernels never do (the (m, n) score matrix, the (B, k) masks) and are what
+the tests hold every path against; :func:`fused_mf_sgd_ref` is also the plain
+version of the fused training kernel, which a CPU tensor runs, and
+:func:`bpr_step_ref` the oracle of ``workloads.bpr.bpr_train_step``.
 """
 from __future__ import annotations
 
@@ -100,6 +100,62 @@ def fused_mf_sgd_ref(
         new_bu = (buf + lr * (err - lam * buf) * w).to(bias_u.dtype)
         new_bi = (bif + lr * (err - lam * bif) * w).to(bias_i.dtype)
     return new_p.to(p_rows.dtype), new_q.to(q_rows.dtype), new_bu, new_bi, err
+
+
+def bpr_step_ref(
+    p: torch.Tensor,        # (m, k) full user table
+    q: torch.Tensor,        # (n, k) full item table
+    user: torch.Tensor,     # (b,)
+    pos: torch.Tensor,      # (b,)
+    neg: torch.Tensor,      # (b,)
+    t_p,
+    t_q,
+    *,
+    lr: float,
+    lam: float,
+    item_bias: Optional[torch.Tensor] = None,   # (n,)
+    weight: Optional[torch.Tensor] = None,      # (b,) update gate
+):
+    """One plain-SGD pruned BPR step over whole tables, in float32.
+
+    Pair scores truncate at ``min(r_u, r_item)``, the regularizer is masked
+    by each row's own rank, and duplicate rows accumulate in order
+    (``index_add_``, as the reference's ``np.add.at``).  Returns new tables
+    ``(new_p, new_q, new_item_bias, mean_loss)``; the inputs are not written.
+    """
+    k = p.shape[-1]
+    pf, qf = p.float(), q.float()
+    x_u, y_i, y_j = pf[user], qf[pos], qf[neg]
+    r_u = effective_ranks(x_u, t_p)
+    r_i = effective_ranks(y_i, t_q)
+    r_j = effective_ranks(y_j, t_q)
+    m_ui = rank_mask(torch.minimum(r_u, r_i), k)
+    m_uj = rank_mask(torch.minimum(r_u, r_j), k)
+    m_u, m_i, m_j = rank_mask(r_u, k), rank_mask(r_i, k), rank_mask(r_j, k)
+
+    s_ui = torch.sum(x_u * y_i * m_ui, dim=-1)
+    s_uj = torch.sum(x_u * y_j * m_uj, dim=-1)
+    if item_bias is not None:
+        bf = item_bias.float()
+        s_ui = s_ui + bf[pos]
+        s_uj = s_uj + bf[neg]
+    diff = s_ui - s_uj
+    sig = torch.sigmoid(-diff)
+    w = torch.ones_like(diff) if weight is None else weight.float()
+
+    g_p = -sig[:, None] * (y_i * m_ui - y_j * m_uj) + lam * x_u * m_u
+    g_qi = -sig[:, None] * x_u * m_ui + lam * y_i * m_i
+    g_qj = sig[:, None] * x_u * m_uj + lam * y_j * m_j
+    new_p = pf.clone().index_add_(0, user, -lr * g_p * w[:, None])
+    new_q = qf.clone().index_add_(0, pos, -lr * g_qi * w[:, None])
+    new_q.index_add_(0, neg, -lr * g_qj * w[:, None])
+    new_bias = None
+    if item_bias is not None:
+        new_bias = bf.clone().index_add_(0, pos, -lr * (-sig + lam * bf[pos]) * w)
+        new_bias.index_add_(0, neg, -lr * (sig + lam * bf[neg]) * w)
+    loss = torch.log1p(torch.exp(-diff.abs())) + torch.clamp(-diff, min=0.0)
+    denom = max(float(w.sum()), 1e-9)
+    return new_p, new_q, new_bias, float((loss * w).sum()) / denom
 
 
 def early_stop_dot_loop(

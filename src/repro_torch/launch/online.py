@@ -1,0 +1,266 @@
+"""Online serving launcher of the port: train -> stream -> serve, in one
+process, on one engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.online --dataset movielens100k \
+        --scale 0.05 --train-epochs 3 --events 500 --swap-every 3 --clients 4
+
+Runs on ``cuda`` (the hand-written kernels) unless ``--device cpu`` selects
+the plain PyTorch path.  The freshness loop:
+
+1. train a DP-MF model (or resume from ``--ckpt``) on a train split;
+2. start the serving engine and its async request queue, and send it
+   requests from ``--clients`` threads for the whole run;
+3. stream held-out (or synthetic Poisson) events through the
+   :class:`~repro_torch.online.updater.OnlineUpdater`: pruned row updates
+   only, each batch scored prequentially (test-then-learn) before it is
+   applied;
+4. every ``--swap-every`` micro-batches, hot-swap the new factor version
+   into the live engine and write an async delta checkpoint.
+
+The exit status is non-zero if any request failed or was dropped.  A JSON
+report (throughput, swap latency, serving percentiles, work fraction,
+prequential MAE/RMSE, MAE before and after) goes to stdout and, with
+``--json``, to a file.
+
+Not ported yet, and refused with an error naming the ROADMAP item rather
+than ignored: a fleet of replicas (``--replicas`` > 1, ``--supervise``,
+``--routing``, ``--replica-backend``: A7), user eviction (``--evict-*``: A5)
+and the SLO controller (``--slo-*``: A6).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+import time
+
+import numpy as np
+
+from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+from repro_torch.data.ratings import paper_dataset, train_test_split
+from repro_torch.eval import PrequentialEvaluator, recalibration_hook
+from repro_torch.online import (
+    OnlineUpdater,
+    PoissonSource,
+    ReplaySource,
+    SnapshotPublisher,
+    iter_microbatches,
+)
+from repro_torch.serving import ServingEngine
+
+
+def _refuse_unported(args) -> None:
+    """The reference's options this launcher does not port yet."""
+    refused = [
+        (args.replicas > 1, "--replicas > 1", "A7"),
+        (args.supervise, "--supervise", "A7"),
+        (args.routing is not None, "--routing", "A7"),
+        (args.replica_backend is not None, "--replica-backend", "A7"),
+        (args.evict_max_users > 0 or args.evict_target_users > 0, "--evict-*", "A5"),
+        (args.slo_p99_ms > 0 or args.slo_max_rate is not None, "--slo-*", "A6"),
+        (args.use_kernel and args.device == "cpu",
+         "--use-kernel with --device cpu (the kernel runs on the card)", "the card"),
+    ]
+    for given, flag, item in refused:
+        if given:
+            where = f"ROADMAP {item}" if item.startswith("A") else item
+            raise SystemExit(f"{flag} is not supported by the port's online launcher ({where})")
+
+
+def run_online(args) -> dict:
+    _refuse_unported(args)
+    ds = paper_dataset(args.dataset, seed=args.seed, scale=args.scale)
+    rest, test_ds = train_test_split(ds, 0.15, seed=args.seed)
+    train_ds, stream_ds = train_test_split(rest, 0.25, seed=args.seed + 1)
+
+    config = TrainConfig(
+        k=args.k, epochs=args.train_epochs, batch_size=args.batch_size, lr=args.lr,
+        pruning_rate=args.pruning_rate, variant=args.variant, seed=args.seed,
+        checkpoint_dir=args.ckpt,
+    )
+    trainer = DPMFTrainer(config, train_ds, test_ds, device=args.device)
+    if trainer.maybe_restore():
+        print(f"# resumed training checkpoint at epoch {trainer.epoch}")
+    trainer.run()
+    mae_before = trainer.evaluate()
+    print(f"# trained on {trainer.device}: MAE {mae_before:.4f}, t_q {float(trainer.t_q):.4f}")
+
+    # the updater writes copies of the trainer's tables (copy on write), so
+    # the engine's version 0 and the trainer stay as they are
+    updater = OnlineUpdater.from_trainer(trainer, batch_size=max(args.batch_events, 64))
+    engine = ServingEngine(trainer.params, trainer.t_p, trainer.t_q, device=args.device,
+                           user_history=trainer.hist, block_n=args.block_n)
+    publisher = SnapshotPublisher(
+        engine, updater, checkpoint_dir=(args.ckpt + "/online") if args.ckpt else None)
+
+    if args.source == "replay":
+        source = ReplaySource(stream_ds, epochs=None, shuffle=True, seed=args.seed)
+    else:
+        source = PoissonSource(
+            updater.num_users, updater.num_items, rate=1000.0, seed=args.seed,
+            new_user_prob=args.new_id_prob, new_item_prob=args.new_id_prob,
+            rating_min=ds.rating_min, rating_max=ds.rating_max,
+        )
+
+    # warm the power-of-two buckets queue batches can land in, so the first
+    # requests in flight measure serving, not first-call set-up
+    warm_users = np.arange(min(engine.num_users, 8), dtype=np.int32)
+    for b in (1, 2, 4, 8):
+        if b <= len(warm_users):
+            engine.topk(warm_users[:b], args.topk)
+    engine.start(linger_ms=1.0)
+
+    # ---- concurrent request traffic over the whole stream window ----------
+    num_users = engine.num_users
+    stop = threading.Event()
+    latencies: list = []
+    failures: list = []
+    ok = [0]
+    lock = threading.Lock()
+
+    def client(seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            user = int(rng.integers(0, num_users))
+            t0 = time.perf_counter()
+            try:
+                engine.submit(user, args.topk, timeout=30.0).result(timeout=60)
+                dt = time.perf_counter() - t0
+                with lock:
+                    ok[0] += 1
+                    latencies.append(dt)
+            except Exception as exc:  # noqa: BLE001 - any failure fails the run
+                with lock:
+                    failures.append(f"user {user}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(1000 + c,), daemon=True)
+               for c in range(args.clients)]
+    for t in threads:
+        t.start()
+
+    # ---- the update loop: prequential test-then-learn ----------------------
+    evaluator = PrequentialEvaluator(updater, window=args.prequential_window)
+    evaluator.add_drift_hook(recalibration_hook(updater, min_events=args.prequential_window))
+    swaps = []
+    events = 0
+    work_fractions = []
+    t_stream = time.perf_counter()
+    try:
+        for b, batch in enumerate(
+            iter_microbatches(source, args.batch_events, max_events=args.events)
+        ):
+            metrics = evaluator.consume(batch)
+            events += metrics["events"]
+            work_fractions.append(metrics["work_fraction"])
+            if (b + 1) % args.swap_every == 0:
+                info = updater.maybe_recalibrate()  # no-op within the drift budget
+                if info:
+                    print(f"# recalibrated: drift {info['drift']:.3f}")
+                swaps.append(publisher.publish())
+        swaps.append(publisher.publish())  # final flush
+        stream_s = time.perf_counter() - t_stream
+        publisher.close()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        engine.stop()
+    preq = evaluator.stats
+    print(f"# prequential: MAE {preq.mae:.4f} (window {preq.window_mae:.4f},"
+          f" ema {preq.ema_mae:.4f}) over {preq.events} events")
+    stuck = sum(t.is_alive() for t in threads)
+    if stuck:
+        failures.append(f"{stuck} client threads did not finish")
+
+    mae_after = updater.evaluate(test_ds)
+    lat_ms = np.asarray(latencies) * 1e3 if latencies else np.zeros(1)
+    report = {
+        "device": str(engine.device),
+        "events": events,
+        "event_rate_per_s": events / max(stream_s, 1e-9),
+        "mean_work_fraction": float(np.mean(work_fractions)),
+        "swaps": len(swaps),
+        "final_version": engine.version,
+        "swap_ms_p50": float(np.percentile([s.swap_s * 1e3 for s in swaps], 50)),
+        "swap_ms_max": float(max(s.swap_s * 1e3 for s in swaps)),
+        "requests_ok": ok[0],
+        "requests_failed": len(failures),
+        "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+        "latency_ms_p99": float(np.percentile(lat_ms, 99)),
+        "mae_before": mae_before,
+        "mae_after": mae_after,
+        "prequential": preq.as_dict(),
+        "num_users": num_users,
+        "num_items": updater.num_items,
+    }
+    if failures:
+        report["failure_samples"] = failures[:5]
+    return report
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--dataset", default="movielens100k",
+                        choices=["movielens100k", "appliances", "bookcrossings", "jester"])
+    parser.add_argument("--scale", type=float, default=0.05, help="dataset size multiplier")
+    parser.add_argument("--k", type=int, default=24)
+    parser.add_argument("--train-epochs", type=int, default=3)
+    parser.add_argument("--batch-size", type=int, default=1024,
+                        help="offline training batch size")
+    parser.add_argument("--lr", type=float, default=0.05)
+    parser.add_argument("--pruning-rate", type=float, default=0.3)
+    parser.add_argument("--variant", default="funk", choices=["funk", "bias", "svdpp"])
+    parser.add_argument("--events", type=int, default=500, help="total streamed events")
+    parser.add_argument("--batch-events", type=int, default=64,
+                        help="events per update micro-batch")
+    parser.add_argument("--swap-every", type=int, default=3,
+                        help="hot-swap every N micro-batches")
+    parser.add_argument("--source", default="replay", choices=["replay", "poisson"])
+    parser.add_argument("--prequential-window", type=int, default=256,
+                        help="windowed prequential MAE/RMSE span (events)")
+    parser.add_argument("--new-id-prob", type=float, default=0.02,
+                        help="cold-start id probability (poisson source)")
+    parser.add_argument("--clients", type=int, default=4,
+                        help="concurrent request threads during the stream")
+    parser.add_argument("--topk", type=int, default=10)
+    parser.add_argument("--block-n", type=int, default=1024,
+                        help="item tile of the CPU path")
+    parser.add_argument("--use-kernel", action="store_true",
+                        help="kept for the reference's command line: the port takes the CUDA "
+                             "kernels whenever --device is cuda, so there the flag has no "
+                             "effect; with --device cpu it is refused")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda runs the hand-written kernels; cpu their plain versions")
+    parser.add_argument("--ckpt", default=None,
+                        help="checkpoint dir (training + online deltas)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--json", default=None, metavar="PATH",
+                        help="also write the run report to PATH")
+    # the reference's fleet, eviction and SLO options: refused (ROADMAP A7, A5, A6)
+    parser.add_argument("--replicas", type=int, default=1, help="ROADMAP A7: refused if > 1")
+    parser.add_argument("--replica-backend", choices=("local", "process"), default=None,
+                        help="ROADMAP A7: refused")
+    parser.add_argument("--supervise", action="store_true", help="ROADMAP A7: refused")
+    parser.add_argument("--routing", choices=("affinity", "least", "random"), default=None,
+                        help="ROADMAP A7: refused")
+    parser.add_argument("--evict-max-users", type=int, default=0, help="ROADMAP A5: refused")
+    parser.add_argument("--evict-target-users", type=int, default=0, help="ROADMAP A5: refused")
+    parser.add_argument("--slo-p99-ms", type=float, default=0.0, help="ROADMAP A6: refused")
+    parser.add_argument("--slo-max-rate", type=float, default=None, help="ROADMAP A6: refused")
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    report = run_online(args)
+    print(json.dumps(report, indent=2))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=2)
+    if report["requests_failed"]:
+        raise SystemExit(f"{report['requests_failed']} requests failed during the run")
+
+
+if __name__ == "__main__":
+    main()

@@ -10,8 +10,9 @@ Restarting the same command resumes from the latest checkpoint (same data
 order).  The tables are updated in place, so a retried epoch resumes from
 the tables as the failed attempt left them.  The checkpoint serves through
 ``repro_torch.launch.serve`` and through the reference's
-``repro.launch.serve``.  The reference's store-mode and objective flags are
-not ported (ROADMAP A4, A5).
+``repro.launch.serve``.  ``--objective implicit|bpr`` trains the workloads
+of ``repro_torch.workloads``.  The reference's store-mode flags are not
+ported (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -41,6 +42,14 @@ def main(argv=None) -> None:
     parser.add_argument("--strategy", default="standard", choices=["standard", "twin"])
     parser.add_argument("--init", default="normal", choices=["normal", "uniform"])
     parser.add_argument("--variant", default="funk", choices=["funk", "bias", "svdpp"])
+    parser.add_argument("--objective", default="explicit", choices=["explicit", "implicit", "bpr"],
+                        help="explicit: squared rating error (the paper); implicit: WALS "
+                             "confidence-weighted binary preference with sampled negatives; "
+                             "bpr: pairwise ranking loss (test mae is NaN)")
+    parser.add_argument("--implicit-alpha", type=float, default=40.0,
+                        help="implicit confidence c = 1 + alpha*r")
+    parser.add_argument("--implicit-negatives", type=int, default=4,
+                        help="sampled negatives per observed interaction")
     parser.add_argument("--use-fused-kernel", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ckpt", default=None)
@@ -54,7 +63,9 @@ def main(argv=None) -> None:
     config = TrainConfig(
         k=args.k, epochs=args.epochs, batch_size=args.batch_size, lr=args.lr, lam=args.lam,
         pruning_rate=args.pruning_rate, optimizer=args.optimizer, strategy=args.strategy,
-        init_method=args.init, variant=args.variant, use_fused_kernel=args.use_fused_kernel,
+        init_method=args.init, variant=args.variant, objective=args.objective,
+        implicit_alpha=args.implicit_alpha, implicit_negatives=args.implicit_negatives,
+        use_fused_kernel=args.use_fused_kernel,
         epoch_mode=args.epoch_mode, seed=args.seed, checkpoint_dir=args.ckpt,
         checkpoint_every_epochs=args.ckpt_every,
     )

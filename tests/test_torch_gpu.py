@@ -532,3 +532,124 @@ def test_swap_on_cuda_matches_fresh_engine(cuda, variant):
     evicted = remap[users] < 0
     assert (got_i[evicted] == fi).all() and (got_s[evicted] == fs).all()
     assert np.array_equal(got_i[~evicted], want_i[~evicted])
+
+
+# ---------------------------------------------------------------------------
+# the workloads and the online freshness loop on the card
+# ---------------------------------------------------------------------------
+
+
+def test_implicit_trainer_on_cuda_matches_cpu(cuda):
+    """The implicit objective through fused_mf_sgd with its weight column on
+    the card, against the same run on the CPU (identical expansion, order
+    and initial factors)."""
+    train, test = train_test_split(synthetic_ratings(300, 200, 6000, seed=0), 0.2, seed=0)
+    cfg = trainer.TrainConfig(k=32, epochs=3, batch_size=512, pruning_rate=0.3, optimizer="sgd",
+                              use_fused_kernel=True, lr=0.002, objective="implicit",
+                              implicit_alpha=4.0, implicit_negatives=2, ranking_topk=10)
+    rng = np.random.default_rng(0)
+    init = {"p": rng.normal(0, 0.1, (300, 32)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (200, 32)).astype(np.float32)}
+    runs = {}
+    for device in ("cpu", cuda):
+        t = trainer.DPMFTrainer(cfg, train, test, device=device)
+        t.params = mf.params_from_numpy(init, device=device)
+        t.opt_state = mf.init_opt_state(t.params, t.opt)
+        before = fused_mf_sgd.launches
+        runs[str(device)] = (t.run(), t.perm.cpu())
+        launched = fused_mf_sgd.launches - before
+    assert launched == 3 * (len(train) * 3 // 512)
+    (got, perm_gpu), (want, perm_cpu) = runs["cuda"], runs["cpu"]
+    assert torch.equal(perm_gpu, perm_cpu)
+    for g, c in zip(got, want):
+        for field in ("train_abs_err", "test_mae", "work_fraction"):
+            assert abs(getattr(g, field) - getattr(c, field)) <= 1e-4 * abs(getattr(c, field))
+        assert abs(g.hr - c.hr) <= 1e-6
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_bpr_step_on_cuda_matches_plain(cuda, grid):
+    """bpr_train_step on the card against bpr_step_ref on the CPU: random
+    factors within 1e-5; 1/8-grid rows whose negatives copy their
+    positives' rows (every difference 0, the sigmoid exactly 0.5) exactly,
+    duplicates accumulated by atomics in any order."""
+    from repro_torch.optim.optimizers import RowOptimizer
+    from repro_torch.workloads import bpr
+
+    rng = np.random.default_rng(4)
+    m, n, k, b = 500, 400, 40, 3000
+    u = rng.integers(0, m, b)
+    if grid:
+        p, q = _grid(rng, (m, k), "cpu"), _grid(rng, (n, k), "cpu")
+        i = rng.integers(0, n // 2, b)
+        j = i + n // 2
+        q[n // 2:] = q[: n // 2]
+        t, lr, lam = 1 / 8, 1 / 16, 1 / 32
+    else:
+        p, q = _normal(rng, (m, k), "cpu", 0.3), _normal(rng, (n, k), "cpu", 0.3)
+        i, j = rng.integers(0, n, b), rng.integers(0, n, b)
+        t, lr, lam = 0.1, 0.05, 0.02
+    idx = [torch.as_tensor(x, dtype=torch.int64) for x in (u, i, j)]
+    want_p, want_q, _, want_loss = ref.bpr_step_ref(p, q, *idx, t, t, lr=lr, lam=lam)
+    opt = RowOptimizer(name="sgd")
+    params = mf.MFParams(p.to(cuda), q.to(cuda), None, None, None, None)
+    batch = {"user": idx[0].to(cuda), "pos": idx[1].to(cuda), "neg": idx[2].to(cuda)}
+    got, _, metrics = bpr.bpr_train_step(params, mf.init_opt_state(params, opt), batch,
+                                         torch.tensor(t, device=cuda), torch.tensor(t, device=cuda),
+                                         lr, torch.ones(k, device=cuda), opt=opt, lam=lam)
+    if grid:
+        assert torch.equal(got.p.cpu(), want_p) and torch.equal(got.q.cpu(), want_q)
+    else:
+        torch.testing.assert_close(got.p.cpu(), want_p, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got.q.cpu(), want_q, rtol=1e-5, atol=1e-5)
+    assert abs(float(metrics["abs_err"]) - want_loss) <= 1e-5
+
+
+def test_online_loop_on_cuda_matches_cpu(cuda):
+    """The same stream through an updater on the card and one on the CPU:
+    tables within 1e-5; the engine on the card (pruned_topk) keeps every published version bit for
+    bit through later applies, serves what a fresh engine on a copy serves,
+    and the ranking evaluator's hits equal the CPU engine's."""
+    from repro_torch.eval import PrequentialRankingEvaluator
+    from repro_torch.online import OnlineUpdater, PoissonSource, SnapshotPublisher
+    from repro_torch.online import iter_microbatches
+
+    rng = np.random.default_rng(5)
+    m, n, k = 400, 3000, 32
+    init = {"p": _normal(rng, (m, k), "cpu"), "q": _normal(rng, (n, k), "cpu")}
+    sides = {}
+    for device in ("cpu", cuda):
+        params = mf.params_from_numpy({name: v.numpy() for name, v in init.items()}, device=device)
+        engine = ServingEngine(params, 0.05, 0.05, device=device, max_batch=64)
+        upd = OnlineUpdater(params, None, 0.05, 0.05, optimizer="sgd", lr=0.01, lam=0.02,
+                            batch_size=64, seed=3, device=device)
+        sides[str(device)] = (engine, upd, SnapshotPublisher(engine, upd),
+                              PrequentialRankingEvaluator(upd, engine=engine, topk=10))
+    before = pruned_topk.launches
+    for j, batch in enumerate(iter_microbatches(
+            PoissonSource(m, n, seed=6, new_user_prob=0.01, new_item_prob=0.01), 100,
+            max_events=1200)):
+        held = {}
+        for name, (engine, upd, pub, rank_eval) in sides.items():
+            rank_eval.score(batch)
+            held[name] = [v.clone() for v in engine.params if v is not None]
+            upd.apply(batch)
+            assert all(torch.equal(a, b) for a, b in zip(
+                [v for v in engine.params if v is not None], held[name]))
+            if j % 3 == 2:
+                pub.publish()
+        if j == 0:  # the same version on both sides: the same hits
+            assert sides["cuda"][3].stats.hit_rate == sides["cpu"][3].stats.hit_rate
+    # later versions differ by float32 rounding (scatter order): near-ties may flip
+    assert abs(sides["cuda"][3].stats.hit_rate - sides["cpu"][3].stats.hit_rate) <= 0.01
+    assert pruned_topk.launches > before
+    (engine, upd, _, _), (_, cpu_upd, _, _) = sides["cuda"], sides["cpu"]
+    torch.testing.assert_close(upd.params.p.cpu(), cpu_upd.params.p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(upd.params.q.cpu(), cpu_upd.params.q, rtol=1e-5, atol=1e-5)
+    assert upd.params.q.shape[0] > n and upd.params.p.shape[0] > m
+    assert bool(torch.isfinite(upd.params.p).all() and torch.isfinite(upd.params.q).all())
+    copy = mf.MFParams(*(None if v is None else v.clone() for v in engine.params))
+    fresh = ServingEngine(copy, engine.t_p, engine.t_q, device=cuda, max_batch=64)
+    users = np.arange(engine.num_users)
+    got, want = engine.topk(users, 10), fresh.topk(users, 10)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])

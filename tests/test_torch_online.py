@@ -1,0 +1,525 @@
+"""The port's online freshness loop held against the JAX reference on the
+CPU: event sources, ``OnlineUpdater`` (apply, cold start, recalibration,
+snapshots), ``SnapshotPublisher`` delta chains folded across the two
+packages, both prequential evaluators, the immutability of a published
+version, and ``launch/online`` end to end.
+
+Tolerances: bitwise for stream events, cold-start rows, folded chains and
+the permutation; 1e-5 in float32 for tables after updates; thresholds
+within 1e-6 relative; evaluator statistics within 1e-6.
+"""
+import dataclasses
+import json
+import threading
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import mf as jmf
+from repro.data import ratings as jratings
+from repro.eval import prequential as jpreq
+from repro.eval import prequential_ranking as jpreq_rank
+from repro.online import publisher as jpublisher
+from repro.online import stream as jstream
+from repro.online import updater as jupdater
+from repro.serving import engine as jengine
+from repro.workloads import implicit as jimplicit
+from repro_torch.core import mf
+from repro_torch.data.ratings import RatingsDataset
+from repro_torch.eval import prequential, prequential_ranking
+from repro_torch.launch import online as online_launch
+from repro_torch.online import publisher, stream, updater
+from repro_torch.serving import ServingEngine
+from repro_torch.workloads import implicit
+
+K, M, N = 8, 40, 60
+T = 0.05
+
+
+def _fields(seed, variant="funk", scale=0.3):
+    rng = np.random.default_rng(seed)
+    out = {"p": rng.normal(0, scale, (M, K)).astype(np.float32),
+           "q": rng.normal(0, scale, (N, K)).astype(np.float32),
+           "user_bias": None, "item_bias": None, "global_mean": None, "implicit": None}
+    if variant in ("bias", "svdpp"):
+        out.update(user_bias=rng.normal(0, 0.1, (M, 1)).astype(np.float32),
+                   item_bias=rng.normal(0, 0.1, (N, 1)).astype(np.float32),
+                   global_mean=np.float32(3.0))
+    if variant == "svdpp":
+        y = rng.normal(0, scale, (N + 1, K)).astype(np.float32)
+        y[N] = 0.0
+        out["implicit"] = y
+    return out
+
+
+def _history(seed, width=4):
+    rng = np.random.default_rng(seed + 100)
+    hist = rng.integers(0, N, (M, width)).astype(np.int32)
+    hist[:, -1] = N   # a free slot in every row
+    return hist
+
+
+def _ref_params(fields):
+    return jmf.MFParams(*(None if fields[n] is None else jnp.asarray(fields[n])
+                          for n in jmf.MFParams._fields))
+
+
+def _port_params(fields):
+    return mf.params_from_numpy(fields, device="cpu")
+
+
+def _np_params(params):
+    return {n: None if v is None else np.asarray(v.numpy() if hasattr(v, "numpy") else v)
+            for n, v in params._asdict().items()}
+
+
+def _assert_params(got, want, *, exact=False, tol=1e-5):
+    g, w = _np_params(got), _np_params(want)
+    for name in mf.MFParams._fields:
+        assert (g[name] is None) == (w[name] is None), name
+        if g[name] is None:
+            continue
+        assert g[name].shape == w[name].shape, name
+        if exact:
+            np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+        else:
+            np.testing.assert_allclose(g[name], w[name], rtol=tol, atol=tol, err_msg=name)
+
+
+def _events(module, seed=1, max_events=200, batch=50, new_prob=0.01, rated=True):
+    source = module.PoissonSource(M, N, seed=seed, new_user_prob=new_prob,
+                                  new_item_prob=new_prob)
+    batches = list(module.iter_microbatches(source, batch, max_events=max_events))
+    if not rated:
+        batches = [dataclasses.replace(b, rating=None) for b in batches]
+    return batches
+
+
+def _pair(fields, variant="funk", optimizer="sgd", **kw):
+    """A reference and a port updater on the same tables."""
+    hist = _history(0) if variant == "svdpp" else None
+    kw = dict(optimizer=optimizer, lr=0.05, lam=0.02, user_history=hist, batch_size=32,
+              seed=7, **kw)
+    ref = jupdater.OnlineUpdater(_ref_params(fields), None, T, T, **kw)
+    port = updater.OnlineUpdater(_port_params(fields), None, T, T, device="cpu", **kw)
+    return ref, port
+
+
+# ---------------------------------------------------------------------------
+# event sources
+# ---------------------------------------------------------------------------
+
+
+def _event_tuples(events):
+    return [(e.user, e.item, e.rating, e.timestamp) for e in events]
+
+
+@pytest.mark.parametrize("kind", ["replay", "replay-shuffled", "poisson", "poisson-rating-fn",
+                                  "iterator"])
+def test_sources_yield_identical_events(kind):
+    ds = jratings.synthetic_ratings(30, 20, 200, seed=2)
+    pds = RatingsDataset(ds.user, ds.item, ds.rating, ds.num_users, ds.num_items)
+
+    def make(module, data):
+        if kind.startswith("replay"):
+            return module.ReplaySource(data, epochs=2, shuffle=kind.endswith("shuffled"), seed=3)
+        if kind == "poisson":
+            return module.PoissonSource(30, 20, rate=50.0, seed=4, new_user_prob=0.05,
+                                        new_item_prob=0.05)
+        if kind == "poisson-rating-fn":
+            return module.PoissonSource(30, 20, seed=4,
+                                        rating_fn=lambda u, i, rng: float(rng.integers(1, 6)))
+        rows = [(1, 2, 3.0), (4, 5), module.Event(6, 7, None, 9.0)]
+        return module.IteratorSource(rows)
+
+    def take(source):
+        return _event_tuples(e for _, e in zip(range(500), source))
+
+    assert take(make(stream, pds)) == take(make(jstream, ds))
+
+
+@pytest.mark.parametrize("span,half_life", [(None, None), (0.05, None), (None, 0.02)])
+def test_microbatches_match_reference(span, half_life):
+    def batches(module):
+        source = module.PoissonSource(30, 20, rate=100.0, seed=5)
+        return list(module.iter_microbatches(source, 16, max_events=120,
+                                             max_batch_span_s=span, half_life_s=half_life))
+
+    got, want = batches(stream), batches(jstream)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for field in ("user", "item", "rating", "weight"):
+            a, b = getattr(g, field), getattr(w, field)
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="mix"):
+        stream.EventBatch.from_events([stream.Event(0, 0, 1.0), stream.Event(0, 1, None)])
+    with pytest.raises(ValueError, match="batch_size"):
+        list(stream.iter_microbatches([], 0))
+
+
+# ---------------------------------------------------------------------------
+# the updater
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("total", [0, 1, 5, 31, 32, 33, 100, 257])
+def test_chunk_sizes_match_reference(total):
+    assert (updater.OnlineUpdater._chunk_sizes(total, 32)
+            == jupdater.OnlineUpdater._chunk_sizes(total, 32))
+
+
+@pytest.mark.parametrize("variant,optimizer,weighted", [
+    ("bias", "adagrad", True), ("svdpp", "sgd", False), ("funk", "adam", False),
+])
+def test_apply_matches_reference(variant, optimizer, weighted):
+    """The same stream (cold-start ids included) through both updaters: the
+    same tables within 1e-5, the same touched sets, the same metrics."""
+    fields = _fields(3, variant)
+    ref, port = _pair(fields, variant, optimizer)
+    for b_ref, b_port in zip(_events(jstream), _events(stream)):
+        if weighted:
+            w = np.random.default_rng(len(b_ref)).random(len(b_ref)).astype(np.float32)
+            b_ref.weight, b_port.weight = w, w.copy()
+        m_ref, m_port = ref.apply(b_ref), port.apply(b_port)
+        for key in ("abs_err", "work_fraction"):
+            assert abs(m_port[key] - m_ref[key]) <= 1e-5, key
+        assert m_port["events"] == m_ref["events"]
+    assert port.num_users > M and port.num_items > N   # the stream grew both tables
+    _assert_params(port.params, ref.params)
+    for key, value in port.opt_state.q.items():
+        np.testing.assert_allclose(value.numpy(), np.asarray(ref.opt_state.q[key]),
+                                   rtol=1e-5, atol=1e-5)
+    s_ref, s_port = ref.snapshot(), port.snapshot()
+    for field in ("touched_users", "touched_items", "touched_implicit_items", "user_history"):
+        a, b = getattr(s_port, field), getattr(s_ref, field)
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b, err_msg=field)
+    assert (s_port.events_seen, s_port.snapshot_id, s_port.full_rebuild) == (
+        s_ref.events_seen, s_ref.snapshot_id, s_ref.full_rebuild)
+    assert abs(port.mean_work_fraction - ref.mean_work_fraction) <= 1e-6
+    assert abs(port.mean_abs_err - ref.mean_abs_err) <= 1e-5
+    test = jratings.synthetic_ratings(M, N, 300, seed=9)
+    assert abs(port.evaluate(test) - ref.evaluate(test)) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", ["funk", "bias", "svdpp"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad"])
+def test_cold_start_rows_are_bitwise_the_references(variant, optimizer):
+    fields = _fields(4, variant)
+    ref, port = _pair(fields, variant, optimizer)
+    for upd in (ref, port):
+        assert upd.ensure_capacity(M + 2, N + 5)
+        assert not upd.ensure_capacity(M, N)
+        assert upd.ensure_capacity(M + 4, -1)
+    _assert_params(port.params, ref.params, exact=True)
+    for name in ("p", "q", "user_bias", "item_bias", "implicit"):
+        got, want = getattr(port.opt_state, name), getattr(ref.opt_state, name)
+        assert (got is None) == (want is None)
+        for key in (got or {}):
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    if variant == "svdpp":
+        np.testing.assert_array_equal(port.user_history, ref.user_history)
+    snap_ref, snap_port = ref.snapshot(), port.snapshot()
+    np.testing.assert_array_equal(snap_port.touched_users, snap_ref.touched_users)
+    np.testing.assert_array_equal(snap_port.touched_items, snap_ref.touched_items)
+
+
+@pytest.mark.parametrize("variant,optimizer", [("funk", "sgd"), ("bias", "adagrad"),
+                                               ("svdpp", "sgd")])
+def test_recalibrate_matches_reference(variant, optimizer):
+    """On the same tables: the same thresholds and permutation, the
+    permuted tables and optimizer state bitwise; after the same stream:
+    the same permutation, thresholds within 1e-6 relative."""
+    fields = _fields(5, variant)
+    ref, port = _pair(fields, variant, optimizer, pruning_rate=0.3, drift_budget=0.25)
+    assert port.drift() == pytest.approx(ref.drift(), rel=1e-6)
+    info_ref = ref.maybe_recalibrate(force=True)
+    info_port = port.maybe_recalibrate(force=True)
+    np.testing.assert_array_equal(info_port["perm"], np.asarray(info_ref["perm"]))
+    assert info_port["t_p"] == pytest.approx(info_ref["t_p"], rel=1e-6)
+    assert info_port["t_q"] == pytest.approx(info_ref["t_q"], rel=1e-6)
+    _assert_params(port.params, ref.params, exact=True)
+    for key, value in port.opt_state.p.items():
+        np.testing.assert_array_equal(value.numpy(), np.asarray(ref.opt_state.p[key]))
+    assert port.snapshot().full_rebuild and ref.snapshot().full_rebuild
+    for b_ref, b_port in zip(_events(jstream, new_prob=0.0), _events(stream, new_prob=0.0)):
+        ref.apply(b_ref)
+        port.apply(b_port)
+    info_ref = ref.maybe_recalibrate(force=True)
+    info_port = port.maybe_recalibrate(force=True)
+    np.testing.assert_array_equal(info_port["perm"], np.asarray(info_ref["perm"]))
+    assert info_port["t_q"][1] == pytest.approx(info_ref["t_q"][1], rel=1e-6)
+    _assert_params(port.params, ref.params)
+    off = updater.OnlineUpdater(_port_params(_fields(5)), None, T, T, device="cpu")
+    assert off.maybe_recalibrate(force=True) is None and off.drift() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# published versions and the publisher
+# ---------------------------------------------------------------------------
+
+
+def test_published_version_is_never_written():
+    """A version the engine holds (the caller's tables at construction, and
+    every snapshot) keeps its tensors bit for bit through later applies and
+    recalibrations, and a batch scored on it returns that version's answer,
+    also while an apply runs in another thread."""
+    fields = _fields(6, "bias")
+    params = _port_params(fields)
+    before = {n: v.clone() for n, v in params._asdict().items() if v is not None}
+    engine = ServingEngine(params, T, T, device="cpu", block_n=16)
+    upd = updater.OnlineUpdater(params, None, T, T, optimizer="adagrad", pruning_rate=0.3,
+                                device="cpu", batch_size=32)
+    probe = np.arange(M)
+    answers = {0: engine.topk(probe, 10)}
+    pub = publisher.SnapshotPublisher(engine, upd)
+    batches = _events(stream, new_prob=0.0, max_events=800)
+    for j, batch in enumerate(batches):
+        held = engine.params
+        held_copy = [None if v is None else v.clone() for v in held]
+        want = answers[engine.version]
+        got = {}
+        worker = threading.Thread(target=lambda: got.setdefault("r", engine.topk(probe, 10)))
+        worker.start()
+        upd.apply(batch)
+        if j == 7:
+            upd.maybe_recalibrate(force=True)
+        worker.join(timeout=60)
+        assert not worker.is_alive()
+        for a, b in zip(held, held_copy):
+            assert (a is None and b is None) or torch.equal(a, b)
+        for result in (got["r"], engine.topk(probe, 10)):
+            np.testing.assert_array_equal(result[1], want[1])
+            np.testing.assert_array_equal(result[0], want[0])
+        if j % 3 == 2 or j == 7:
+            pub.publish()
+            answers[engine.version] = engine.topk(probe, 10)
+    for name, value in before.items():
+        assert torch.equal(getattr(params, name), value), name
+    assert engine.version >= 5 and pub.reports[-1].full_rebuild is False
+    assert any(r.full_rebuild for r in pub.reports)
+
+
+def _run_chain(module_stream, upd, pub, recal_at=3):
+    for j, batch in enumerate(_events(module_stream, seed=8, max_events=300)):
+        upd.apply(batch)
+        if j == recal_at:
+            upd.maybe_recalibrate(force=True)
+        if j % 2 == 1:
+            pub.publish()
+    pub.publish()
+    pub.close()
+
+
+@pytest.mark.parametrize("variant", ["funk", "bias", "svdpp"])
+def test_delta_chains_fold_across_packages(variant, tmp_path):
+    """Each package's chain (deltas with growth, a full anchor after a
+    recalibration, retention anchors) folds in the other package to the
+    writer's live tables, bitwise, and in its own."""
+    fields = _fields(7, variant)
+    ref, port = _pair(fields, variant, "sgd", pruning_rate=0.3)
+    _run_chain(jstream, ref, jpublisher.SnapshotPublisher(None, ref, checkpoint_dir=str(
+        tmp_path / "ref"), keep=4))
+    _run_chain(stream, port, publisher.SnapshotPublisher(None, port, checkpoint_dir=str(
+        tmp_path / "port"), keep=4))
+    hist = _history(0) if variant == "svdpp" else None
+    for directory, writer in (("ref", ref), ("port", port)):
+        got = publisher.fold_deltas(str(tmp_path / directory), _port_params(fields), T, T,
+                                    user_history=hist)
+        want = jpublisher.fold_deltas(str(tmp_path / directory), _ref_params(fields), T, T,
+                                      user_history=hist)
+        _assert_params(got[0], writer.params, exact=True)
+        _assert_params(want[0], writer.params, exact=True)
+        assert float(got[1]) == float(want[1]) == float(writer.t_p)
+        assert float(got[2]) == float(want[2]) == float(writer.t_q)
+        assert got[4] == want[4]
+        if hist is not None:
+            np.testing.assert_array_equal(got[3], writer.user_history)
+    deltas = publisher.SnapshotPublisher(None, port, checkpoint_dir=str(tmp_path / "port"))
+    assert deltas.version == got[4]   # a restarted publisher continues the chain
+    with pytest.raises(ValueError, match="chain broken"):
+        _broken_chain(tmp_path)
+
+
+def _broken_chain(tmp_path):
+    """A delta whose predecessor is gone raises."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    fields = _fields(8)
+    upd = updater.OnlineUpdater(_port_params(fields), None, T, T, device="cpu")
+    pub = publisher.SnapshotPublisher(None, upd, checkpoint_dir=str(tmp_path / "broken"))
+    for batch in _events(stream, seed=3, max_events=150, new_prob=0.0):
+        upd.apply(batch)
+        pub.publish()
+    pub.close()
+    ckpt._remove_step(str(tmp_path / "broken"), 2)
+    publisher.fold_deltas(str(tmp_path / "broken"), _port_params(fields), T, T)
+
+
+# ---------------------------------------------------------------------------
+# prequential evaluators
+# ---------------------------------------------------------------------------
+
+
+def _stats_close(got, want, tol=1e-6):
+    g, w = got.as_dict(), want.as_dict()
+    assert sorted(g) == sorted(w)
+    for key in g:
+        a, b = g[key], w[key]
+        if isinstance(b, float) and np.isnan(b):
+            assert np.isnan(a), key
+        else:
+            assert abs(a - b) <= tol, (key, a, b)
+
+
+def test_prequential_evaluator_matches_reference():
+    fields = _fields(9)
+    ref, port = _pair(fields, "funk", "adagrad", pruning_rate=0.3)
+    hooks = {}
+    evs = {}
+    for name, module, upd in (("ref", jpreq, ref), ("port", prequential, port)):
+        hooks[name] = module.recalibration_hook(upd, degradation=1.0, min_events=60,
+                                                cooldown_events=120)
+        evs[name] = module.PrequentialEvaluator(upd, window=100, half_life_events=150.0,
+                                                drift_hooks=[hooks[name]])
+    for b_ref, b_port in zip(_events(jstream), _events(stream)):
+        got, want = evs["port"].consume(b_port), evs["ref"].consume(b_ref)
+        for key in ("mae", "rmse", "abs_err", "work_fraction"):
+            assert abs(got[key] - want[key]) <= 1e-5, key
+    _stats_close(evs["port"].stats, evs["ref"].stats)
+    assert hooks["port"].fired == hooks["ref"].fired and hooks["port"].fired
+    with pytest.raises(stream.RatingFreeStreamError):
+        evs["port"].score(_events(stream, rated=False)[0])
+    with pytest.raises(stream.RatingFreeStreamError):
+        port.apply(_events(stream, rated=False)[0])
+
+
+@pytest.mark.parametrize("source", ["engine", "updater"])
+def test_prequential_ranking_matches_reference(source):
+    """Rated events and then clicks through ``implicit_event_batch``, scored
+    through a live engine with its publisher (or the updater's own factors):
+    the same hits, reciprocal ranks and cohorts as the reference."""
+    fields = _fields(10)
+    ref, port = _pair(fields, "funk", "sgd")
+    ref_engine = port_engine = None
+    if source == "engine":
+        ref_engine = jengine.ServingEngine(_ref_params(fields), T, T, use_kernel=False,
+                                           block_n=16)
+        port_engine = ServingEngine(_port_params(fields), T, T, device="cpu", block_n=16)
+    pubs = {"ref": jpublisher.SnapshotPublisher(ref_engine, ref, compress=False)
+            if ref_engine else None,
+            "port": publisher.SnapshotPublisher(port_engine, port) if port_engine else None}
+    evs = {
+        "ref": jpreq_rank.PrequentialRankingEvaluator(
+            ref, engine=ref_engine, topk=5, window=50, new_user_events=2,
+            update_fn=lambda b: jimplicit.implicit_event_batch(
+                b, num_items=ref.num_items, alpha=2.0, negatives=2,
+                rng=np.random.default_rng(len(b)))),
+        "port": prequential_ranking.PrequentialRankingEvaluator(
+            port, engine=port_engine, topk=5, window=50, new_user_events=2,
+            update_fn=lambda b: implicit.implicit_event_batch(
+                b, num_items=port.num_items, alpha=2.0, negatives=2,
+                rng=np.random.default_rng(len(b)))),
+    }
+    batches = {module: _events(module, max_events=150)
+               + _events(module, seed=3, max_events=100, rated=False)
+               for module in (jstream, stream)}
+    batches = {"ref": batches[jstream], "port": batches[stream]}
+    for j, (b_ref, b_port) in enumerate(zip(batches["ref"], batches["port"])):
+        got, want = evs["port"].consume(b_port), evs["ref"].consume(b_ref)
+        assert (got["hit_rate"], got["events"]) == (want["hit_rate"], want["events"])
+        if pubs["port"] is not None and j % 2 == 1:
+            pubs["port"].publish()
+            pubs["ref"].publish()
+    _stats_close(evs["port"].stats, evs["ref"].stats)
+    assert evs["port"].stats.cohorts["established"]["events"] > 0
+    with pytest.raises(stream.RatingFreeStreamError):
+        prequential_ranking.PrequentialRankingEvaluator(port, topk=5).consume(
+            _events(stream, rated=False)[0])
+
+
+# ---------------------------------------------------------------------------
+# what the port refuses, and the device rule
+# ---------------------------------------------------------------------------
+
+
+def test_unported_parts_raise_naming_the_roadmap_item(monkeypatch):
+    fields = _fields(11)
+    upd = updater.OnlineUpdater(_port_params(fields), None, T, T, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        updater.OnlineUpdater(_port_params(fields), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        upd.attach_evictor(object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        publisher.SnapshotPublisher(None, upd).subscribe(object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        publisher.SnapshotPublisher(None, upd, compress=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        updater.OnlineUpdater(_port_params(fields), None, T, T)
+
+
+_SMALL = ["--device", "cpu", "--scale", "0.03", "--k", "8", "--train-epochs", "2",
+          "--events", "300", "--batch-events", "32", "--swap-every", "3", "--clients", "2"]
+
+
+@pytest.mark.parametrize("source", ["replay", "poisson"])
+def test_run_online_on_the_cpu_exits_clean(source, tmp_path, capsys):
+    report_path = tmp_path / "report.json"
+    online_launch.main(_SMALL + ["--source", source, "--ckpt", str(tmp_path / "ck"),
+                                 "--json", str(report_path)])
+    report = json.loads(report_path.read_text())
+    assert report["requests_failed"] == 0 and report["requests_ok"] > 0
+    assert report["events"] == 300 and report["final_version"] == report["swaps"] == 4
+    assert report["device"] == "cpu" and np.isfinite(report["mae_after"])
+    assert 0.0 < report["mean_work_fraction"] < 1.0
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--replicas", "2"], "A7"), (["--supervise"], "A7"), (["--routing", "least"], "A7"),
+    (["--replica-backend", "process"], "A7"), (["--evict-max-users", "10"], "A5"),
+    (["--slo-p99-ms", "5"], "A6"), (["--use-kernel"], "the card"),
+])
+def test_run_online_refuses_unported_options(flag, item):
+    with pytest.raises(SystemExit, match=item):
+        online_launch.main(_SMALL + flag)
+
+
+def test_online_freshness_loop():
+    """The port's counterpart of the reference's
+    ``test_online_freshness_end_to_end``: train -> serve -> stream held-out
+    events -> hot-swap.  The pruned incremental updates do less than dense
+    work, the top-10 of a majority of touched users moves, and the engine
+    serves the updater's exact state.  The reference's 5% margin of online
+    MAE over a full retrain is not asserted: it holds for one draw of the
+    initial factors and not for another (ROADMAP C2)."""
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.data.ratings import synthetic_ratings, train_test_split
+
+    ds = synthetic_ratings(200, 300, 15000, seed=0)
+    rest, test_ds = train_test_split(ds, 0.2, seed=0)
+    train_ds, stream_ds = train_test_split(rest, 0.25, seed=1)
+    cfg = TrainConfig(k=16, epochs=4, batch_size=1024, pruning_rate=0.3, epoch_mode="python")
+    base = DPMFTrainer(cfg, train_ds, test_ds, device="cpu")
+    base.run()
+    engine = ServingEngine(base.params, base.t_p, base.t_q, device="cpu", block_n=128)
+    touched = np.unique(stream_ds.user)[:40]
+    before = engine.topk(touched, 10)[1]
+    upd = updater.OnlineUpdater.from_trainer(base, batch_size=256, lr=0.02)
+    pub = publisher.SnapshotPublisher(engine, upd)
+    for ep in range(4):
+        for mb in stream.iter_microbatches(stream.ReplaySource(stream_ds, shuffle=True, seed=ep),
+                                           256):
+            upd.apply(mb)
+        pub.publish()
+    assert upd.mean_work_fraction < 1.0
+    after = engine.topk(touched, 10)[1]
+    assert sum(not np.array_equal(a, b) for a, b in zip(before, after)) >= len(touched) // 2
+    fresh = ServingEngine(upd.params, upd.t_p, upd.t_q, device="cpu", block_n=128)
+    np.testing.assert_array_equal(after, fresh.topk(touched, 10)[1])
+    assert np.isfinite(upd.evaluate(test_ds))

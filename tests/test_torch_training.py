@@ -366,8 +366,6 @@ def test_calibrate_permutes_optimizer_state():
 
 @pytest.mark.parametrize("change,item", [
     (dict(store_dir="/nonexistent"), "A5"),
-    (dict(objective="implicit"), "A4"),
-    (dict(objective="bpr"), "A4"),
 ])
 def test_trainer_refuses_what_is_not_ported(change, item):
     (_, _), (ptr, pte) = _split(20, 20, 300)
