@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives its serving, swap, training,
-ranking-evaluation, implicit and BPR and online freshness paths on one card.
+ranking-evaluation, implicit and BPR, online freshness and out-of-core
+(ratings store, streamed training, eviction) paths on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -87,8 +88,31 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    folds to the live tables; ``pruned_topk`` counted under ``online``;
 12. runs ``python -m repro_torch.launch.online --use-kernel`` at a small size
    (exit 0, its report on one line);
-13. prints a ``kernels`` JSON line (``launches`` summed over the counted
+13. store-dpmf: ``DPMFTrainer.run()`` in store mode at 100M x 10M x 128:
+   2^25 ratings built into a ratings store (then dropped from memory),
+   streamed as 4 slabs of 8 x 2^20 an epoch through a 2-deep prefetch
+   queue, sgd through ``fused_mf_sgd`` every step, 2 epochs with
+   HR/NDCG/recall@10; a ``FailureInjector`` fails epoch 1's first slab once
+   (``max_step_retries`` 1); anonymous RSS read after every slab and held
+   flat; per slab the host permutation, gather, copy and step ms; one
+   streamed step against the plain step on the CPU, one ranking batch
+   against the plain version (counts under ``store``);
+14. store-resume: at 2^20 x 2^17 x 128, a run killed mid-epoch 1 and
+   resumed from its slab checkpoint against an uninterrupted run (within
+   1e-4), and a ``checkpoint.fsync`` fault that leaves the latest step;
+15. evict-dpmf: at 20M users x 10M items x 128, an updater with a
+   ``UserEvictor`` (20M rows, target 20M - 2^21), a publisher and an
+   engine; 16 batches of 4096 events, a compaction, a ``kind=full``
+   publish, 4096 spilled users revived bitwise, probes against a fresh
+   engine and the plain version, the fallback for spilled users, victims
+   against ``np.lexsort`` (counts under ``evict``);
+16. runs ``launch.train --store-dir --build-store`` twice (the second
+   resumes) and ``launch.online --evict-max-users`` on the card;
+17. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
+
+The store, checkpoint and spill files live in one temporary directory,
+removed at exit; each phase prints the disk it used.
 
 Tolerances: rtol = atol = 1e-5 for float32 (fp32 sums in another order),
 2e-2 for bfloat16; indices identical except where the two compared scores
@@ -103,8 +127,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -156,6 +182,14 @@ NEW_ID_PROB = 0.001
 # batch), each at confidence 41 in the click half: sgd stays stable while
 # lr * sum(w) * (lam + sigma_0^2) < 2, i.e. lr < 0.0016
 ONLINE_LR = 0.001
+# store-dpmf: 2^25 ratings streamed from a ratings store (4 slabs an epoch)
+STORE_RATINGS, STORE_SLAB_STEPS, STORE_PREFETCH, STORE_EPOCHS = 1 << 25, 8, 2, 2
+# store-resume: small tables so that each checkpoint is 0.6 GB, not 56 GB; the
+# kill lands 6 scans into epoch 1, past its first mid-epoch checkpoint (slab 4)
+RESUME_USERS, RESUME_ITEMS, RESUME_RATINGS = 1 << 20, 1 << 17, 1 << 22
+RESUME_BATCH, RESUME_SLAB_STEPS, RESUME_CKPT_SLABS, RESUME_KILL = 1 << 16, 4, 4, 6
+# evict-dpmf: online-dpmf's tables; a compaction spills 2^21 users
+EVICT_SPILL, EVICT_BATCHES = 1 << 21, 16
 
 failures: list = []
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches in that path's counted run}
@@ -909,19 +943,19 @@ def small_trainer_phase():
               f"{opt}: perms identical except between joint sparsities within 1e-6")
 
 
-def dpmf_ratings(rng, count):
+def dpmf_ratings(rng, count, num_users=N_USERS, num_items=N_ITEMS):
     """Users uniform over 100M; items ~ 1/(i + ITEM_OFFSET) over 10M (a power
     law with exponent 1, so popular items collide in every batch); integer
     ratings 1-5."""
     from repro_torch.data.ratings import RatingsDataset
 
-    users = rng.integers(0, N_USERS, count, dtype=np.int64).astype(np.int32)
-    span = math.log((N_ITEMS + ITEM_OFFSET) / ITEM_OFFSET)
+    users = rng.integers(0, num_users, count, dtype=np.int64).astype(np.int32)
+    span = math.log((num_items + ITEM_OFFSET) / ITEM_OFFSET)
     items = np.floor(ITEM_OFFSET * np.exp(rng.random(count) * span) - ITEM_OFFSET)
-    items = np.clip(items, 0, N_ITEMS - 1).astype(np.int32)
+    items = np.clip(items, 0, num_items - 1).astype(np.int32)
     ratings = rng.integers(1, 6, count).astype(np.float32)
-    return RatingsDataset(user=users, item=items, rating=ratings, num_users=N_USERS,
-                          num_items=N_ITEMS)
+    return RatingsDataset(user=users, item=items, rating=ratings, num_users=num_users,
+                          num_items=num_items)
 
 
 def step_against_cpu(trainer, batch, lr, what):
@@ -1353,8 +1387,6 @@ def online_phase(dev):
     at a gate while a check runs, so the check's launches are counted
     exactly and taken off the path's count."""
     import contextlib
-    import shutil
-    import tempfile
     import threading
 
     from repro_torch.core import mf
@@ -1681,6 +1713,557 @@ def online_launcher_phase():
           "online launcher on the card: exit 0, no failed request")
     return report
 
+# ---------------------------------------------------------------------------
+# the out-of-core path: the ratings store, streamed training, eviction
+# ---------------------------------------------------------------------------
+
+
+RSS_SOURCES = (("/proc/self/smaps_rollup", "Anonymous"), ("/proc/self/status", "VmRSS"))
+
+
+def rss_source():
+    """Anonymous memory from ``smaps_rollup``, as the reference's
+    ``benchmarks/common.py`` reads it, or, where the kernel has no
+    ``smaps_rollup``, the whole resident set ``VmRSS`` (which also counts
+    the store's file-backed mmap pages, so it can only read higher)."""
+    for path, field in RSS_SOURCES:
+        try:
+            with open(path) as f:
+                if any(line.startswith(field + ":") for line in f):
+                    return path, field
+        except OSError:
+            continue
+    raise RuntimeError("no resident-memory reading in /proc/self")
+
+
+def resident_mb(source) -> float:
+    """The process's resident memory in MiB from ``source`` (rss_source)."""
+    path, field = source
+    with open(path) as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return float(line.split()[1]) / 1024.0
+    raise RuntimeError(f"no {field} line in {path}")
+
+
+def disk_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def store_dpmf_phase(dev, tmp):
+    """DPMFTrainer.run() in store mode at full size: 2^25 ratings built into
+    a ratings store and dropped from memory, streamed as 8-step slabs of
+    2^20 through a 2-deep prefetch queue; sgd through fused_mf_sgd every
+    step; a FailureInjector fails the first slab of epoch 1 once under
+    max_step_retries 1.  The resident memory (anonymous, where the kernel
+    reports it: see rss_source) is read after every slab: over epoch 1 it
+    stays within one slab's host bytes plus 64 MB of its value at the end
+    of epoch 0 (after its evaluation and calibration)."""
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.distributed.fault_tolerance import FailureInjector
+    from repro_torch.kernels import fused_mf_sgd, pruned_topk
+    from repro_torch.store import RatingsStore, build_store
+
+    steps = STORE_RATINGS // BATCH
+    log(f"## store-dpmf: dpmf FunkSVD {N_USERS} x {N_ITEMS} x k={K}, store mode: "
+        f"{STORE_RATINGS} ratings on disk, batch {BATCH}, slabs of {STORE_SLAB_STEPS} steps "
+        f"({steps // STORE_SLAB_STEPS} a slab epoch), prefetch {STORE_PREFETCH}; sgd + fused "
+        f"kernel, lr {LR}, lam {LAM}, rate {RATE}, {STORE_EPOCHS} epochs")
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    train = dpmf_ratings(rng, STORE_RATINGS)
+    test = dpmf_ratings(rng, BATCH)
+    make_s = time.perf_counter() - t0
+    store_dir = os.path.join(tmp, "store")
+    t0 = time.perf_counter()
+    build_store(train, store_dir)
+    build_s = time.perf_counter() - t0
+    del train
+    gc.collect()
+    store_bytes = disk_bytes(store_dir)
+    log(f"  data made in {make_s:.2f} s; build_store {build_s:.2f} s; store on disk "
+        f"{store_bytes / 1e6:.1f} MB ({len(RatingsStore(store_dir))} ratings, then dropped "
+        "from memory)")
+
+    cfg = TrainConfig(k=K, epochs=STORE_EPOCHS, batch_size=BATCH, lr=LR, lam=LAM,
+                      pruning_rate=RATE, optimizer="sgd", use_fused_kernel=True, seed=SEED,
+                      eval_batch_size=BATCH, ranking_topk=RANKING_TOPK, store_dir=store_dir,
+                      slab_steps=STORE_SLAB_STEPS, prefetch_slabs=STORE_PREFETCH,
+                      max_step_retries=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = DPMFTrainer(cfg, None, test)
+    torch.cuda.synchronize()
+    log(f"  trainer built on {trainer.device} in {time.perf_counter() - t0:.2f} s")
+    num_slabs = trainer._loader.num_slabs
+    trainer.failure_injector = FailureInjector((num_slabs,))  # epoch 1's first slab, once
+    readings, starts = [], {}
+    stream = trainer._loader.epoch_slabs
+    source = rss_source()
+    log(f"  resident memory read from {source[0]} ({source[1]})")
+
+    def watched(seed, epoch, **kwargs):
+        """The trainer's slab stream, read after each slab the trainer has
+        finished (its step, the metrics' sync and any retry)."""
+        starts[epoch] = resident_mb(source)
+        for slab in stream(seed, epoch, **kwargs):
+            t0 = time.perf_counter()
+            yield slab
+            readings.append(dict(epoch=epoch, slab=slab.slab_idx,
+                                 step_ms=(time.perf_counter() - t0) * 1e3,
+                                 rss_mb=resident_mb(source), host_bytes=slab.host_bytes,
+                                 **{f"{k}_ms": v for k, v in slab.timings.items()}))
+
+    trainer._loader.epoch_slabs = watched
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["store"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches on the store path: {launches}; run() {run_s:.2f} s; peak device memory "
+        f"{peak_gb:.2f} GB")
+    for r in history:
+        log(f"  epoch {r.epoch}: train err {r.train_abs_err:.6f}, test mae {r.test_mae:.6f}, "
+            f"work {r.work_fraction:.6f}, HR@{RANKING_TOPK} {r.hr:.6f}, retries {r.step_retries}, "
+            f"straggler slabs {r.straggler_slabs}; {r.wall_time_s:.3f} s = "
+            f"{steps * BATCH / r.wall_time_s / 1e6:.2f} M ratings/s")
+    for row in readings:
+        log("  slab " + json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                                    for k, v in row.items()}))
+    ranking_steps = trainer._packed_ranking["user"].shape[0]
+    check(launches["fused_mf_sgd"] == STORE_EPOCHS * steps,
+          f"store: fused_mf_sgd launched {STORE_EPOCHS * steps} times, once a streamed step "
+          f"({launches['fused_mf_sgd']})")
+    check(launches["pruned_topk"] == STORE_EPOCHS * ranking_steps,
+          f"store: pruned_topk launched {STORE_EPOCHS * ranking_steps} times by the ranking "
+          f"evaluation ({launches['pruned_topk']})")
+    check([r.step_retries for r in history] == [0, 1] and trainer.failure_injector.failures == 1,
+          f"store: the injected failure of epoch 1's first slab retried once "
+          f"({[r.step_retries for r in history]})")
+    check(all(math.isfinite(v) for r in history for v in (
+        r.train_abs_err, r.test_mae, r.work_fraction, r.hr, r.ndcg, r.recall)),
+        "store: epoch records finite")
+    check(history[0].work_fraction == 1.0 and history[-1].work_fraction < 1.0,
+          "store: work fraction 1.0 in epoch 0, below 1 after calibration")
+    slab_mb = max(row["host_bytes"] for row in readings) / 2**20
+    base = starts[1]
+    rise = max(row["rss_mb"] for row in readings if row["epoch"] == 1) - base
+    log(f"  {source[1]}: {base:.1f} MiB at the end of epoch 0; epoch 1 after each slab "
+        f"{[round(row['rss_mb'], 1) for row in readings if row['epoch'] == 1]} MiB; bound "
+        f"+{slab_mb:.1f} + 64 MiB")
+    check(rise <= slab_mb + 64.0,
+          f"store: {source[1]} over epoch 1 within one slab ({slab_mb:.1f} MiB) + 64 MiB of "
+          f"its value at the end of epoch 0 (rose {rise:.1f} MiB)")
+    ranking_batch_against_plain(trainer, "store")
+
+    log("## store: one streamed full-size step against the plain masked step on the CPU")
+    user, item, rating = RatingsStore(store_dir).gather(np.arange(BATCH))
+    batch = {"user": torch.as_tensor(user, dtype=torch.int64).to(dev),
+             "item": torch.as_tensor(item, dtype=torch.int64).to(dev),
+             "rating": torch.as_tensor(rating).to(dev)}
+    step_ms = step_against_cpu(trainer, batch, LR, "store step")
+    log(f"  one step (host clock, synchronized): {step_ms:.2f} ms")
+    per_slab = {key: float(np.median([row[key] for row in readings]))
+                for key in ("perm_ms", "gather_ms", "copy_ms", "step_ms") if key in readings[0]}
+    del trainer
+    shutil.rmtree(store_dir, ignore_errors=True)
+    return {"launches": launches, "build_s": build_s, "store_bytes": store_bytes,
+            "epoch_s": [r.wall_time_s for r in history], "peak_gb": peak_gb,
+            "rss_rise_mb": rise, "slab_median_ms": per_slab, "step_ms": step_ms}
+
+
+def store_resume_phase(dev, tmp):
+    """Store mode at 2^20 users x 2^17 items x 128 (small checkpoints): an
+    uninterrupted run against one killed mid-epoch and resumed (tables and
+    the last record within RECORD_RTOL: the scatter's atomics add in another
+    order); then a checkpoint.fsync fault aborts one save and the latest
+    step stays where it was."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.core import mf
+    from repro_torch.core.trainer import DPMFTrainer, TrainConfig
+    from repro_torch.store import build_store
+    from repro_torch.testing import faults
+
+    log(f"## store-resume: {RESUME_USERS} x {RESUME_ITEMS} x k={K}, {RESUME_RATINGS} ratings, "
+        f"batch {RESUME_BATCH}, slabs of {RESUME_SLAB_STEPS} steps, a checkpoint every "
+        f"{RESUME_CKPT_SLABS} slabs; killed {RESUME_KILL} scans into epoch 1")
+    rng = np.random.default_rng(SEED + 21)
+    store_dir = build_store(dpmf_ratings(rng, RESUME_RATINGS, RESUME_USERS, RESUME_ITEMS),
+                            os.path.join(tmp, "resume_store"))
+    ckpt_dir = os.path.join(tmp, "resume_ckpt")
+
+    def make(with_ckpt):
+        cfg = TrainConfig(k=K, epochs=2, batch_size=RESUME_BATCH, lr=LR, lam=LAM,
+                          pruning_rate=RATE, optimizer="sgd", use_fused_kernel=True, seed=SEED,
+                          store_dir=store_dir, slab_steps=RESUME_SLAB_STEPS,
+                          checkpoint_dir=ckpt_dir if with_ckpt else None,
+                          checkpoint_every_epochs=1, checkpoint_every_slabs=RESUME_CKPT_SLABS)
+        return DPMFTrainer(cfg, None, None)
+
+    t0 = time.perf_counter()
+    baseline = make(False)
+    want = baseline.run()
+    clean_s = time.perf_counter() - t0
+    num_slabs = baseline._loader.num_slabs
+    original, calls = mf.train_epoch_scan, {"n": 0}
+
+    def dying(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] > num_slabs + RESUME_KILL:
+            raise KeyboardInterrupt
+        return original(*args, **kwargs)
+
+    killed = make(True)
+    mf.train_epoch_scan = dying
+    try:
+        killed.run()
+        killed_ok = False
+    except KeyboardInterrupt:
+        killed_ok = killed.epoch == 1
+    finally:
+        mf.train_epoch_scan = original
+        killed._ckpt.wait()
+    del killed
+    t0 = time.perf_counter()
+    resumed = make(True)
+    restored = resumed.maybe_restore()
+    at = (resumed.epoch, resumed._resume_slab)
+    got = resumed.run()
+    resume_s = time.perf_counter() - t0
+    ckpt_bytes = disk_bytes(ckpt_dir)
+    log(f"  uninterrupted run {clean_s:.2f} s; the killed run resumed at (epoch, slab) {at} and "
+        f"finished in {resume_s:.2f} s; checkpoints on disk {ckpt_bytes / 1e6:.1f} MB")
+    check(killed_ok and restored and at == (1, RESUME_CKPT_SLABS),
+          f"store-resume: killed in epoch 1, resumed at slab {RESUME_CKPT_SLABS} ({at})")
+    worst = 0.0
+    for name in ("p", "q"):
+        a, b = getattr(resumed.params, name), getattr(baseline.params, name)
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        worst = max(worst, rel)
+        log(f"  {name}: max |resumed - uninterrupted| / max |uninterrupted| = {rel:.3e}")
+    fields = ("train_abs_err", "work_fraction", "t_p", "t_q")
+    rec = max(abs(getattr(got[-1], f) - getattr(want[-1], f)) / max(abs(getattr(want[-1], f)),
+                                                                    1e-30) for f in fields)
+    log(f"  last record: resumed {got[-1]}; uninterrupted {want[-1]}")
+    check(worst <= RECORD_RTOL and rec <= RECORD_RTOL,
+          f"store-resume: tables ({worst:.3e}) and the last epoch record ({rec:.3e}) within "
+          f"{RECORD_RTOL} of the uninterrupted run")
+
+    latest = ckpt_lib.latest_step(ckpt_dir)
+    plan = faults.FaultPlan([faults.FaultAction(site="checkpoint.fsync", op="error", at=0)])
+    aborted = False
+    with faults.installed(plan):
+        resumed.save(latest + 1)
+        try:
+            resumed._ckpt.wait()
+        except OSError as exc:
+            aborted = "injected fsync" in str(exc)
+    check(aborted and plan.pending == 0 and ckpt_lib.latest_step(ckpt_dir) == latest,
+          f"store-resume: an injected checkpoint.fsync error aborts the save and the latest "
+          f"step stays {latest} ({ckpt_lib.latest_step(ckpt_dir)})")
+    del baseline, resumed
+    shutil.rmtree(store_dir, ignore_errors=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"resume_s": resume_s, "clean_s": clean_s, "table_rel": worst, "record_rel": rec,
+            "ckpt_bytes": ckpt_bytes}
+
+
+def plain_topk_rows(p, q, rows, t_p, t_q):
+    """Top-RANKING_TOPK of the physical user ``rows`` by the plain
+    pruned_topk over 2^21-item slices of the catalog, merged stably (ties
+    to the lower index); a comparison, never counted."""
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.kernels import pruned_topk
+
+    dev = p.device
+    pu = p[torch.as_tensor(rows, dtype=torch.int64, device=dev)]
+    r_u = effective_ranks(pu, t_p)
+    want_s = want_i = None
+    for c0 in range(0, q.shape[0], 1 << 21):
+        qc = q[c0:c0 + (1 << 21)]
+        s, i = pruned_topk.pruned_topk_plain(pu, qc, r_u, effective_ranks(qc, t_q),
+                                             torch.zeros(len(qc), device=dev), RANKING_TOPK,
+                                             block_n=PLAIN_BLOCK_N)
+        i = i + c0
+        if want_s is not None:
+            s, sel = torch.sort(torch.cat([want_s, s], 1), dim=1, descending=True, stable=True)
+            i = torch.gather(torch.cat([want_i, i], 1), 1, sel)
+        want_s, want_i = s[:, :RANKING_TOPK], i[:, :RANKING_TOPK]
+    return want_s.cpu(), want_i.cpu()
+
+
+def evict_phase(dev, tmp):
+    """Eviction at online-dpmf's size (20M users x 10M items x 128): an sgd
+    OnlineUpdater with a UserEvictor (max 20M rows, target 20M - 2^21), a
+    SnapshotPublisher into a ServingEngine; 16 Poisson batches of 4096
+    events (new ids at p = 0.001), maybe_evict and a publish every 4; after
+    the first compaction one batch names 4096 spilled users.  The engine's
+    probe batches after each publish are the counted path; the comparisons
+    (fresh engine, plain version) are counted apart and taken off."""
+    from repro_torch.core import mf
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.data.ratings import RatingsDataset
+    from repro_torch.online import (EventBatch, OnlineUpdater, PoissonSource, SnapshotPublisher,
+                                    iter_microbatches)
+    from repro_torch.serving import ServingEngine
+    from repro_torch.store import EvictionConfig, UserEvictor
+
+    target = ONLINE_USERS - EVICT_SPILL
+    log(f"## evict-dpmf: k={K}, {N_ITEMS} items, {ONLINE_USERS} users; UserEvictor max "
+        f"{ONLINE_USERS}, target {target}; sgd lr {ONLINE_LR}; {EVICT_BATCHES} batches of "
+        f"{ONLINE_BATCH} events (new ids at p = {NEW_ID_PROB}), maybe_evict + publish every "
+        f"{PUBLISH_EVERY}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    q = decaying_factors(gen, N_ITEMS, dev)
+    params = mf.MFParams(p=decaying_factors(gen, ONLINE_USERS, dev), q=q, user_bias=None,
+                         item_bias=None, global_mean=None, implicit=None)
+    del q
+    t_p, t_q = thresholds_from_matrices(params.p, params.q, RATE)
+    engine = ServingEngine(params, t_p, t_q, max_batch=256)
+    upd = OnlineUpdater(params, None, t_p, t_q, optimizer="sgd", lr=ONLINE_LR, lam=LAM,
+                        pruning_rate=RATE, batch_size=ONLINE_BATCH, seed=SEED)
+    del params
+    spill_dir = os.path.join(tmp, "spill")
+    ev = UserEvictor(EvictionConfig(max_users=ONLINE_USERS, target_users=target,
+                                    spill_dir=spill_dir))
+    upd.attach_evictor(ev)
+    pub = SnapshotPublisher(engine, upd)
+    engine.topk(np.arange(256), RANKING_TOPK)  # warm-up, outside the counted run
+    probe_rng = np.random.default_rng(SEED + 31)
+    compare = [0]
+    out = {"evict": [], "publish_ms": []}
+    probes_ok = True
+    plain_rows = []
+
+    def uncounted(fn, *args):
+        before = pruned_topk.launches
+        try:
+            return fn(*args)
+        finally:
+            compare[0] += pruned_topk.launches - before
+
+    def probe_check(kind):
+        """A probe batch of external ids (spilled ones too) through the
+        engine (counted), against a fresh engine on a copy of the version
+        and the plain version on its live rows (not counted)."""
+        held = engine._snap
+        probe = probe_rng.integers(0, held.num_external, PROBE_USERS)
+        spilled = ev.spilled_external_ids()
+        if spilled.size:
+            probe[: PROBE_USERS // 4] = probe_rng.choice(spilled, PROBE_USERS // 4, replace=False)
+        got = engine.topk(probe, RANKING_TOPK)
+
+        def compare_fresh():
+            copy = mf.MFParams(*(None if v is None else v.clone() for v in held.params))
+            fresh = ServingEngine(copy, held.t_p.clone(), held.t_q.clone(), max_batch=256,
+                                  user_remap=held.user_remap, remap_epoch=held.remap_epoch)
+            return fresh.topk(probe, RANKING_TOPK)
+
+        phys = (probe if held.user_remap is None else held.user_remap[probe]).astype(np.int64)
+        live = phys >= 0
+        if live.any():
+            want_s, want_i = uncounted(plain_topk_rows, held.params.p, held.params.q,
+                                       phys[live], held.t_p, held.t_q)
+            plain_rows.append((torch.as_tensor(got[0][live]), torch.as_tensor(got[1][live]),
+                               want_s, want_i))
+        want = uncounted(compare_fresh)
+        gc.collect()
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        fallback_ok = True
+        if (~live).any():
+            s0, i0 = torch.sort(torch.zeros(held.n_items, device=dev), descending=True,
+                                stable=True)  # FunkSVD: no biases, every score 0
+            fallback_ok = (np.array_equal(got[1][~live], np.broadcast_to(
+                i0[:RANKING_TOPK].cpu().numpy(), (int((~live).sum()), RANKING_TOPK)))
+                and np.array_equal(got[0][~live], np.zeros_like(got[0][~live])))
+        log(f"  probe after the {kind} publish: {int(live.sum())} live and "
+            f"{int((~live).sum())} spilled users; fresh engine equal {same}, fallback {fallback_ok}")
+        return same and fallback_ok
+
+    def apply(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upd.apply(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    reset_launch_counts()
+    source = PoissonSource(ONLINE_USERS, N_ITEMS, seed=SEED + 3, new_user_prob=NEW_ID_PROB,
+                           new_item_prob=NEW_ID_PROB)
+    revive = {}
+    checks = {}
+    for b, batch in enumerate(iter_microbatches(source, ONLINE_BATCH,
+                                                max_events=ONLINE_BATCH * EVICT_BATCHES)):
+        apply(batch)
+        if (b + 1) % PUBLISH_EVERY:
+            continue
+        m = upd.num_users
+        if m > ONLINE_USERS and not checks:
+            # the keys of the victim order, read back before the compaction
+            row_ranks = effective_ranks(upd.params.p, upd.t_p).cpu().numpy()
+            order = np.lexsort((np.arange(m), row_ranks, ev.last_touched.copy()))
+            victims_ext = ev.phys_to_ext[np.sort(order[: m - target])].copy()
+            keep = torch.as_tensor(np.sort(order[m - target:]), device=dev)
+            remap_before = ev.remap.as_array()
+            p_old, q_old = upd.params.p, upd.params.q.clone()
+            held = engine._snap
+            inflight_probe = probe_rng.integers(0, held.num_external, PROBE_USERS)
+            inflight_want = engine.topk(inflight_probe, RANKING_TOPK)
+            report = ev.maybe_evict()
+            out["evict"].append(report)
+            log(f"  maybe_evict: {json.dumps(report)}")
+            # the version served before the compaction answers as before
+            phys, evicted = engine._translate_ids(held, inflight_probe)
+            again = engine._apply_fallback(held, evicted, RANKING_TOPK,
+                                           *engine._run_chunked(held, phys, RANKING_TOPK))
+            checks["inflight"] = all(np.array_equal(x, y) for x, y in zip(again, inflight_want))
+            del held
+            p_new = upd.params.p
+            checks["shape"] = upd.num_users == target and torch.equal(upd.params.q, q_old)
+            checks["survivors"] = all(
+                torch.equal(p_new[c:c + (1 << 20)], p_old[keep[c:c + (1 << 20)]])
+                for c in range(0, len(keep), 1 << 20))
+            gone = np.flatnonzero((remap_before >= 0) & (ev.remap.ext_to_phys < 0))
+            spilled = ev.spilled_external_ids()
+            checks["vanished"] = np.array_equal(spilled, gone)
+            checks["lexsort"] = np.array_equal(np.sort(victims_ext), spilled)
+            del p_old, q_old, keep, p_new
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = pub.publish()
+            out["publish_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["full_publish_ms"] = out["publish_ms"][-1]
+            checks["full"] = (rep.kind == "full" and rep.full_rebuild
+                              and engine.remap_epoch == ev.remap.epoch == 1)
+            log(f"  publish after the compaction: kind {rep.kind}, full rebuild "
+                f"{rep.full_rebuild}, {out['publish_ms'][-1]:.2f} ms; engine remap epoch "
+                f"{engine.remap_epoch}")
+            probes_ok &= probe_check("compaction")
+
+            # one batch naming 4096 spilled users revives them
+            ids = probe_rng.choice(spilled, ONLINE_BATCH, replace=False).astype(np.int32)
+            records = [ev._spilled[int(e)] for e in ids]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = upd.resolve_users(ids)
+            torch.cuda.synchronize()
+            revive["ms"] = (time.perf_counter() - t0) * 1e3
+            with np.load(records[0][0]) as data:
+                want_rows = data["p"][[row for _, row in records]]
+            checks["revived"] = bool(np.array_equal(
+                upd.params.p[torch.as_tensor(rows, dtype=torch.int64, device=dev)].cpu().numpy(),
+                want_rows))
+            revive["apply_ms"] = apply(EventBatch(
+                user=ids, item=probe_rng.integers(0, 1000, ONLINE_BATCH).astype(np.int32),
+                rating=probe_rng.uniform(1, 5, ONLINE_BATCH).astype(np.float32)))
+            log(f"  revival of {len(ids)} spilled users: resolve {revive['ms']:.2f} ms, then "
+                f"their batch {revive['apply_ms']:.2f} ms; revived rows bitwise the spilled "
+                f"rows {checks['revived']}")
+        else:
+            info = ev.maybe_evict()
+            if info:
+                out["evict"].append(info)
+            t0 = time.perf_counter()
+            pub.publish()
+            out["publish_ms"].append((time.perf_counter() - t0) * 1e3)
+            probes_ok &= probe_check("later")
+    launches = {"pruned_topk": pruned_topk.launches - compare[0]}
+    PATH_LAUNCHES["evict"] = launches
+    got_s, got_i, want_s, want_i = (torch.cat(parts) for parts in zip(*plain_rows))
+    compare_topk(got_s, got_i, want_s, want_i,
+                 f"evict: {len(plain_rows)} probes' live users ({len(got_s)}) vs plain")
+
+    rng = np.random.default_rng(SEED + 32)
+    test = RatingsDataset(rng.integers(0, ev.remap.num_external, 1 << 16).astype(np.int32),
+                          rng.integers(0, N_ITEMS, 1 << 16).astype(np.int32),
+                          rng.integers(1, 6, 1 << 16).astype(np.float32),
+                          ev.remap.num_external, N_ITEMS)
+    mae = upd.evaluate(test)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches: {launches} (comparison launches {compare[0]} not counted); evaluate "
+        f"under the remap: MAE {mae:.4f} over {len(test)} ratings; spill on disk "
+        f"{disk_bytes(spill_dir) / 1e6:.1f} MB; peak device memory {peak_gb:.2f} GB")
+    check(bool(checks) and checks["shape"],
+          f"evict: after the compaction {target} users and q unchanged bitwise")
+    check(checks.get("survivors", False), "evict: every survivor's row bitwise its row before")
+    check(checks.get("vanished", False), "evict: the spilled ids are exactly the rows that "
+                                         "vanished")
+    check(checks.get("lexsort", False), "evict: the victims equal np.lexsort over (index, rank, "
+                                        "last touched) read back to the host")
+    check(checks.get("full", False), "evict: the publish after the bump is kind=full and the "
+                                     "engine's remap epoch follows")
+    check(checks.get("inflight", False), "evict: the version served before the compaction "
+                                         "answers as before, bit for bit")
+    check(checks.get("revived", False), "evict: the revived rows are bitwise the spilled rows")
+    check(probes_ok, "evict: every probe equals a fresh engine on a copy of the version, "
+                     "spilled users the bias-only fallback")
+    check(math.isfinite(mae), f"evict: evaluate under the remap finite ({mae})")
+    check(launches["pruned_topk"] > 0, f"evict: pruned_topk launched on the evict path "
+                                       f"({launches['pruned_topk']})")
+    first = out["evict"][0] if out["evict"] else {}
+    return {"launches": launches, "evict_ms": {k: first.get(k) for k in (
+                "ranks_ms", "sort_ms", "spill_ms", "compact_ms")},
+            "spill_bytes": first.get("spill_bytes"), "revive_ms": revive.get("ms"),
+            "full_publish_ms": out.get("full_publish_ms"), "publish_ms": out["publish_ms"], "peak_gb": peak_gb, "mae": mae}
+
+
+def store_launchers_phase(tmp):
+    """``launch.train --store-dir --build-store --use-fused-kernel`` on the
+    card (exit 0), then again with one more epoch (it resumes); then
+    ``launch.online --use-kernel --evict-max-users`` (exit 0, an eviction
+    round, no failed request)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    store_dir, ckpt = os.path.join(tmp, "launch_store"), os.path.join(tmp, "launch_ckpt")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda", "--scale",
+            "0.1", "--k", "32", "--batch-size", "256", "--optimizer", "sgd",
+            "--use-fused-kernel", "--lr", "0.01", "--store-dir", store_dir, "--build-store",
+            "--slab-steps", "2", "--ckpt", ckpt, "--ckpt-every-slabs", "2"]
+    runs = []
+    for epochs in (2, 3):
+        cmd = base + ["--epochs", str(epochs)]
+        log(f"## store launcher: {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        log(f"  exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        log("  " + " | ".join(proc.stdout.strip().splitlines()[:8]))
+        if proc.returncode:
+            log(proc.stderr[-3000:])
+        runs.append(proc)
+    check(runs[0].returncode == 0 and "built store" in runs[0].stdout,
+          "store launcher on the card: builds the store and trains, exit 0")
+    check(runs[1].returncode == 0 and "resumed from checkpoint at epoch 2" in runs[1].stdout,
+          "store launcher run again: resumes from its checkpoint, exit 0")
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.online", "--use-kernel", "--device", "cuda",
+           "--scale", "0.05", "--train-epochs", "3", "--events", "2000", "--batch-events", "64",
+           "--swap-every", "4", "--clients", "4", "--source", "poisson", "--new-id-prob", "0.02",
+           "--evict-max-users", "60", "--evict-target-users", "45"]
+    log(f"## online launcher with eviction: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    text = proc.stdout
+    report = json.loads(text[text.index("{"):]) if "{" in text else {}
+    log(f"  exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; eviction "
+        f"{report.get('eviction')}; requests ok {report.get('requests_ok')}, failed "
+        f"{report.get('requests_failed')}")
+    if proc.returncode:
+        log(proc.stderr[-3000:])
+    check(proc.returncode == 0 and report.get("requests_failed") == 0
+          and report.get("eviction", {}).get("rounds", 0) >= 1 and report.get("device") == "cuda",
+          "online launcher with --evict-max-users on the card: exit 0, an eviction round, no "
+          "failed request")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return report.get("eviction")
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -1735,6 +2318,14 @@ def main() -> int:
     bpr_stats = phase("bpr-dpmf", bpr_phase, dev)
     online = phase("online-dpmf", online_phase, dev)
     launcher = phase("online launcher", online_launcher_phase)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        store = phase("store-dpmf", store_dpmf_phase, dev, tmp)
+        resume = phase("store-resume", store_resume_phase, dev, tmp)
+        evict = phase("evict-dpmf", evict_phase, dev, tmp)
+        store_launchers = phase("store and eviction launchers", store_launchers_phase, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     main_label = f"rate {RATE}"
     rows.append({
@@ -1763,6 +2354,10 @@ def main() -> int:
         "online_launcher": {k: launcher.get(k) for k in (
             "event_rate_per_s", "swap_ms_p50", "latency_ms_p50", "latency_ms_p99",
             "requests_ok", "requests_failed")},
+        "store": {k: v for k, v in store.items() if k != "launches"},
+        "store_resume": resume,
+        "evict": {k: v for k, v in evict.items() if k != "launches"},
+        "store_launchers": {"online_eviction": store_launchers},
     }
     log("# workloads " + json.dumps(workloads))
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -1,14 +1,16 @@
 """Checkpoints in the reference trainer's on-disk format.
 
 Counterpart of ``repro/checkpoint/checkpoint.py`` (numpy and the standard
-library; no chaos hooks, no elastic re-sharding).  A step lives at
+library; no elastic re-sharding).  A step lives at
 ``<dir>/step_<012d>``, a symlink to its payload directory
 ``step_<012d>.data.<pid>.<usec>``, as ``arrays.npz`` plus ``metadata.json``.
 
 * **Write.** :func:`save` writes and fsyncs the payload, stamps its
   ``payload_crc32``, then publishes by atomically repointing the step
   symlink and fsyncing the directory, so a reader never sees a half-written
-  or missing step; keep-N retention follows.
+  or missing step; keep-N retention follows.  The ``checkpoint.fsync``
+  fault seam (:mod:`repro_torch.testing.faults`) sits between the writes
+  and the fsync, so an injected error publishes nothing.
 * **Read.** :func:`load_raw` checks ``payload_crc32`` before deserializing,
   so corrupt bytes raise :class:`CorruptCheckpointError` instead of becoming
   factors; :func:`restore` falls back to older steps past a corrupt one.
@@ -29,6 +31,8 @@ import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.testing import faults
 
 Tree = Any
 _SEP = "__"
@@ -136,6 +140,11 @@ def save(
     }
     with open(os.path.join(data_dir, "metadata.json"), "w") as f:
         json.dump(meta, f, indent=2, default=str)
+    # fsync the payload before publishing, so a crash cannot publish garbage
+    if faults._PLAN is not None:
+        for act in faults.fire("checkpoint.fsync"):
+            if act.op == "error":
+                raise OSError("injected fsync failure (chaos harness)")
     for name in ("arrays.npz", "metadata.json"):
         fd = os.open(os.path.join(data_dir, name), os.O_RDONLY)
         try:

@@ -1,6 +1,6 @@
 """The DP-MF trainer: the paper's overall procedure (Figs. 6 and 10).
 
-Counterpart of ``repro/core/trainer.py``, in memory.  Schedule:
+Counterpart of ``repro/core/trainer.py``.  Schedule:
 
   epoch 0   : standard (unpruned) training; no thresholds exist yet
   after it  : measure (mu, sigma) of P and Q -> T_p, T_q      (§4.2, once)
@@ -22,8 +22,21 @@ weight column, so sgd with ``use_fused_kernel`` takes the ``fused_mf_sgd``
 kernel with a weight column) and ``bpr`` (pairwise, on per-epoch sampled
 triples; the test MAE is NaN, the ranking metrics carry).
 
-Not ported yet, and refused with ``NotImplementedError`` rather than run as
-something else: the out-of-core store mode (ROADMAP A5).
+**Store mode** (``TrainConfig.store_dir``): the ratings stay on disk in a
+``repro_torch.store`` ratings store and each epoch streams through
+``ShardedRatingsLoader`` as ``(slab_steps, B)`` slabs, the step still
+``mf.train_epoch_scan`` (so sgd with ``use_fused_kernel`` launches
+``fused_mf_sgd`` every streamed step).  The slab order is the reference's
+Feistel order, so both packages train on the same batches.  Metric means
+accumulate weighted by step in host float64; ``checkpoint_every_slabs``
+saves mid-epoch with the running sums, and a restart replays only the
+remaining slabs.  ``max_step_retries`` wraps each slab in
+``run_with_retries``: a retry is bitwise because the step writes the tables
+in place only once it runs, and the fault seams (the ``failure_injector``
+hook and the ``trainer.slab`` seam of ``repro_torch.testing.faults``) fire
+before that; a failure raised part-way through a slab's steps would re-run
+the slab on the tables as that attempt left them.  Wall-time outliers among
+slabs are counted by a ``StragglerDetector``.
 """
 from __future__ import annotations
 
@@ -39,9 +52,12 @@ from repro_torch.core import mf, rearrange, threshold
 from repro_torch.data import loader
 from repro_torch.data.ratings import RatingsDataset, build_user_history
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.fault_tolerance import StragglerDetector, run_with_retries
 from repro_torch.eval import ranking as ranking_eval
 from repro_torch.optim.optimizers import RowOptimizer
 from repro_torch.optim.schedules import twin_learners_mask
+from repro_torch.store import RatingsStore, ShardedRatingsLoader
+from repro_torch.testing import faults
 from repro_torch.workloads import bpr as bpr_wl
 from repro_torch.workloads import implicit as implicit_wl
 
@@ -73,7 +89,12 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 0   # 0 = only final
     keep_checkpoints: int = 3
-    store_dir: Optional[str] = None    # out-of-core training: ROADMAP A5
+    # -- out-of-core streaming (repro_torch.store) ---------------------------
+    store_dir: Optional[str] = None    # train from an on-disk RatingsStore
+    slab_steps: int = 256              # steps per streamed slab
+    prefetch_slabs: int = 2            # bounded prefetch queue depth
+    checkpoint_every_slabs: int = 0    # 0 = no mid-epoch checkpoints
+    max_step_retries: int = 0          # retries per streamed slab; 0 = no wrapper
 
 
 @dataclasses.dataclass
@@ -92,11 +113,12 @@ class EpochRecord:
     hr: float = float("nan")       # HR@K at ranking_topk
     ndcg: float = float("nan")     # NDCG@K
     recall: float = float("nan")   # recall@K
+    straggler_slabs: int = 0       # slabs flagged as wall-time outliers
+    step_retries: int = 0          # slab retries consumed this epoch
 
 
 def _check_supported(config: TrainConfig, train_ds) -> None:
-    """The reference's validation, in its order; then the refusals of what
-    is not ported."""
+    """The reference's validation, in its order."""
     if config.epoch_mode not in ("scan", "python"):
         raise ValueError(f"unknown epoch_mode {config.epoch_mode!r}")
     if config.objective not in ("explicit", "implicit", "bpr"):
@@ -113,8 +135,14 @@ def _check_supported(config: TrainConfig, train_ds) -> None:
         if train_ds is None:
             raise ValueError(f"objective {config.objective!r} requires train_ds")
     if config.store_dir is not None:
-        raise NotImplementedError(
-            "store-backed (out-of-core) training is not ported yet (ROADMAP A5)")
+        if config.epoch_mode != "scan":
+            raise ValueError("store-backed training requires epoch_mode='scan'")
+        if config.variant == "svdpp":
+            raise ValueError(
+                "store-backed training does not support svdpp (the implicit-history "
+                "matrix is itself O(users))")
+    elif train_ds is None:
+        raise ValueError("either train_ds or config.store_dir is required")
 
 
 class DPMFTrainer:
@@ -123,7 +151,11 @@ class DPMFTrainer:
     ``params`` and ``opt_state`` are public: a caller may replace ``params``
     (for example with factors carried over by ``mf.params_from_numpy``)
     before :meth:`run`, and then rebuilds ``opt_state`` with
-    ``mf.init_opt_state(trainer.params, trainer.opt)``.
+    ``mf.init_opt_state(trainer.params, trainer.opt)``.  With
+    ``config.store_dir`` the trainer needs no ``train_ds``: sizes and global
+    mean come from the store's index.  ``failure_injector`` (a callable of
+    the global slab number, e.g. ``FailureInjector``) is a test hook of
+    store mode.
     """
 
     def __init__(
@@ -135,8 +167,6 @@ class DPMFTrainer:
         device: DeviceLike = None,
     ):
         _check_supported(config, train_ds)
-        if train_ds is None:
-            raise ValueError("train_ds is required (store mode is ROADMAP A5)")
         self.config = config
         self.device = resolve_device(device)
         self.opt = RowOptimizer(name=config.optimizer)
@@ -153,6 +183,19 @@ class DPMFTrainer:
                 test_ds = implicit_wl.binarize_positives(test_ds)
         self.train_ds = train_ds
         self.test_ds = test_ds
+        self._loader = None
+        self._resume_slab = 0
+        self._resume_sums = (0.0, 0.0, 0)   # (err_sum, work_sum, steps_done)
+        self.straggler = StragglerDetector(window=20, z_threshold=4.0)
+        self.failure_injector = None
+        self._slab_counter = 0              # global slab number across epochs
+        if config.store_dir is not None:
+            # out of core: the ratings stay on disk (mmap) and stream through
+            # a bounded prefetch queue; host memory is set by its depth
+            self._loader = ShardedRatingsLoader(
+                RatingsStore(config.store_dir), config.batch_size,
+                slab_steps=config.slab_steps, prefetch=config.prefetch_slabs,
+                device=self.device)
         self.hist = (
             build_user_history(train_ds, config.max_hist) if config.variant == "svdpp" else None
         )
@@ -167,7 +210,7 @@ class DPMFTrainer:
         if config.epoch_mode == "scan":
             # upload the ratings once; the batch size is clamped so a tiny
             # dataset trains as one batch per epoch instead of zero steps
-            if self._bpr_sampler is None:
+            if self._bpr_sampler is None and self._loader is None:
                 self._packed_train = loader.pack_ratings(
                     train_ds, min(config.batch_size, max(len(train_ds), 1)),
                     weight=self._train_weight, device=self.device)
@@ -180,10 +223,11 @@ class DPMFTrainer:
                 test_ds, 256, max_users=config.ranking_max_users, device=self.device)
 
         generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        src = train_ds if train_ds is not None else self._loader.store
         self.params = mf.init_params(
-            generator, train_ds.num_users, train_ds.num_items, config.k,
+            generator, src.num_users, src.num_items, config.k,
             variant=config.variant, init_method=config.init_method,
-            global_mean=train_ds.global_mean, device=self.device,
+            global_mean=src.global_mean, device=self.device,
         )
         self.opt_state = mf.init_opt_state(self.params, self.opt)
         self.t_p = self._scalar(0.0)
@@ -211,17 +255,38 @@ class DPMFTrainer:
         return {"params": self.params, "opt_state": self.opt_state,
                 "t_p": self.t_p, "t_q": self.t_q, "perm": perm}
 
-    def save(self, step: int) -> None:
+    def _ckpt_step(self, slabs_done: int = 0) -> int:
+        """Checkpoint step number: the epoch count in memory; in store mode
+        ``epoch * num_slabs + slabs_done``, so epoch-boundary and mid-epoch
+        saves never collide and steps stay monotonic over the run."""
+        if self._loader is None:
+            return self.epoch
+        return self.epoch * self._loader.num_slabs + slabs_done
+
+    def save(self, step: int, *, extra_metadata: Optional[Dict[str, Any]] = None) -> None:
         """Checkpoint the state tree as ``step`` (asynchronously)."""
         if self._ckpt is None:
             return
         metadata = {"epoch": self.epoch, "seed": self.config.seed,
                     "pruning_rate": self.config.pruning_rate}
+        if extra_metadata:
+            metadata.update(extra_metadata)
         self._ckpt.save(step, self._state_tree(), metadata=metadata)
 
+    def _save_mid_epoch(self, slabs_done: int, err_sum: float, work_sum: float,
+                        steps_done: int) -> None:
+        """Checkpoint inside an epoch (store mode): the state plus the
+        running metric sums, so a restart replays only the remaining slabs
+        and reports the same epoch metrics."""
+        self.save(self._ckpt_step(slabs_done), extra_metadata={
+            "slab_idx": slabs_done, "err_sum": err_sum, "work_sum": work_sum,
+            "steps_done": steps_done})
+
     def maybe_restore(self) -> bool:
-        """Resume from the newest checkpoint in ``checkpoint_dir``, if any.
-        Reads the reference trainer's checkpoints as well as the port's."""
+        """Resume from the newest checkpoint in ``checkpoint_dir``, if any
+        (mid-epoch in store mode: the next epoch starts at the saved slab
+        with the saved sums).  Reads the reference trainer's checkpoints as
+        well as the port's."""
         directory = self.config.checkpoint_dir
         if directory is None or ckpt_lib.latest_step(directory) is None:
             return False
@@ -239,6 +304,9 @@ class DPMFTrainer:
         self.t_q = self._scalar(tree["t_q"])
         self.perm = up(tree["perm"])
         self.epoch = int(meta["epoch"])
+        self._resume_slab = int(meta.get("slab_idx", 0))
+        self._resume_sums = (float(meta.get("err_sum", 0.0)), float(meta.get("work_sum", 0.0)),
+                             int(meta.get("steps_done", 0)))
         return True
 
     # -- the paper's one-time calibration (after epoch 0) --------------------
@@ -277,7 +345,10 @@ class DPMFTrainer:
             else torch.ones((cfg.k,), dtype=torch.float32, device=self.device)
         )
         start = time.perf_counter()
-        if self._bpr_sampler is not None:
+        straggler_slabs = retries = 0
+        if self._loader is not None:
+            abs_err, work, straggler_slabs, retries = self._run_store_epoch(t_p, t_q, dim_mask)
+        elif self._bpr_sampler is not None:
             # pairwise epoch: freshly sampled triples; abs_err is the BPR loss
             triples = self._bpr_sampler.epoch_triples(self.epoch)
             self.params, self.opt_state, metrics = bpr_wl.bpr_epoch_scan(
@@ -323,6 +394,7 @@ class DPMFTrainer:
         record = EpochRecord(
             epoch=self.epoch, wall_time_s=wall, train_abs_err=abs_err, test_mae=test_mae,
             work_fraction=work, t_p=float(t_p), t_q=float(t_q),
+            straggler_slabs=straggler_slabs, step_retries=retries,
             **({"hr": ranking.hr, "ndcg": ranking.ndcg, "recall": ranking.recall}
                if ranking is not None else {}),
         )
@@ -332,8 +404,63 @@ class DPMFTrainer:
         self.epoch += 1
         if (self._ckpt is not None and cfg.checkpoint_every_epochs
                 and self.epoch % cfg.checkpoint_every_epochs == 0):
-            self.save(self.epoch)
+            self.save(self._ckpt_step())
         return record
+
+    def _run_store_epoch(self, t_p, t_q, dim_mask):
+        """One streamed epoch from the resume point: ``(abs_err, work,
+        straggler_slabs, retries)``.  The means are step-weighted sums in
+        host float64, so a run resumed from a mid-epoch checkpoint reports
+        the uninterrupted run's numbers."""
+        cfg = self.config
+        err_sum, work_sum, steps_done = self._resume_sums
+        start_slab = self._resume_slab
+        self._resume_slab, self._resume_sums = 0, (0.0, 0.0, 0)
+        stragglers = 0
+        retries = [0]
+
+        def count_retry(attempt, exc):
+            retries[0] += 1
+
+        for slab in self._loader.epoch_slabs(cfg.seed, self.epoch, start_slab=start_slab):
+            def run_slab(slab=slab):
+                # the faults fire before the step's first write, so a retry
+                # re-runs the slab on the tables as they were
+                if self.failure_injector is not None:
+                    self.failure_injector(self._slab_counter)
+                if faults._PLAN is not None:
+                    for act in faults.fire("trainer.slab"):
+                        if act.op == "error":
+                            raise faults.FaultError("injected slab failure")
+                return mf.train_epoch_scan(
+                    self.params, self.opt_state, slab.batches, t_p, t_q, cfg.lr, dim_mask,
+                    self._hist_dev, opt=self.opt, lam=cfg.lam,
+                    use_fused_kernel=cfg.use_fused_kernel,
+                )
+
+            slab_start = time.perf_counter()
+            if cfg.max_step_retries > 0:
+                self.params, self.opt_state, metrics = run_with_retries(
+                    run_slab, max_retries=cfg.max_step_retries, backoff_s=0.05,
+                    on_retry=count_retry)
+            else:
+                self.params, self.opt_state, metrics = run_slab()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self.straggler.record(time.perf_counter() - slab_start):
+                stragglers += 1
+            self._slab_counter += 1
+            err, work = torch.stack([metrics["abs_err"], metrics["work_fraction"]]).tolist()
+            err_sum += err * slab.steps
+            work_sum += work * slab.steps
+            steps_done += slab.steps
+            slabs_done = slab.slab_idx + 1
+            if (self._ckpt is not None and cfg.checkpoint_every_slabs
+                    and slabs_done % cfg.checkpoint_every_slabs == 0
+                    and slabs_done < self._loader.num_slabs):
+                self._save_mid_epoch(slabs_done, err_sum, work_sum, steps_done)
+        denom = max(steps_done, 1)
+        return err_sum / denom, work_sum / denom, stragglers, retries[0]
 
     def run(self) -> List[EpochRecord]:
         """Train the remaining epochs, then save a final checkpoint."""
@@ -346,7 +473,7 @@ class DPMFTrainer:
         """Save a final checkpoint and wait until it is published (nothing
         without ``checkpoint_dir``)."""
         if self._ckpt is not None:
-            self.save(self.epoch)
+            self.save(self._ckpt_step())
             self._ckpt.wait()
 
     def evaluate(self, t_p=None, t_q=None) -> float:

@@ -1,16 +1,17 @@
-"""Fault tolerance: bounded step retries and straggler detection.
+"""Fault tolerance: bounded step retries, straggler detection, injected faults.
 
-A copy of ``StragglerDetector`` and ``run_with_retries`` from
-``repro/distributed/fault_tolerance.py`` (pure Python): the training
-launcher wraps each epoch in :func:`run_with_retries` and times it with
-:class:`StragglerDetector`.
+A copy of ``repro/distributed/fault_tolerance.py`` (pure Python): the
+training launcher wraps each epoch in :func:`run_with_retries` and times it
+with :class:`StragglerDetector`; in store mode the trainer wraps each
+streamed slab the same way (``TrainConfig.max_step_retries``) and records
+its wall time.  :class:`FailureInjector` drives the tests of both.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Callable, Deque, Optional
+from typing import Any, Callable, Deque, Optional, Tuple
 
 
 class StepFailure(RuntimeError):
@@ -70,3 +71,20 @@ class StragglerDetector:
         if len(times) > self.window:
             times.popleft()
         return is_straggler
+
+
+class FailureInjector:
+    """Deterministic fault injection for integration tests: raises on the
+    configured step numbers, once each, then succeeds on retry."""
+
+    def __init__(self, fail_on_steps: Tuple[int, ...]):
+        self.fail_on_steps = set(fail_on_steps)
+        self.calls = 0
+        self.failures = 0
+
+    def __call__(self, step: int) -> None:
+        self.calls += 1
+        if step in self.fail_on_steps:
+            self.fail_on_steps.discard(step)
+            self.failures += 1
+            raise RuntimeError(f"injected fault at step {step}")

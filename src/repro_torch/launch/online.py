@@ -17,6 +17,12 @@ the plain PyTorch path.  The freshness loop:
 4. every ``--swap-every`` micro-batches, hot-swap the new factor version
    into the live engine and write an async delta checkpoint.
 
+``--evict-max-users N`` bounds the user table: past N rows the coldest
+rows spill to disk (under ``--ckpt``/spill, or a temporary directory that
+is removed at exit) down to ``--evict-target-users`` (default 80% of N) at
+each publish point; spilled users keep getting answers through the engine's
+bias-only fallback, and an event naming one revives its row.
+
 The exit status is non-zero if any request failed or was dropped.  A JSON
 report (throughput, swap latency, serving percentiles, work fraction,
 prequential MAE/RMSE, MAE before and after) goes to stdout and, with
@@ -24,13 +30,15 @@ prequential MAE/RMSE, MAE before and after) goes to stdout and, with
 
 Not ported yet, and refused with an error naming the ROADMAP item rather
 than ignored: a fleet of replicas (``--replicas`` > 1, ``--supervise``,
-``--routing``, ``--replica-backend``: A7), user eviction (``--evict-*``: A5)
-and the SLO controller (``--slo-*``: A6).
+``--routing``, ``--replica-backend``: A7) and the SLO controller
+(``--slo-*``: A6).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
+import tempfile
 import threading
 import time
 
@@ -47,6 +55,7 @@ from repro_torch.online import (
     iter_microbatches,
 )
 from repro_torch.serving import ServingEngine
+from repro_torch.store import EvictionConfig, UserEvictor
 
 
 def _refuse_unported(args) -> None:
@@ -56,7 +65,6 @@ def _refuse_unported(args) -> None:
         (args.supervise, "--supervise", "A7"),
         (args.routing is not None, "--routing", "A7"),
         (args.replica_backend is not None, "--replica-backend", "A7"),
-        (args.evict_max_users > 0 or args.evict_target_users > 0, "--evict-*", "A5"),
         (args.slo_p99_ms > 0 or args.slo_max_rate is not None, "--slo-*", "A6"),
         (args.use_kernel and args.device == "cpu",
          "--use-kernel with --device cpu (the kernel runs on the card)", "the card"),
@@ -69,6 +77,16 @@ def _refuse_unported(args) -> None:
 
 def run_online(args) -> dict:
     _refuse_unported(args)
+    spill_tmp = None if args.ckpt or args.evict_max_users <= 0 else tempfile.mkdtemp(
+        prefix="dpmf_spill_")
+    try:
+        return _run_online(args, spill_tmp)
+    finally:
+        if spill_tmp is not None:
+            shutil.rmtree(spill_tmp, ignore_errors=True)
+
+
+def _run_online(args, spill_tmp) -> dict:
     ds = paper_dataset(args.dataset, seed=args.seed, scale=args.scale)
     rest, test_ds = train_test_split(ds, 0.15, seed=args.seed)
     train_ds, stream_ds = train_test_split(rest, 0.25, seed=args.seed + 1)
@@ -88,6 +106,17 @@ def run_online(args) -> dict:
     # the updater writes copies of the trainer's tables (copy on write), so
     # the engine's version 0 and the trainer stay as they are
     updater = OnlineUpdater.from_trainer(trainer, batch_size=max(args.batch_events, 64))
+    evictor = None
+    if args.evict_max_users > 0:
+        # a bounded user table: cold rows spill to disk and the table
+        # compacts at publish points
+        spill_dir = args.ckpt + "/spill" if args.ckpt else spill_tmp
+        evictor = UserEvictor(EvictionConfig(
+            max_users=args.evict_max_users, spill_dir=spill_dir,
+            target_users=args.evict_target_users or None))
+        updater.attach_evictor(evictor)
+        print(f"# eviction armed: max {args.evict_max_users} rows, target "
+              f"{evictor.config.resolved_target()}, spill {spill_dir}")
     engine = ServingEngine(trainer.params, trainer.t_p, trainer.t_q, device=args.device,
                            user_history=trainer.hist, block_n=args.block_n)
     publisher = SnapshotPublisher(
@@ -144,6 +173,7 @@ def run_online(args) -> dict:
     swaps = []
     events = 0
     work_fractions = []
+    eviction_rounds = []
     t_stream = time.perf_counter()
     try:
         for b, batch in enumerate(
@@ -156,6 +186,13 @@ def run_online(args) -> dict:
                 info = updater.maybe_recalibrate()  # no-op within the drift budget
                 if info:
                     print(f"# recalibrated: drift {info['drift']:.3f}")
+                if evictor is not None:
+                    ev_info = evictor.maybe_evict()
+                    if ev_info:
+                        eviction_rounds.append(ev_info)
+                        print(f"# evicted {ev_info['evicted']} cold rows -> "
+                              f"{ev_info['num_users']} live (remap epoch "
+                              f"{ev_info['remap_epoch']})")
                 swaps.append(publisher.publish())
         swaps.append(publisher.publish())  # final flush
         stream_s = time.perf_counter() - t_stream
@@ -193,6 +230,15 @@ def run_online(args) -> dict:
         "num_users": num_users,
         "num_items": updater.num_items,
     }
+    if evictor is not None:
+        report["eviction"] = {
+            "rounds": len(eviction_rounds),
+            "evicted_total": int(sum(e["evicted"] for e in eviction_rounds)),
+            "spilled_resident": len(evictor.spilled_external_ids()),
+            "remap_epoch": evictor.remap.epoch,
+            "physical_users": int(updater.num_users),
+            "external_users": int(evictor.remap.num_external),
+        }
     if failures:
         report["failure_samples"] = failures[:5]
     return report
@@ -237,15 +283,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write the run report to PATH")
-    # the reference's fleet, eviction and SLO options: refused (ROADMAP A7, A5, A6)
+    # the reference's fleet and SLO options: refused (ROADMAP A7, A6)
     parser.add_argument("--replicas", type=int, default=1, help="ROADMAP A7: refused if > 1")
     parser.add_argument("--replica-backend", choices=("local", "process"), default=None,
                         help="ROADMAP A7: refused")
     parser.add_argument("--supervise", action="store_true", help="ROADMAP A7: refused")
     parser.add_argument("--routing", choices=("affinity", "least", "random"), default=None,
                         help="ROADMAP A7: refused")
-    parser.add_argument("--evict-max-users", type=int, default=0, help="ROADMAP A5: refused")
-    parser.add_argument("--evict-target-users", type=int, default=0, help="ROADMAP A5: refused")
+    parser.add_argument("--evict-max-users", type=int, default=0,
+                        help="spill + compact cold user rows past this many physical rows at "
+                             "publish points (0 = unbounded, eviction off)")
+    parser.add_argument("--evict-target-users", type=int, default=0,
+                        help="rows left after a compaction (default: 80%% of "
+                             "--evict-max-users)")
     parser.add_argument("--slo-p99-ms", type=float, default=0.0, help="ROADMAP A6: refused")
     parser.add_argument("--slo-max-rate", type=float, default=None, help="ROADMAP A6: refused")
     return parser

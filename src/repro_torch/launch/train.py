@@ -11,8 +11,14 @@ order).  The tables are updated in place, so a retried epoch resumes from
 the tables as the failed attempt left them.  The checkpoint serves through
 ``repro_torch.launch.serve`` and through the reference's
 ``repro.launch.serve``.  ``--objective implicit|bpr`` trains the workloads
-of ``repro_torch.workloads``.  The reference's store-mode flags are not
-ported (ROADMAP A5).
+of ``repro_torch.workloads``.
+
+Out of core: ``--store-dir DIR --build-store`` writes the train split into a
+ratings store (``repro_torch.store``) and trains from it, streaming
+``--slab-steps`` steps a slab through a ``--prefetch-slabs`` deep queue;
+``--ckpt-every-slabs N`` checkpoints mid-epoch, so rerunning the same
+command after a kill resumes at the last saved slab.  Without
+``--build-store`` an existing store is read and the dataset is not made.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import json
 from repro_torch.core.trainer import DPMFTrainer, TrainConfig, work_speedup
 from repro_torch.data.ratings import paper_dataset, train_test_split
 from repro_torch.distributed.fault_tolerance import StragglerDetector, run_with_retries
+from repro_torch.store import build_store
 
 
 def main(argv=None) -> None:
@@ -54,12 +61,33 @@ def main(argv=None) -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ckpt", default=None)
     parser.add_argument("--ckpt-every", type=int, default=5)
+    parser.add_argument("--store-dir", default=None,
+                        help="train out of core from this ratings store directory (mmap + "
+                             "streamed slabs) instead of loading the dataset into memory")
+    parser.add_argument("--build-store", action="store_true",
+                        help="with --store-dir: build the store from the selected dataset's "
+                             "train split first, then train from it")
+    parser.add_argument("--slab-steps", type=int, default=256,
+                        help="steps per streamed slab (store mode)")
+    parser.add_argument("--prefetch-slabs", type=int, default=2,
+                        help="bounded prefetch queue depth (store mode)")
+    parser.add_argument("--ckpt-every-slabs", type=int, default=0,
+                        help="mid-epoch checkpoint every N slabs (store mode; 0 = epoch "
+                             "boundaries only)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels; cpu their plain versions")
     args = parser.parse_args(argv)
 
-    ds = paper_dataset(args.dataset, seed=args.seed, scale=args.scale)
-    train_ds, test_ds = train_test_split(ds, 0.2, seed=args.seed)
+    train_ds = test_ds = None
+    if args.store_dir is None or args.build_store:
+        ds = paper_dataset(args.dataset, seed=args.seed, scale=args.scale)
+        train_ds, test_ds = train_test_split(ds, 0.2, seed=args.seed)
+    if args.store_dir is not None:
+        if args.build_store:
+            build_store(train_ds, args.store_dir)
+            print(f"built store: {len(train_ds)} ratings at {args.store_dir}")
+        # the point of the store: the ratings never have to fit in host memory
+        train_ds = None
     config = TrainConfig(
         k=args.k, epochs=args.epochs, batch_size=args.batch_size, lr=args.lr, lam=args.lam,
         pruning_rate=args.pruning_rate, optimizer=args.optimizer, strategy=args.strategy,
@@ -67,21 +95,30 @@ def main(argv=None) -> None:
         implicit_alpha=args.implicit_alpha, implicit_negatives=args.implicit_negatives,
         use_fused_kernel=args.use_fused_kernel,
         epoch_mode=args.epoch_mode, seed=args.seed, checkpoint_dir=args.ckpt,
-        checkpoint_every_epochs=args.ckpt_every,
+        checkpoint_every_epochs=args.ckpt_every, store_dir=args.store_dir,
+        slab_steps=args.slab_steps, prefetch_slabs=args.prefetch_slabs,
+        checkpoint_every_slabs=args.ckpt_every_slabs,
     )
     trainer = DPMFTrainer(config, train_ds, test_ds, device=args.device)
     if trainer.maybe_restore():
-        print(f"resumed from checkpoint at epoch {trainer.epoch}")
+        slab = f", slab {trainer._resume_slab}" if trainer._resume_slab else ""
+        print(f"resumed from checkpoint at epoch {trainer.epoch}{slab}")
 
     detector = StragglerDetector(window=20, z_threshold=4.0)
-    while trainer.epoch < config.epochs:
-        record = run_with_retries(trainer.run_epoch, max_retries=3)
-        straggler = detector.record(record.wall_time_s)
-        print(
-            f"epoch {record.epoch:3d}  mae={record.test_mae:.4f}  "
-            f"work={record.work_fraction:.3f}  t={record.wall_time_s:.2f}s"
-            + ("  [straggler-flagged]" if straggler else "")
-        )
+    try:
+        while trainer.epoch < config.epochs:
+            record = run_with_retries(trainer.run_epoch, max_retries=3)
+            straggler = detector.record(record.wall_time_s)
+            print(
+                f"epoch {record.epoch:3d}  mae={record.test_mae:.4f}  "
+                f"work={record.work_fraction:.3f}  t={record.wall_time_s:.2f}s"
+                + ("  [straggler-flagged]" if straggler else "")
+            )
+    except KeyboardInterrupt:
+        # an interrupted run leaves the checkpoint in flight complete
+        if trainer._ckpt is not None:
+            trainer._ckpt.wait()
+        raise
     trainer.finish()
     print(json.dumps({
         "device": str(trainer.device),

@@ -17,6 +17,11 @@ permuted the latent axis) and as a retention anchor.  :func:`fold_deltas`
 replays a chain over a base state.  The files are the reference's: either
 package folds the other's chain.
 
+With eviction armed (``OnlineUpdater.attach_evictor``) every payload carries
+the id remap (``user_remap``) and its ``remap_epoch``, the engine's swap
+receives them, and a remap-epoch bump (a compaction renumbered the physical
+user rows) forces the next payload to ``kind=full``.
+
 The fleet's replication bus (``subscribe``, the wire messages and their
 ``compress`` option) waits for ROADMAP A7.
 """
@@ -81,6 +86,8 @@ class SnapshotPublisher:
         self._last_step = 0       # previous checkpoint step (0 = the base)
         self._last_full_step = 0  # most recent kind=full anchor
         self._force_full_next = False
+        # eviction remap epoch last published: a bump forces a full payload
+        self._last_remap_epoch = 0
         if checkpoint_dir:
             # resume an existing chain: steps keep counting from the
             # directory's frontier, and the first checkpoint after a restart
@@ -108,14 +115,18 @@ class SnapshotPublisher:
         self._version += 1
         version = self._version
         # a full payload wherever a row delta cannot describe the change
-        # (recalibration), the chain restarts, or retention would orphan
-        # the delta chain
+        # (recalibration, an eviction compaction), the chain restarts, or
+        # retention would orphan the delta chain
         full = (
             snap.full_rebuild
             or self._force_full_next
+            or snap.remap_epoch != self._last_remap_epoch
             or (self._ckpt is not None
                 and version - self._last_full_step >= max(self.keep - 1, 1))
         )
+        self._last_remap_epoch = snap.remap_epoch
+        remap_kwargs = ({} if snap.user_remap is None
+                        else {"user_remap": snap.user_remap, "remap_epoch": snap.remap_epoch})
 
         start = time.perf_counter()
         engine_version = None
@@ -126,6 +137,7 @@ class SnapshotPublisher:
                 touched_items=None if snap.full_rebuild else snap.touched_items,
                 touched_implicit_items=snap.touched_implicit_items,
                 user_history=snap.user_history,
+                **remap_kwargs,
             )
         swap_s = time.perf_counter() - start
 
@@ -143,6 +155,7 @@ class SnapshotPublisher:
                     "snapshot_id": snap.snapshot_id,
                     "num_users": snap.params.p.shape[0],
                     "num_items": snap.params.q.shape[0],
+                    "remap_epoch": snap.remap_epoch,
                 },
             )
             self._last_step = step
@@ -201,6 +214,11 @@ def _delta_tree(snap: PublishSnapshot, *, full: bool) -> dict:
     tree["t_q"] = snap.t_q
     if snap.user_history is not None:
         tree["user_history"] = np.asarray(snap.user_history)
+    if snap.user_remap is not None:
+        # eviction armed: every payload carries the current ext -> phys
+        # table (cold start extends it between compactions) and its epoch
+        tree["user_remap"] = np.asarray(snap.user_remap, np.int32)
+        tree["remap_epoch"] = np.int64(snap.remap_epoch)
     return tree
 
 
@@ -244,11 +262,14 @@ def apply_delta_tree(
     kind: str,
     num_users: int,
     num_items: int,
+    extras: Optional[dict] = None,
 ) -> Tuple[mf.MFParams, torch.Tensor, torch.Tensor, Optional[np.ndarray]]:
     """Fold one delta/full payload (flat ``{key: array}``, as on disk) into
     ``(params, t_p, t_q, history)``.  A delta is scattered **in place** into
     the tables of ``params`` (or of their grown copies): pass tables the
-    caller owns.  A full payload replaces them, on ``params``' device."""
+    caller owns.  A full payload replaces them, on ``params``' device.
+    ``extras`` (an optional out-parameter dict) receives the eviction remap
+    (``user_remap``, ``remap_epoch``) when the payload has one."""
     dev = params.p.device
     if kind == "full":
         params = mf.params_from_flat(tree, device=dev)
@@ -272,6 +293,9 @@ def apply_delta_tree(
     t_q = torch.as_tensor(np.float32(tree["t_q"])).to(dev)
     if "user_history" in tree:
         history = np.asarray(tree["user_history"])
+    if extras is not None and "user_remap" in tree:
+        extras["user_remap"] = np.asarray(tree["user_remap"], np.int32)
+        extras["remap_epoch"] = int(np.asarray(tree["remap_epoch"]))
     return params, t_p, t_q, history
 
 
@@ -283,6 +307,7 @@ def fold_deltas(
     *,
     user_history: Optional[np.ndarray] = None,
     from_step: int = 0,
+    extras: Optional[dict] = None,
 ) -> Tuple[mf.MFParams, torch.Tensor, torch.Tensor, Optional[np.ndarray], int]:
     """Replay the delta chain under ``directory`` onto a base state (written
     in place: pass tables the caller owns).
@@ -291,7 +316,9 @@ def fold_deltas(
     replay anchors on the latest surviving ``kind=full`` checkpoint and
     checks the chain's continuity through each delta's ``prev_step`` (a
     missing predecessor raises).  Returns ``(params, t_p, t_q,
-    user_history, last_step)``.
+    user_history, last_step)``; with ``extras`` given, the remap carried by
+    the replayed payloads (``user_remap``, ``remap_epoch``) is written into
+    it.
     """
     dev = params.p.device
     t_p = torch.as_tensor(t_p, dtype=torch.float32).to(dev)
@@ -318,6 +345,7 @@ def fold_deltas(
             params, t_p, t_q, history, tree, kind=kind,
             num_users=int(meta.get("num_users", params.p.shape[0])),
             num_items=int(meta.get("num_items", params.q.shape[0])),
+            extras=extras,
         )
         last = step
     return params, t_p, t_q, history, last

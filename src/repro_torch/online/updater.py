@@ -20,6 +20,12 @@ Beyond the step the updater owns three maintenance jobs:
 * **publish bookkeeping**: touched row sets and a ``layout_dirty`` flag for
   :class:`~repro_torch.online.publisher.SnapshotPublisher`.
 
+With a :class:`~repro_torch.store.eviction.UserEvictor` attached
+(:meth:`attach_evictor`) event user ids are *external*: every batch is
+translated to physical rows (reviving spilled users), snapshots carry the
+remap table and its epoch, and :meth:`evaluate` scores spilled users by the
+bias-only fallback.
+
 **Published versions are immutable.**  The port trains in place, where the
 reference's arrays are immutable and its :meth:`snapshot` can hand the
 engine the live tables.  Here the updater never writes a tensor it did not
@@ -60,9 +66,11 @@ class PublishSnapshot:
     touched_items: np.ndarray
     touched_implicit_items: np.ndarray
     user_history: Optional[np.ndarray]
-    full_rebuild: bool          # thresholds/permutation changed
+    full_rebuild: bool          # thresholds/permutation/geometry changed
     events_seen: int            # cumulative over the updater's lifetime
     snapshot_id: int = 0        # monotonic per updater
+    user_remap: Optional[np.ndarray] = None  # ext -> phys (store/eviction.py)
+    remap_epoch: int = 0        # compaction counter; a bump forces a full payload
 
 
 class OnlineUpdater:
@@ -130,6 +138,7 @@ class OnlineUpdater:
         )
         self._dim_mask = torch.ones((self.params.p.shape[1],), dtype=torch.float32,
                                     device=self.device)
+        self.evictor = None  # store.eviction.UserEvictor, via attach_evictor
 
         # publish bookkeeping
         self._touched_users: Set[int] = set()
@@ -162,17 +171,25 @@ class OnlineUpdater:
         return cls(trainer.params, trainer.opt_state, trainer.t_p, trainer.t_q, **kwargs)
 
     def attach_evictor(self, evictor) -> None:
-        """Cold-row eviction (``store/eviction.UserEvictor``) is not ported
-        yet (ROADMAP A5)."""
-        raise NotImplementedError("user eviction is not ported yet (ROADMAP A5)")
+        """Arm cold-row eviction (``store/eviction.UserEvictor``): event user
+        ids become external ids, translated to physical rows on every apply;
+        ``evictor.maybe_evict()`` may spill and compact the user tables at
+        publish points."""
+        evictor.bind(self)
+        self.evictor = evictor
 
     def resolve_users(self, users: np.ndarray) -> np.ndarray:
-        """User ids to the rows an update writes: cold-start growth as
-        needed (the identity without an evictor, which is ROADMAP A5)."""
+        """External user ids to the physical rows an update writes, growing
+        and reviving as needed (the identity plus cold-start growth without
+        an evictor).  Scorers call this instead of ``ensure_capacity`` so
+        they stay correct under a remap."""
         users = np.asarray(users, np.int32)
-        if users.size:
+        if users.size == 0:
+            return users
+        if self.evictor is None:
             self.ensure_capacity(int(users.max()), -1)
-        return users
+            return users
+        return self.evictor.resolve(users).astype(np.int32)
 
     # -- properties ----------------------------------------------------------
     @property
@@ -362,6 +379,10 @@ class OnlineUpdater:
         items = np.asarray(batch.item, np.int32)
         ratings = np.asarray(batch.rating, np.float32)
         weights = None if batch.weight is None else np.asarray(batch.weight, np.float32)
+        if self.evictor is not None:
+            # external ids -> physical rows (reviving spilled users); every
+            # index from here on is physical
+            users = self.evictor.resolve(users)
         self.ensure_capacity(int(users.max()), int(items.max()))
         if self.user_history is not None:
             self._append_history(users, items)
@@ -475,6 +496,8 @@ class OnlineUpdater:
             full_rebuild=self._layout_dirty,
             events_seen=self.events_seen,
             snapshot_id=self.snapshots_taken,
+            user_remap=None if self.evictor is None else self.evictor.remap.as_array(),
+            remap_epoch=0 if self.evictor is None else self.evictor.remap.epoch,
         )
         self._shared_params = set(_FIELDS)
         self._touched_users.clear()
@@ -486,7 +509,15 @@ class OnlineUpdater:
     # -- evaluation ----------------------------------------------------------
     def evaluate(self, ds, batch_size: int = 8192) -> float:
         """Test MAE (Eq. 12) of the current online params and thresholds;
-        one host sync at the end."""
+        one host sync at the end.
+
+        With an evictor attached the dataset's user ids are external: live
+        users score through their physical rows, spilled and unseen users
+        bias-only (global mean + item bias for the bias variants, else 0),
+        the engine's fallback; evaluation never revives rows.
+        """
+        if self.evictor is not None:
+            return self._evaluate_remapped(ds, batch_size)
         total = self._scalar(0.0)
         count = self._scalar(0.0)
         for batch_np in loader.iterate_batches(
@@ -500,3 +531,34 @@ class OnlineUpdater:
             total = total + s
             count = count + c
         return float(total) / max(float(count), 1.0)
+
+    def _evaluate_remapped(self, ds, batch_size: int) -> float:
+        """:meth:`evaluate` under the eviction remap, summed in host float64
+        as the reference sums it (a sync per batch)."""
+        remap = self.evictor.remap
+        item_bias = (None if self.params.item_bias is None
+                     else self.params.item_bias[:, 0].cpu().numpy().astype(np.float64))
+        total, count = 0.0, 0.0
+        for batch_np in loader.iterate_batches(
+            ds, min(batch_size, max(len(ds), 1)), shuffle=False, drop_remainder=False,
+        ):
+            users = np.asarray(batch_np["user"], np.int64)
+            items = np.asarray(batch_np["item"], np.int64)
+            phys = remap.lookup(users)
+            live = phys >= 0
+            pred, _ = mf.predict_pairs(
+                self.params, self._upload(np.where(live, phys, 0), torch.int64),
+                self._upload(items, torch.int64), self.t_p, self.t_q)
+            pred = pred.cpu().numpy().astype(np.float64)
+            fallback = np.zeros(users.shape, np.float64)
+            if self.params.global_mean is not None:
+                fallback += float(self.params.global_mean)
+            if item_bias is not None:
+                fallback += item_bias[items]
+            pred = np.where(live, pred, fallback)
+            w = batch_np.get("weight")
+            w = np.ones(users.shape, np.float64) if w is None else np.asarray(w, np.float64)
+            rating = np.asarray(batch_np["rating"], np.float64)
+            total += float((np.abs(rating - pred) * w).sum())
+            count += float(w.sum())
+        return total / max(count, 1.0)

@@ -653,3 +653,134 @@ def test_online_loop_on_cuda_matches_cpu(cuda):
     users = np.arange(engine.num_users)
     got, want = engine.topk(users, 10), fresh.topk(users, 10)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def _store(tmp_path, users=300, items=200, ratings=12000):
+    from repro_torch.store import build_store
+
+    train, test = train_test_split(synthetic_ratings(users, items, ratings, seed=0), 0.2, seed=0)
+    return build_store(train, str(tmp_path / "store"), shard_rows=2000), test
+
+
+@pytest.mark.parametrize("batch,slab_steps,prefetch", [(512, 3, 2), (1000, 1, 1)])
+def test_store_loader_slabs_on_cuda_equal_the_cpu_loaders(cuda, tmp_path, batch, slab_steps,
+                                                          prefetch):
+    """The prefetch worker's pinned copy on a side stream, waited for by the
+    consumer's stream: every slab on the card equals the CPU loader's, bit
+    for bit, while the consumer keeps the card busy between slabs."""
+    from repro_torch.store import RatingsStore, ShardedRatingsLoader
+
+    store_dir, _ = _store(tmp_path)
+    loaders = {str(d): ShardedRatingsLoader(RatingsStore(store_dir), batch, slab_steps=slab_steps,
+                                            prefetch=prefetch, device=d) for d in ("cpu", cuda)}
+    busy = torch.randn(2048, 2048, device=cuda)
+    for epoch in (0, 1):
+        got = list(loaders["cuda"].epoch_slabs(3, epoch))
+        want = list(loaders["cpu"].epoch_slabs(3, epoch))
+        assert [s.slab_idx for s in got] == [s.slab_idx for s in want]
+        for g, w in zip(got, want):
+            busy = busy @ busy.T / 2048.0  # work queued on the consumer's stream
+            assert g.batches["user"].is_cuda and g.timings["copy"] >= 0.0
+            for key in w.batches:
+                assert g.batches[key].dtype == w.batches[key].dtype
+                assert torch.equal(g.batches[key].cpu(), w.batches[key]), key
+    torch.cuda.synchronize()
+
+
+def test_store_trainer_on_cuda_matches_cpu(cuda, tmp_path):
+    """The streamed epoch on the card (fused_mf_sgd every step) against the
+    same store on the CPU from the same initial factors: records within 1e-4
+    relative, and a killed run resumed mid-epoch on the card within 1e-4 of
+    the uninterrupted one (the scatter's atomics add in another order)."""
+    store_dir, test = _store(tmp_path)
+    cfg = dict(k=32, epochs=3, batch_size=512, pruning_rate=0.3, optimizer="sgd",
+               use_fused_kernel=True, lr=0.01, store_dir=store_dir, slab_steps=3)
+    rng = np.random.default_rng(0)
+    init = {"p": rng.normal(0, 0.1, (300, 32)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (200, 32)).astype(np.float32)}
+
+    def make(device, **kw):
+        t = trainer.DPMFTrainer(trainer.TrainConfig(**cfg, **kw), None, test, device=device)
+        t.params = mf.params_from_numpy(init, device=device)
+        t.opt_state = mf.init_opt_state(t.params, t.opt)
+        return t
+
+    runs = {}
+    for device in ("cpu", cuda):
+        t = make(device)
+        before = fused_mf_sgd.launches
+        runs[str(device)] = t.run()
+        launched = fused_mf_sgd.launches - before
+    assert launched == 3 * runs_loader_steps(store_dir, 512)
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        for field in ("train_abs_err", "test_mae", "work_fraction", "t_p", "t_q"):
+            assert abs(getattr(g, field) - getattr(c, field)) <= 1e-4 * max(abs(getattr(c, field)), 1e-12)
+
+    ckpt = str(tmp_path / "ckpt")
+    killed = make(cuda, checkpoint_dir=ckpt, checkpoint_every_slabs=2)
+    num_slabs = killed._loader.num_slabs
+    original, calls = trainer.mf.train_epoch_scan, {"n": 0}
+
+    def dying(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] > num_slabs + 3:
+            raise KeyboardInterrupt
+        return original(*args, **kwargs)
+
+    trainer.mf.train_epoch_scan = dying
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            killed.run()
+    finally:
+        trainer.mf.train_epoch_scan = original
+        killed._ckpt.wait()
+    resumed = make(cuda, checkpoint_dir=ckpt, checkpoint_every_slabs=2)
+    assert resumed.maybe_restore() and resumed.epoch == 1 and resumed._resume_slab == 2
+    history = resumed.run()
+    for field in ("train_abs_err", "test_mae", "work_fraction"):
+        want = getattr(runs["cuda"][-1], field)
+        assert abs(getattr(history[-1], field) - want) <= 1e-4 * max(abs(want), 1e-12)
+
+
+def runs_loader_steps(store_dir, batch):
+    """Steps of one streamed epoch over the store."""
+    from repro_torch.store import RatingsStore
+
+    return len(RatingsStore(store_dir)) // batch
+
+
+def test_evictor_on_cuda_matches_cpu(cuda, tmp_path):
+    """Growth, spill, compaction and revival on the card against the same
+    calls on the CPU, bitwise (no step runs); a version published before
+    the compaction keeps its tensors."""
+    from repro_torch.online import OnlineUpdater
+    from repro_torch.store import EvictionConfig, UserEvictor
+
+    rng = np.random.default_rng(4)
+    init = {"p": rng.normal(0, 0.1, (500, 32)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (300, 32)).astype(np.float32),
+            "user_bias": rng.normal(0, 0.1, (500, 1)).astype(np.float32),
+            "item_bias": rng.normal(0, 0.1, (300, 1)).astype(np.float32),
+            "global_mean": np.float32(3.0)}
+    sides = {}
+    for device in ("cpu", cuda):
+        upd = OnlineUpdater(mf.params_from_numpy(init, device=device), None, 0.05, 0.05,
+                            optimizer="adagrad", seed=2, device=device)
+        upd.attach_evictor(UserEvictor(EvictionConfig(
+            max_users=520, target_users=400, spill_dir=str(tmp_path / f"spill_{device}"))))
+        sides[str(device)] = upd
+    for step in range(5):
+        ext = rng.integers(0, 500 + 10 * step, 64).astype(np.int32)
+        assert np.array_equal(*(upd.resolve_users(ext) for upd in sides.values()))
+    held = sides["cuda"].snapshot().params.p.clone()
+    snap_p = sides["cuda"].params.p
+    reports = [upd.evictor.maybe_evict() for upd in sides.values()]
+    assert reports[0]["evicted"] == reports[1]["evicted"] > 0
+    assert torch.equal(snap_p, held)
+    spilled = sides["cpu"].evictor.spilled_external_ids()[::3].astype(np.int32)
+    assert np.array_equal(*(upd.resolve_users(spilled) for upd in sides.values()))
+    (c, g) = sides["cpu"], sides["cuda"]
+    assert np.array_equal(c.evictor.remap.ext_to_phys, g.evictor.remap.ext_to_phys)
+    for name in ("p", "user_bias"):
+        assert torch.equal(getattr(g.params, name).cpu(), getattr(c.params, name))
+    assert torch.equal(g.opt_state.p["acc"].cpu(), c.opt_state.p["acc"])

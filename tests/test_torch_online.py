@@ -32,6 +32,7 @@ from repro_torch.eval import prequential, prequential_ranking
 from repro_torch.launch import online as online_launch
 from repro_torch.online import publisher, stream, updater
 from repro_torch.serving import ServingEngine
+from repro_torch.store import EvictionConfig, UserEvictor
 from repro_torch.workloads import implicit
 
 K, M, N = 8, 40, 60
@@ -448,13 +449,17 @@ def test_prequential_ranking_matches_reference(source):
 # ---------------------------------------------------------------------------
 
 
-def test_unported_parts_raise_naming_the_roadmap_item(monkeypatch):
+def test_unported_parts_raise_naming_the_roadmap_item(monkeypatch, tmp_path):
     fields = _fields(11)
     upd = updater.OnlineUpdater(_port_params(fields), None, T, T, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         updater.OnlineUpdater(_port_params(fields), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        upd.attach_evictor(object())
+    # eviction was refused until the out-of-core path was ported
+    ev = UserEvictor(EvictionConfig(max_users=M + 10, spill_dir=str(tmp_path / "spill")))
+    upd.attach_evictor(ev)
+    assert upd.evictor is ev and ev.remap.num_external == M
+    np.testing.assert_array_equal(upd.resolve_users(np.array([3, M + 2], np.int32)), [3, M + 2])
+    assert upd.num_users == M + 3 and upd.snapshot().user_remap.shape == (M + 3,)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         publisher.SnapshotPublisher(None, upd).subscribe(object())
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
@@ -482,12 +487,36 @@ def test_run_online_on_the_cpu_exits_clean(source, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--replicas", "2"], "A7"), (["--supervise"], "A7"), (["--routing", "least"], "A7"),
-    (["--replica-backend", "process"], "A7"), (["--evict-max-users", "10"], "A5"),
+    (["--replica-backend", "process"], "A7"),
     (["--slo-p99-ms", "5"], "A6"), (["--use-kernel"], "the card"),
 ])
 def test_run_online_refuses_unported_options(flag, item):
     with pytest.raises(SystemExit, match=item):
         online_launch.main(_SMALL + flag)
+
+
+@pytest.mark.parametrize("with_ckpt", [False, True])
+def test_run_online_evicts_and_exits_clean(tmp_path, capsys, with_ckpt):
+    """``--evict-max-users`` was refused until eviction was ported: the
+    launcher now spills and compacts at publish points and serves on."""
+    report_path = tmp_path / "report.json"
+    argv = ["--device", "cpu", "--scale", "0.03", "--k", "8", "--train-epochs", "2",
+            "--events", "400", "--batch-events", "32", "--swap-every", "3", "--clients", "2",
+            "--source", "poisson", "--new-id-prob", "0.05", "--evict-max-users", "20",
+            "--evict-target-users", "15", "--json", str(report_path)]
+    if with_ckpt:
+        argv += ["--ckpt", str(tmp_path / "ck")]
+    online_launch.main(argv)
+    out = capsys.readouterr().out
+    assert "# eviction armed" in out and "# evicted" in out
+    report = json.loads(report_path.read_text())
+    assert report["requests_failed"] == 0 and report["requests_ok"] > 0
+    ev = report["eviction"]
+    assert ev["rounds"] >= 1 and ev["evicted_total"] > 0 and ev["remap_epoch"] == ev["rounds"]
+    assert ev["external_users"] > ev["physical_users"]
+    assert np.isfinite(report["mae_after"])
+    if with_ckpt:
+        assert (tmp_path / "ck" / "spill").is_dir()
 
 
 def test_online_freshness_loop():

@@ -364,13 +364,22 @@ def test_calibrate_permutes_optimizer_state():
     assert torch.equal(t.joint_sparsity, torch.sort(t.joint_sparsity, stable=True).values)
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(store_dir="/nonexistent"), "A5"),
-])
-def test_trainer_refuses_what_is_not_ported(change, item):
+def test_trainer_trains_from_a_store_dir(tmp_path):
+    """``store_dir`` was refused until the out-of-core path was ported; the
+    trainer now takes its sizes from the store and streams its epochs
+    (parity with the reference: tests/test_torch_store.py)."""
+    from repro_torch.store import build_store
+
     (_, _), (ptr, pte) = _split(20, 20, 300)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        trainer.DPMFTrainer(trainer.TrainConfig(k=4, **change), ptr, pte, device="cpu")
+    store_dir = build_store(ptr, str(tmp_path / "store"))
+    t = trainer.DPMFTrainer(trainer.TrainConfig(k=4, epochs=2, batch_size=32, pruning_rate=0.3,
+                                                store_dir=store_dir, slab_steps=3), None, pte,
+                            device="cpu")
+    assert t.params.p.shape == (20, 4) and t.params.q.shape == (20, 4)
+    history = t.run()
+    assert [r.epoch for r in history] == [0, 1]
+    assert all(np.isfinite(r.train_abs_err) and np.isfinite(r.test_mae) for r in history)
+    assert history[1].work_fraction < 1.0 == history[0].work_fraction
 
 
 def test_trainer_trains_with_ranking_metrics():
