@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: drives its serving, swap, training,
-ranking-evaluation, implicit and BPR, online freshness and out-of-core
-(ratings store, streamed training, eviction) paths on one card.
+"""Chip smoke of the PyTorch/CUDA port: drives its serving, swap, SLO,
+training, ranking-evaluation, implicit and BPR, online freshness,
+out-of-core (ratings store, streamed training, eviction) and serving-fleet
+paths on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
-Imports nothing of JAX or of the ``repro`` package.  In one process it:
+Imports nothing of JAX or of the ``repro`` package.  In one process (the
+fleet-process phase spawns replica children and the launcher phases run
+subprocesses; every one is stopped before the script exits) it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
@@ -31,7 +34,13 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    kernels' lazy loads) and by a full rebuild at a moved ``T_q``, each held
    bitwise against a fresh engine, and serves 1024 users under an eviction
    remap that spills a quarter of them, who must get the fallback ranking
-   (counts set to 0 before the swaps and read after);
+   (counts set to 0 before the swaps and read after); then slo-dpmf: the
+   served model behind its queue with an ``SLOController`` and 4 client
+   threads at top-100, the budget half the measured p99 (it degrades to
+   0.8) and then ten times that (it relaxes to the floor); per apply the
+   solve's and the swap's ms, each applied threshold against the solve on
+   float64 statistics, the served top-k after each apply bitwise a fresh
+   engine's, ``pruned_topk`` at both ends (counted under ``slo``);
 4. frees the serving model, then holds ``fused_mf_sgd`` against its plain
    version at the training step's shape (B = 2^20 rows, k = 128, float32) at
    T = 0 and at rate 0.3, with and without bias and weight columns, plus a
@@ -108,7 +117,24 @@ Imports nothing of JAX or of the ``repro`` package.  In one process it:
    against ``np.lexsort`` (counts under ``evict``);
 16. runs ``launch.train --store-dir --build-store`` twice (the second
    resumes) and ``launch.online --evict-max-users`` on the card;
-17. prints a ``kernels`` JSON line (``launches`` summed over the counted
+17. fleet-local: 3 ``LocalReplica``s of 10M users x 10M items x 128 behind
+   the affinity router, an sgd updater's publisher (its defaults:
+   compressed deltas) subscribed, 32 Poisson batches of 4096 events without new ids (every
+   message a delta), a publish every 4, 4 clients at top-10, one SLO
+   degrade and relax rolled out; wire/raw bytes, encode and rolling-apply
+   ms; every replica bitwise a fresh engine on the published state
+   (counted under ``fleet_local``);
+18. fleet-process: ``ServingFleet(backend="process")``, 2 children on the
+   card at 2^19 x 2^18 x 128, under ``fleet.supervise`` and a publisher
+   with the launchers' settings; the host codec's MB/s; a seeded kill of
+   r0 respawned from r1's raw state (MTTR and the child's boot by part), a
+   corrupted delivery NAKed and healed; both children's served state and
+   top-k bitwise a fault-free shadow's (each child's own counts under
+   ``fleet_process``);
+19. runs ``launch.serve --replicas 2 --replica-backend process
+   --slo-p99-ms`` and ``launch.online --replicas 2 --supervise
+   --slo-p99-ms`` on a small checkpoint (exit 0);
+20. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
 The store, checkpoint and spill files live in one temporary directory,
@@ -190,6 +216,14 @@ RESUME_USERS, RESUME_ITEMS, RESUME_RATINGS = 1 << 20, 1 << 17, 1 << 22
 RESUME_BATCH, RESUME_SLAB_STEPS, RESUME_CKPT_SLABS, RESUME_KILL = 1 << 16, 4, 4, 6
 # evict-dpmf: online-dpmf's tables; a compaction spills 2^21 users
 EVICT_SPILL, EVICT_BATCHES = 1 << 21, 16
+# slo-dpmf: the served model; a baseline, ticks, and a hold at each end (s)
+SLO_BASELINE_S, SLO_TICK_S, SLO_HOLD_S = 2.0, 0.25, 2.0
+# fleet-local: 3 in-process replicas of 10M users x the full catalog (10.24
+# GB a copy; with the updater's copy and a copy-on-write transient ~51 GB)
+FLEET_USERS, FLEET_REPLICAS, FLEET_BATCHES = 10_000_000, 3, 32
+# fleet-process: 2 spawned replicas, each with its own CUDA context
+PROC_USERS, PROC_ITEMS, PROC_START_TIMEOUT = 1 << 19, 1 << 18, 180.0
+LAUNCHER_SLO_MS = 250.0
 
 failures: list = []
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches in that path's counted run}
@@ -529,7 +563,7 @@ def serving_path(dev):
             row["yardstick_ms"] = st["yard_ms"]
             row["yardstick"] = "torch.addmm + torch.topk on pre-masked operands (two calls)"
         rows.append(row)
-    return rows
+    return rows, (params, t_p, t_q)  # the served model, for slo-dpmf
 
 
 def swap_path(dev, engine, params, t_p, t_q, users):
@@ -2265,6 +2299,550 @@ def store_launchers_phase(tmp):
     return report.get("eviction")
 
 
+# ---------------------------------------------------------------------------
+# the SLO controller and the serving fleet
+# ---------------------------------------------------------------------------
+
+
+def stats64(t, chunk=1 << 20):
+    """(mean, population std) of a table in float64, by row blocks."""
+    n = t.numel()
+    total = torch.zeros((), dtype=torch.float64, device=t.device)
+    for lo in range(0, t.shape[0], chunk):
+        total += t[lo:lo + chunk].double().sum()
+    mu = total / n
+    sq = torch.zeros((), dtype=torch.float64, device=t.device)
+    for lo in range(0, t.shape[0], chunk):
+        sq += (t[lo:lo + chunk].double() - mu).square().sum()
+    return float(mu), float((sq / n).sqrt())
+
+
+class LoadClients:
+    """``n`` threads sending single-user top-k requests through ``submit``
+    until stopped; every completion is kept as (time done, latency s)."""
+
+    def __init__(self, submit, num_users, topk, n=CLIENTS, seed=0):
+        import threading
+
+        self.samples, self.failures = [], []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, args=(submit, num_users, topk,
+                                                                  seed + c), daemon=True)
+                         for c in range(n)]
+
+    def _run(self, submit, num_users, topk, seed):
+        rng = np.random.default_rng(seed)
+        while not self._stop.is_set():
+            user = int(rng.integers(0, num_users))
+            t0 = time.perf_counter()
+            try:
+                s, i = submit(user, topk, timeout=60.0).result(timeout=120)
+                ok = len(s) == topk and bool(np.isfinite(np.asarray(s)).all())
+                done = time.perf_counter()
+                with self._lock:
+                    self.samples.append((done, done - t0))
+                    if not ok:
+                        self.failures.append(f"user {user}: bad answer")
+            except Exception as exc:  # noqa: BLE001 -- every failure fails the phase
+                with self._lock:
+                    self.failures.append(f"user {user}: {exc!r}")
+
+    def start(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=180)
+        return sum(t.is_alive() for t in self._threads)
+
+    def percentiles(self, since=0.0, until=float("inf")):
+        """(count, p50 ms, p99 ms) of the completions in [since, until)."""
+        with self._lock:
+            lat = np.asarray([s for t, s in self.samples if since <= t < until]) * 1e3
+        if not lat.size:
+            return 0, float("nan"), float("nan")
+        return int(lat.size), float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def slo_path(dev, params, t_p, t_q):
+    """slo-dpmf: the served dpmf model (100M x 10M x 128, rate 0.3) behind
+    its request queue with an SLOController, 4 client threads at top-100.
+    The budget is set at half the p99 measured at the trained rate, so the
+    controller degrades (to max_rate 0.8); then raised tenfold, so it
+    relaxes to the floor.  Per apply: the solve's and the swap's ms; p50/p99
+    while the floor and the top rate are served; pruned_topk at both rates.
+    Checks: thresholds within 1e-4 relative of the solve on float64
+    statistics; after each apply the served top-k bitwise a fresh engine's
+    at the applied thresholds; no failed request.  Counts under "slo"."""
+    import dataclasses
+
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.core.threshold import MatrixStats, threshold_for_rate
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.serving import ServingEngine, SLOConfig, SLOController
+
+    log(f"## slo-dpmf: the served model ({N_USERS} x {N_ITEMS} x {K}, rate {RATE}) behind its "
+        f"queue with an SLOController, {CLIENTS} clients at top-{TOPK}")
+    engine = ServingEngine(params, t_p, t_q, max_batch=256)
+    for b in (1, 2, 4, 8):
+        engine.topk(np.arange(b), TOPK)
+    queue = engine.start(linger_ms=1.0)
+    clients = LoadClients(engine.submit, N_USERS, TOPK, seed=SEED + 30)
+    out = {}
+    reset_launch_counts()
+    clients.start()
+    try:
+        time.sleep(SLO_BASELINE_S)
+        base_n, base_p50, base_p99 = clients.percentiles()
+        budget = base_p99 / 2
+        ctl = SLOController(engine, config=SLOConfig(p99_budget_ms=budget, max_rate=0.8,
+                                                     tick_interval_s=SLO_TICK_S), queue=queue)
+        applies = ctl.swap_timings   # per swap: rate, thresholds, solve and apply ms
+        snaps = []
+        decisions = []
+
+        def run_ticks(until_rate, max_ticks):
+            for _ in range(max_ticks):
+                time.sleep(SLO_TICK_S)
+                d = ctl.tick()
+                decisions.append(d)
+                if d.swapped:
+                    snaps.append(engine._snap)
+                if abs(ctl.base_rate - until_rate) < 1e-9:
+                    return True
+            return False
+
+        reached_max = run_ticks(0.8, 24)
+        t0 = time.perf_counter()
+        time.sleep(SLO_HOLD_S)
+        at_max = clients.percentiles(t0)
+        ctl.config = dataclasses.replace(ctl.config, p99_budget_ms=budget * 10)
+        reached_floor = run_ticks(ctl.floor_rate, 40)
+        t0 = time.perf_counter()
+        time.sleep(SLO_HOLD_S)
+        at_floor = clients.percentiles(t0)
+    finally:
+        stuck = clients.stop()
+        engine.stop()
+    launches = {"pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["slo"] = launches
+    actions = [d.action for d in decisions]
+    log(f"  baseline at the trained rate: {base_n} requests, p50 {base_p50:.2f} ms, p99 "
+        f"{base_p99:.2f} ms -> budget {budget:.2f} ms; floor rate {ctl.floor_rate:.4f}")
+    log(f"  ticks: {' '.join(f'{d.action}@{d.applied_rate:.2f}' for d in decisions)}")
+    for a in applies:
+        log(f"  apply rate {a['rate']:.4f}: T_p {a['t_p']:.6g}, T_q {a['t_q']:.6g}; solve "
+            f"{a['solve_ms']:.2f} ms, swap {a['apply_ms']:.2f} ms (host clock)")
+    log(f"  p50/p99 at rate {decisions[-1].applied_rate:.2f} (floor): {at_floor[1]:.2f} / "
+        f"{at_floor[2]:.2f} ms over {at_floor[0]} requests; at the top rate: {at_max[1]:.2f} / "
+        f"{at_max[2]:.2f} ms over {at_max[0]} requests; launches {launches}")
+
+    # -- checks, after the counted run ------------------------------------------
+    mu_p, sd_p = stats64(params.p)
+    mu_q, sd_q = stats64(params.q)
+    worst = 0.0
+    for a in applies:
+        for got, (mu, sd) in ((a["t_p"], (mu_p, sd_p)), (a["t_q"], (mu_q, sd_q))):
+            want = float(threshold_for_rate(MatrixStats(torch.tensor(mu, dtype=torch.float32),
+                                                        torch.tensor(sd, dtype=torch.float32)),
+                                            a["rate"]))
+            worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+    users = np.random.default_rng(SEED + 31).integers(0, N_USERS, 256)
+    bitwise = True
+    for snap, a in zip(snaps, applies):
+        got = engine._run_chunked(snap, users, TOPK)
+        fresh = ServingEngine(params, np.float32(a["t_p"]), np.float32(a["t_q"]), max_batch=256)
+        want = fresh.topk(users, TOPK)
+        bitwise &= all(np.array_equal(x, y) for x, y in zip(got, want))
+        del fresh
+    kernel_ms = {}
+    pu = params.p[torch.as_tensor(users, device=dev)]
+    zero = torch.zeros(N_ITEMS, device=dev)
+    for rate in (RATE, 0.8):
+        a = min(applies, key=lambda x: abs(x["rate"] - rate))
+        r_u, r_i = effective_ranks(pu, a["t_p"]), effective_ranks(params.q, a["t_q"])
+        kernel_ms[f"rate {a['rate']:.4f}"] = time_ms(
+            lambda: pruned_topk.pruned_topk_ranked(pu, params.q, r_u, r_i, zero, TOPK), 5)
+    del pu, zero, snaps
+    log(f"  thresholds vs float64 statistics: worst relative difference {worst:.3e}; "
+        f"pruned_topk (256 users, top-{TOPK}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in kernel_ms.items()))
+    check(not clients.failures and not stuck and base_n > 0,
+          f"slo-dpmf: {len(clients.samples)} requests, none failed ({clients.failures[:3]})")
+    check(reached_max and reached_floor and "degrade" in actions and "relax" in actions,
+          f"slo-dpmf: the controller degraded to 0.8 and relaxed to the floor ({actions})")
+    check(worst <= 1e-4, f"slo-dpmf: every applied threshold within 1e-4 relative of the solve "
+                         f"on float64 statistics ({worst:.3e})")
+    check(bitwise and len(applies) >= 2,
+          f"slo-dpmf: after each of {len(applies)} applies the served top-{TOPK} equals a fresh "
+          "engine at the applied thresholds, bit for bit")
+    check(launches["pruned_topk"] > 0, f"slo-dpmf: pruned_topk launched ({launches})")
+    out.update(budget_ms=budget, baseline_p50_ms=base_p50, baseline_p99_ms=base_p99,
+               floor_rate=ctl.floor_rate, applies=applies, actions=actions,
+               floor_p50_ms=at_floor[1], floor_p99_ms=at_floor[2], max_p50_ms=at_max[1],
+               max_p99_ms=at_max[2], pruned_topk_ms=kernel_ms, threshold_rel_err=worst,
+               launches=launches, requests=len(clients.samples))
+    return out
+
+
+def fleet_local_phase(dev):
+    """fleet-local: 3 LocalReplicas at k = 128 and the full catalog, users
+    cut to FLEET_USERS, behind the affinity router; an sgd updater's
+    publisher (its defaults) subscribed to it; 32 Poisson batches of 4096
+    events without new ids (every message a delta), a publish every 4, 4
+    clients at top-10; one SLO degrade and relax rolled out through
+    router.apply_thresholds.  Checks: no failed request, every publish a
+    delta, every replica at the last version and bitwise a fresh engine on
+    the updater's state at the pinned thresholds.  Counts under
+    "fleet_local"."""
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.online import OnlineUpdater, PoissonSource, SnapshotPublisher, iter_microbatches
+    from repro_torch.serving import LatencyWindow, ServingEngine, SLOConfig, SLOController
+    from repro_torch.serving.fleet import ServingFleet
+
+    copy_gb = (FLEET_USERS + N_ITEMS) * K * 4 / 1e9
+    log(f"## fleet-local: {FLEET_REPLICAS} local replicas, {FLEET_USERS} users (cut from "
+        f"{N_USERS}) x {N_ITEMS} items x {K}; memory reckoned: {copy_gb:.2f} GB a copy, "
+        f"{FLEET_REPLICAS} replica copies + the updater's + one copy-on-write transient = "
+        f"{(FLEET_REPLICAS + 2) * copy_gb:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    params = mf.MFParams(p=decaying_factors(gen, FLEET_USERS, dev),
+                         q=decaying_factors(gen, N_ITEMS, dev), user_bias=None, item_bias=None,
+                         global_mean=None, implicit=None)
+    t_p, t_q = thresholds_from_matrices(params.p, params.q, RATE)
+    fleet = ServingFleet(params, t_p, t_q, replicas=FLEET_REPLICAS,
+                         engine_kwargs={"max_batch": 256}, queue_kwargs={"linger_ms": 1.0},
+                         router_kwargs={"policy": "affinity"})
+    upd = OnlineUpdater(params, None, t_p, t_q, optimizer="sgd", lr=ONLINE_LR, lam=LAM,
+                        batch_size=ONLINE_BATCH, seed=SEED)
+    del params
+    pub = SnapshotPublisher(None, upd)
+    pub.subscribe(fleet.router)
+    window = LatencyWindow(64)
+    ctl = SLOController(config=SLOConfig(p99_budget_ms=50.0, max_rate=0.8, tick_interval_s=0.0),
+                        window=window, depth_fn=lambda: 0, expired_fn=lambda: 0,
+                        router=fleet.router, publisher=pub, params_fn=lambda: upd.params)
+    applies = ctl.swap_timings
+    for rep in fleet.replicas:
+        for b in (1, 2, 4, 8):
+            rep.engine.topk(np.arange(b), RANKING_TOPK)
+    publishes, actions = [], []
+    clients = LoadClients(fleet.submit, FLEET_USERS, RANKING_TOPK, seed=SEED + 41)
+    source = PoissonSource(FLEET_USERS, N_ITEMS, seed=SEED + 42)
+    reset_launch_counts()
+    clients.start()
+    t_loop = time.perf_counter()
+    try:
+        for b, batch in enumerate(iter_microbatches(source, ONLINE_BATCH,
+                                                    max_events=ONLINE_BATCH * FLEET_BATCHES)):
+            upd.apply(batch)
+            if (b + 1) % PUBLISH_EVERY:
+                continue
+            before = {r["replica_id"]: r["apply_ms"] for r in fleet.stats()["replicas"]}
+            report = pub.publish()
+            after = {r["replica_id"]: r["apply_ms"] for r in fleet.stats()["replicas"]}
+            publishes.append(dict(kind=report.kind, wire_bytes=report.wire_bytes,
+                                  raw_bytes=report.wire_raw_bytes, publish_ms=report.swap_s * 1e3,
+                                  encode_ms=report.encode_s * 1e3,
+                                  apply_ms={rid: after[rid] - before[rid] for rid in after}))
+            # the SLO loop: the first tick applies the floor, then one
+            # degrade (a slow window) and one relax (a fast one)
+            if b + 1 in (8, 16, 24):
+                for _ in range(64):
+                    window.record(0.2 if b + 1 == 16 else 0.001)
+                actions.append(ctl.tick().action)
+        loop_s = time.perf_counter() - t_loop
+    finally:
+        stuck = clients.stop()
+    launches = {"pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["fleet_local"] = launches
+    stats = fleet.stats()
+    n, p50, p99 = clients.percentiles()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, pb in enumerate(publishes):
+        log(f"  publish {i + 1} ({pb['kind']}): wire {pb['wire_bytes']} B of {pb['raw_bytes']} B "
+            f"raw ({pb['wire_bytes'] / pb['raw_bytes']:.3f}); encode {pb['encode_ms']:.1f} ms; "
+            f"rolling apply " + ", ".join(f"{k} {v:.1f}" for k, v in pb["apply_ms"].items())
+            + f" ms; publish {pb['publish_ms']:.1f} ms")
+    for a in applies:
+        log(f"  SLO apply rate {a['rate']:.4f}: solve {a['solve_ms']:.2f} ms, rollout over "
+            f"{FLEET_REPLICAS} replicas {a['apply_ms']:.2f} ms")
+    log(f"  loop {loop_s:.2f} s; clients {n} requests, p50 {p50:.2f} ms, p99 {p99:.2f} ms; "
+        f"affinity hits {stats['affinity_hits']} of {stats['routed']} routed; SLO {actions}; "
+        f"launches {launches}; peak device memory {peak:.2f} GB")
+
+    users = np.random.default_rng(SEED + 43).integers(0, FLEET_USERS, 1024)
+    served_t = ctl.applied
+    fresh = ServingEngine(upd.params, np.float32(served_t[0]), np.float32(served_t[1]),
+                          max_batch=256)
+    want = fresh.topk(users, RANKING_TOPK)
+    bitwise = all(all(np.array_equal(x, y) for x, y in zip(rep.engine.topk(users, RANKING_TOPK),
+                                                            want)) for rep in fleet.replicas)
+    versions = [rep.version for rep in fleet.replicas]
+    del fresh
+    fleet.close()
+    check(not clients.failures and not stuck and n > 0,
+          f"fleet-local: {n} client requests, none failed ({clients.failures[:3]})")
+    check(len(publishes) == FLEET_BATCHES // PUBLISH_EVERY
+          and all(pb["kind"] == "delta" for pb in publishes),
+          f"fleet-local: {len(publishes)} publishes, every message a delta")
+    check(versions == [pub.version] * FLEET_REPLICAS and pub.lag() == 0,
+          f"fleet-local: every replica at the last version ({versions}, publisher {pub.version})")
+    check(bitwise, "fleet-local: every replica serves bitwise as a fresh engine on the updater's "
+                   "published state at the pinned thresholds")
+    check(actions[1:] == ["degrade", "relax"] and len(applies) == 3,
+          f"fleet-local: one SLO degrade and relax rolled out ({actions}, {len(applies)} applies)")
+    check(launches["pruned_topk"] > 0, f"fleet-local: pruned_topk launched ({launches})")
+    return dict(publishes=publishes, slo_applies=applies, p50_ms=p50, p99_ms=p99, requests=n,
+                affinity_hits=stats["affinity_hits"], routed=stats["routed"], peak_gb=peak,
+                loop_s=loop_s, launches=launches)
+
+
+def fleet_process_phase(dev):
+    """fleet-process: a ServingFleet of 2 process replicas on the card at
+    2^19 users x 2^18 items x 128, supervised and fed by a publisher as
+    launch.online builds them (``fleet.supervise(probe_interval_s=0.5)``,
+    ``SnapshotPublisher`` defaults), with clients running; a seeded
+    FaultPlan kills r0 at its Nth submit, it respawns from a healthy peer's
+    kind=full state and is readmitted; then one corrupted delivery to r1 is
+    NAKed and healed by a kind=full publish.  Full states cross raw, their
+    large leaves through files; deltas are compressed.  The codec's rate on
+    this host is measured apart.
+    Reports MTTR and the respawned child's bootstrap by part, and each
+    child's pruned_topk launches (its own counter, under
+    "fleet_process").  Checks: no dropped request; every replica serves
+    bitwise as a fault-free in-process shadow fed the same messages."""
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.distributed.compression import compress_array, decompress_array
+    from repro_torch.online import OnlineUpdater, PoissonSource, SnapshotPublisher, iter_microbatches
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.fleet import EngineDeltaSink, ServingFleet, bus
+    from repro_torch.testing import faults
+
+    log(f"## fleet-process: 2 process replicas on the card, {PROC_USERS} users x {PROC_ITEMS} "
+        f"items x {K}, a supervisor, {CLIENTS} clients at top-{RANKING_TOPK}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 50)
+    params = mf.MFParams(p=decaying_factors(gen, PROC_USERS, dev),
+                         q=decaying_factors(gen, PROC_ITEMS, dev), user_bias=None,
+                         item_bias=None, global_mean=None, implicit=None)
+    t_p, t_q = thresholds_from_matrices(params.p, params.q, RATE)
+
+    # the codec on this host, both ways, over a 32 MB slice of p
+    piece = params.p[: 1 << 16].cpu().numpy()
+    t0 = time.perf_counter()
+    blob = compress_array(piece)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = decompress_array(blob)
+    dec_s = time.perf_counter() - t0
+    codec = dict(mb=piece.nbytes / 1e6, ratio=blob.nbytes / piece.nbytes,
+                 encode_mb_s=piece.nbytes / 1e6 / enc_s, decode_mb_s=piece.nbytes / 1e6 / dec_s)
+    check(np.array_equal(back, piece), "fleet-process: the codec's round trip is bitwise")
+    del piece, back, blob
+    state_mb = (PROC_USERS + PROC_ITEMS) * K * 4 / 1e6
+    log(f"  codec on this host ({codec['mb']:.1f} MB of factors): encode "
+        f"{codec['encode_mb_s']:.1f} MB/s, decode {codec['decode_mb_s']:.1f} MB/s, ratio "
+        f"{codec['ratio']:.3f}; a {state_mb:.0f} MB full state would take "
+        f"{state_mb / codec['encode_mb_s']:.1f} s to encode")
+
+    try:
+        fleet = ServingFleet(params, t_p, t_q, replicas=2, backend="process",
+                             engine_kwargs={"device": dev.type, "max_batch": 256},
+                             queue_kwargs={"linger_ms": 1.0},
+                             router_kwargs={"policy": "affinity"},
+                             start_timeout=PROC_START_TIMEOUT)
+    except Exception as exc:  # noqa: BLE001 -- a failed check, reported at exit
+        check(False, f"fleet-process: both replicas start on the card ({exc!r})")
+        return {}
+    reps = list(fleet.replicas)
+    log(f"  boot message {fleet.boot_ms['message']:.1f} ms (raw); 2 children up in "
+        f"{fleet.boot_ms['start'] / 1e3:.1f} s; boot by part (ms): "
+        + "; ".join(f"{r.replica_id} " + ", ".join(f"{k} {v:.0f}" for k, v in r.boot.items())
+                    for r in reps))
+    router = fleet.router
+    sup = fleet.supervise(probe_interval_s=0.5)   # as launch.online --supervise
+    upd = OnlineUpdater(params, None, t_p, t_q, optimizer="sgd", lr=ONLINE_LR, lam=LAM,
+                        batch_size=ONLINE_BATCH, seed=SEED)
+    shadow = EngineDeltaSink(ServingEngine(params, t_p, t_q, max_batch=256), replica_id="shadow")
+    del params
+    pub = SnapshotPublisher(None, upd)            # as launch.online: compressed deltas
+    pub.subscribe(router)
+    pub.subscribe(shadow)   # fault-free: the bus.deliver seam is the router's
+    kill_plan = faults.FaultPlan.from_seed(SEED, sites=[("replica.submit", ["r0"], ["kill"])],
+                                           n_actions=1, horizon=64)
+    source = iter_microbatches(PoissonSource(PROC_USERS, PROC_ITEMS, seed=SEED + 51),
+                               ONLINE_BATCH)
+    clients = LoadClients(router.submit, PROC_USERS, RANKING_TOPK, seed=SEED + 52)
+    kinds = []
+
+    def step():
+        upd.apply(next(source))
+        report = pub.publish()
+        kinds.append((report.kind, round(report.swap_s * 1e3, 1),
+                      round(report.encode_s * 1e3, 1), report.wire_bytes, report.wire_raw_bytes))
+        return report
+
+    def wait_for(cond, limit):
+        deadline = time.perf_counter() + limit
+        while not cond() and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        return cond()
+
+    t_loop = time.perf_counter()
+    step()                                        # a delta to both: acks for r0 and r1
+    clients.start()
+    try:
+        with faults.installed(kill_plan):
+            died = wait_for(lambda: sup.report()["deaths"] >= 1, 60)
+            step()                                # r0 fenced: skipped, a delta
+            recovered = wait_for(lambda: sup.report()["recovered"] >= 1,
+                                 PROC_START_TIMEOUT + 60)
+        healed = step()                           # r0's ack is stale: kind=full
+        corrupt_plan = faults.FaultPlan([faults.FaultAction(site="bus.deliver", op="corrupt",
+                                                            at=0, target="r1")])
+        with faults.installed(corrupt_plan):
+            naked = step()                        # r1 NAKs the corrupted delta
+        lag_after_nak = pub.lag()
+        reheal = step()                           # kind=full heals r1
+        step()
+        time.sleep(1.0)
+        loop_s = time.perf_counter() - t_loop
+    finally:
+        stuck = clients.stop()
+        sup.stop()
+    report = sup.report()
+    per_child = {}
+    for rep in router.replicas:
+        st = rep.stats()
+        per_child[rep.replica_id] = dict(pid=st["pid"], launches=st["pruned_topk_launches"],
+                                         version=st["version"], corrupt=st["updates_corrupt"],
+                                         served=st["requests_served"])
+    launches = {"pruned_topk": sum(c["launches"] for c in per_child.values())}
+    PATH_LAUNCHES["fleet_process"] = launches
+    incident = report["incidents"][0] if report["incidents"] else {}
+    if sup.incidents and sup.incidents[0].healthy_at is not None:
+        first = sup.incidents[0]
+        incident.update(heal_and_spawn_s=first.respawned_at - first.detected_at,
+                        converge_s=first.healthy_at - first.respawned_at)
+    new_r0 = router.replicas[0]
+    n, p50, p99 = clients.percentiles()
+    users = np.random.default_rng(SEED + 53).integers(0, PROC_USERS, 512)
+    want = shadow.engine.topk(users, RANKING_TOPK)
+    shadow_state = [(key, np.asarray(val)) for key, val in shadow.state_message().tree.items()]
+    bitwise = True
+    for rep in router.replicas:
+        rows = [f.result(120) for f in [rep.submit(int(u), RANKING_TOPK, timeout=60.0)
+                                        for u in users]]
+        bitwise &= (np.array_equal(np.stack([r[0] for r in rows]), want[0])
+                    and np.array_equal(np.stack([r[1] for r in rows]), want[1]))
+    for rep in router.replicas:   # the served tables and thresholds themselves
+        served = rep.state_message()
+        bitwise &= bus.verify_message(served) and all(
+            np.array_equal(np.asarray(served.tree[key]), want_leaf)
+            for key, want_leaf in shadow_state)
+    versions = [rep.version for rep in router.replicas]
+    fleet.close()
+    shadow.engine.stop()
+    log(f"  kill plan {[(a.site, a.op, a.at, a.target) for a in kill_plan._actions]} fired "
+        f"{kill_plan.fired}; incidents {report['incidents']}; respawned r0 boot by part (ms): "
+        + ", ".join(f"{k} {v:.0f}" for k, v in new_r0.boot.items()))
+    log(f"  publishes (kind, publish ms, encode ms, wire B, raw B) {kinds}; after the corrupted delivery: acks {naked.acked}, lag "
+        f"{lag_after_nak}; heal {reheal.kind}, acks {reheal.acked}")
+    log(f"  loop {loop_s:.1f} s; clients {n} requests, p50 {p50:.2f} ms, p99 {p99:.2f} ms; "
+        f"failovers {router.failovers}; children {per_child}")
+    check(not clients.failures and not stuck and n > 0,
+          f"fleet-process: {n} client requests through the kill, none failed or dropped "
+          f"({clients.failures[:3]})")
+    check(died and recovered and report["deaths"] == 1 and report["recovered"] == 1
+          and kill_plan.pending == 0,
+          f"fleet-process: r0 killed by the seeded plan, respawned from a peer and readmitted "
+          f"(MTTR {incident.get('mttr_s')})")
+    check(healed.kind == "full", "fleet-process: the first publish after the readmission "
+                                 "heals r0's stale ack with kind=full")
+    check(naked.kind == "delta" and naked.acked["r1"] < naked.version and reheal.kind == "full"
+          and per_child["r1"]["corrupt"] == 1,
+          "fleet-process: the corrupted delivery was NAKed and healed with kind=full")
+    check(versions == [pub.version] * 2 and bitwise,
+          f"fleet-process: both replicas at the last version ({versions}), their served tables, "
+          "thresholds and top-k bitwise the fault-free shadow's")
+    check(all(c["launches"] > 0 for c in per_child.values()),
+          f"fleet-process: pruned_topk launched in each child ({per_child})")
+    return dict(codec=codec, boot_message_ms=fleet.boot_ms["message"],
+                spawn_s=fleet.boot_ms["start"] / 1e3,
+                boot_ms={r.replica_id: r.boot for r in reps}, respawn_boot_ms=new_r0.boot,
+                mttr_s=incident.get("mttr_s"), incident=incident, publishes=kinds, p50_ms=p50, p99_ms=p99,
+                requests=n, children=per_child, launches=launches, loop_s=loop_s)
+
+
+def fleet_launchers_phase(tmp):
+    """``launch.serve --replicas 2 --replica-backend process --slo-p99-ms``
+    and ``launch.online --replicas 2 --supervise --slo-p99-ms`` on the card,
+    on a small checkpoint: both must exit 0."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    path = os.path.join(tmp, "fleet_ckpt")
+    rng = np.random.default_rng(SEED + 60)
+    params = mf.params_from_numpy({"p": rng.normal(0, 0.1, (20000, 64)).astype(np.float32),
+                                   "q": rng.normal(0, 0.1, (50000, 64)).astype(np.float32)},
+                                  device="cpu")
+    t_p, t_q = thresholds_from_matrices(params.p, params.q, RATE)
+    ckpt.save(path, 1, {"params": params, "t_p": t_p.numpy(), "t_q": t_q.numpy()})
+    runs = {}
+    for name, cmd in (
+        ("serve", [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt", path, "--device",
+                   "cuda", "--replicas", "2", "--replica-backend", "process", "--concurrent",
+                   "3000", "--clients", "8", "--topk", "10", "--slo-p99-ms",
+                   str(LAUNCHER_SLO_MS)]),
+        ("online", [sys.executable, "-m", "repro_torch.launch.online", "--use-kernel", "--device",
+                    "cuda", "--scale", "0.05", "--train-epochs", "3", "--events", "2000",
+                    "--batch-events", "64", "--swap-every", "4", "--clients", "4", "--source",
+                    "poisson", "--replicas", "2", "--supervise", "--slo-p99-ms",
+                    str(LAUNCHER_SLO_MS)]),
+    ):
+        log(f"## fleet launcher: {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        text = proc.stdout
+        if name == "serve":
+            report = json.loads(text.strip().splitlines()[-1]) if proc.returncode == 0 else {}
+        else:
+            report = json.loads(text[text.index("{"):]) if "{" in text else {}
+        log(f"  exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(line for line in text.splitlines() if line.startswith(("#", "concurrent",
+                                                                                "slo:"))))
+        if proc.returncode:
+            log(proc.stderr[-3000:])
+        runs[name] = (proc.returncode, report)
+    serve_rc, serve = runs["serve"]
+    online_rc, online = runs["online"]
+    check(serve_rc == 0 and serve.get("slo_violated") is False,
+          "serve launcher with 2 process replicas and the SLO controller on the card: exit 0")
+    check(online_rc == 0 and online.get("requests_failed") == 0
+          and online.get("failures", {}).get("deaths") == 0
+          and set(online.get("replica_versions", {}).values()) == {online.get("final_version")},
+          "online launcher with a supervised fleet of 2 and the SLO controller on the card: "
+          "exit 0, no failed request, every replica at the last version")
+    return {"serve": {k: serve.get(k) for k in ("req_per_s", "p50_ms", "p99_ms",
+                                               "steady_p99_ms", "slo_violated")},
+            "online": {k: online.get(k) for k in ("requests_ok", "latency_ms_p99",
+                                                  "replica_versions", "wire_bytes_total",
+                                                  "slo_violated")}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
@@ -2308,7 +2886,11 @@ def main() -> int:
             f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
         return out
 
-    rows = phase("serving", serving_path, dev)
+    rows, served = phase("serving", serving_path, dev)
+    slo = phase("slo-dpmf", slo_path, dev, *served)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
     fused = phase("fused_mf_sgd kernel", fused_kernel_phase, dev)
     phase("small trainer", small_trainer_phase)
     train = phase("training main path", training_main_path, dev)
@@ -2324,6 +2906,9 @@ def main() -> int:
         resume = phase("store-resume", store_resume_phase, dev, tmp)
         evict = phase("evict-dpmf", evict_phase, dev, tmp)
         store_launchers = phase("store and eviction launchers", store_launchers_phase, tmp)
+        fleet_local = phase("fleet-local", fleet_local_phase, dev)
+        fleet_process = phase("fleet-process", fleet_process_phase, dev)
+        fleet_launchers = phase("fleet and SLO launchers", fleet_launchers_phase, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2358,6 +2943,10 @@ def main() -> int:
         "store_resume": resume,
         "evict": {k: v for k, v in evict.items() if k != "launches"},
         "store_launchers": {"online_eviction": store_launchers},
+        "slo": {k: v for k, v in slo.items() if k != "launches"},
+        "fleet_local": {k: v for k, v in fleet_local.items() if k != "launches"},
+        "fleet_process": {k: v for k, v in fleet_process.items() if k != "launches"},
+        "fleet_launchers": fleet_launchers,
     }
     log("# workloads " + json.dumps(workloads))
     log(f"# total {time.perf_counter() - t_start:.1f} s")

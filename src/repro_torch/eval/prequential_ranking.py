@@ -117,8 +117,9 @@ class PrequentialRankingEvaluator:
     * ``engine`` — a live :class:`~repro_torch.serving.engine.ServingEngine`;
       rankings reflect exactly what was served, including snapshot lag
       between updater and engine;
-    * ``rank_fn(users, topk) -> (scores, indices)`` — any custom path
-      (``topk_sharded`` and the fleet router wait for ROADMAP A7);
+    * ``rank_fn(users, topk) -> (scores, indices)`` — any custom path, such
+      as a serving fleet's router (submit each user, stack the rows);
+      ``topk_sharded`` waits for ROADMAP A7, multi-rank half;
     * neither — the updater's own factors ranked through the pruned
       brute-force pass (:func:`repro_torch.eval.ranking.dense_topk` at the
       updater's live thresholds).

@@ -316,11 +316,12 @@ def evaluate_engine(
     ranked through its real serving path (``engine.topk``: the
     ``pruned_topk`` kernel on CUDA, the streaming merge on the CPU).
     ``relevance`` takes a precomputed :func:`relevance_from_dataset` triple.
-    Catalog-sharded serving on a mesh is not ported yet (ROADMAP A7):
-    ``mesh`` other than None raises."""
+    Catalog-sharded serving on a mesh is not ported yet (ROADMAP A7,
+    multi-rank half): ``mesh`` other than None raises."""
     if mesh is not None:
         raise NotImplementedError(
-            "sharded serving (topk_sharded on a mesh) is not ported yet (ROADMAP A7)"
+            "sharded serving (topk_sharded on a mesh) is not ported yet "
+            "(ROADMAP A7, multi-rank half)"
         )
     users, relevant, counts = _resolve_relevance(
         ds, relevance, min_rating, max_users, engine.num_users

@@ -1,5 +1,5 @@
 """Online serving launcher of the port: train -> stream -> serve, in one
-process, on one engine.
+process.
 
     PYTHONPATH=src python -m repro_torch.launch.online --dataset movielens100k \
         --scale 0.05 --train-epochs 3 --events 500 --swap-every 3 --clients 4
@@ -28,10 +28,22 @@ report (throughput, swap latency, serving percentiles, work fraction,
 prequential MAE/RMSE, MAE before and after) goes to stdout and, with
 ``--json``, to a file.
 
-Not ported yet, and refused with an error naming the ROADMAP item rather
-than ignored: a fleet of replicas (``--replicas`` > 1, ``--supervise``,
-``--routing``, ``--replica-backend``: A7) and the SLO controller
-(``--slo-*``: A6).
+``--slo-p99-ms BUDGET`` arms the SLO-aware degradation loop
+(:mod:`repro_torch.serving.slo`): the controller ticks inside the update
+loop, adapts the pruning thresholds to hold serving p99 under the budget
+(pinning them through publishes), relaxes when the prequential drift hook
+reports quality pressure, and the run exits non-zero if the steady-state
+p99 still violates the budget.
+
+With ``--replicas N`` (N > 1) the serving side becomes a fleet
+(``repro_torch.serving.fleet``): N replica engines (``--replica-backend
+local`` in this process, ``process`` as spawned children) behind the
+cache-aware router, subscribed to the publisher's replication bus; every
+publish ships a compressed versioned delta and applies it rolling, one
+replica at a time, while the clients keep sending requests to the router.
+``--supervise`` adds a :class:`~repro_torch.serving.fleet.FleetSupervisor`
+(heartbeats, failover, respawn).  The same exit rule holds, and every
+replica must have converged to the published version.
 """
 from __future__ import annotations
 
@@ -54,29 +66,14 @@ from repro_torch.online import (
     SnapshotPublisher,
     iter_microbatches,
 )
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import LatencyWindow, ServingEngine, SLOConfig, SLOController
 from repro_torch.store import EvictionConfig, UserEvictor
 
 
-def _refuse_unported(args) -> None:
-    """The reference's options this launcher does not port yet."""
-    refused = [
-        (args.replicas > 1, "--replicas > 1", "A7"),
-        (args.supervise, "--supervise", "A7"),
-        (args.routing is not None, "--routing", "A7"),
-        (args.replica_backend is not None, "--replica-backend", "A7"),
-        (args.slo_p99_ms > 0 or args.slo_max_rate is not None, "--slo-*", "A6"),
-        (args.use_kernel and args.device == "cpu",
-         "--use-kernel with --device cpu (the kernel runs on the card)", "the card"),
-    ]
-    for given, flag, item in refused:
-        if given:
-            where = f"ROADMAP {item}" if item.startswith("A") else item
-            raise SystemExit(f"{flag} is not supported by the port's online launcher ({where})")
-
-
 def run_online(args) -> dict:
-    _refuse_unported(args)
+    if args.use_kernel and args.device == "cpu":
+        raise SystemExit("--use-kernel with --device cpu is not supported by the port's "
+                         "online launcher (the kernel runs on the card)")
     spill_tmp = None if args.ckpt or args.evict_max_users <= 0 else tempfile.mkdtemp(
         prefix="dpmf_spill_")
     try:
@@ -117,10 +114,33 @@ def _run_online(args, spill_tmp) -> dict:
         updater.attach_evictor(evictor)
         print(f"# eviction armed: max {args.evict_max_users} rows, target "
               f"{evictor.config.resolved_target()}, spill {spill_dir}")
-    engine = ServingEngine(trainer.params, trainer.t_p, trainer.t_q, device=args.device,
-                           user_history=trainer.hist, block_n=args.block_n)
+    engine_kwargs = dict(device=args.device, block_n=args.block_n)
+    fleet = supervisor = engine = None
+    if args.replicas > 1:
+        from repro_torch.serving.fleet import ServingFleet
+
+        fleet = ServingFleet(
+            trainer.params, trainer.t_p, trainer.t_q, replicas=args.replicas,
+            backend=args.replica_backend, user_history=trainer.hist,
+            engine_kwargs=engine_kwargs, queue_kwargs={"linger_ms": 1.0},
+            router_kwargs={"policy": args.routing},
+        )
+        frontend = fleet
+        print(f"# fleet: {args.replicas} {args.replica_backend} replicas on {args.device}, "
+              f"routing={args.routing}")
+        if args.supervise:
+            supervisor = fleet.supervise(
+                probe_interval_s=0.5, checkpoint=args.ckpt or None,
+                online_dir=(args.ckpt + "/online") if args.ckpt else None)
+            print("# supervisor armed: probe 0.5s, respawn on")
+    else:
+        engine = ServingEngine(trainer.params, trainer.t_p, trainer.t_q,
+                               user_history=trainer.hist, **engine_kwargs)
+        frontend = engine
     publisher = SnapshotPublisher(
         engine, updater, checkpoint_dir=(args.ckpt + "/online") if args.ckpt else None)
+    if fleet is not None:
+        publisher.subscribe(fleet.router)
 
     if args.source == "replay":
         source = ReplaySource(stream_ds, epochs=None, shuffle=True, seed=args.seed)
@@ -131,16 +151,34 @@ def _run_online(args, spill_tmp) -> dict:
             rating_min=ds.rating_min, rating_max=ds.rating_max,
         )
 
-    # warm the power-of-two buckets queue batches can land in, so the first
-    # requests in flight measure serving, not first-call set-up
-    warm_users = np.arange(min(engine.num_users, 8), dtype=np.int32)
-    for b in (1, 2, 4, 8):
-        if b <= len(warm_users):
-            engine.topk(warm_users[:b], args.topk)
-    engine.start(linger_ms=1.0)
+    queue = None
+    if engine is not None:
+        # warm the power-of-two buckets queue batches can land in, so the
+        # first requests in flight measure serving, not first-call set-up
+        warm_users = np.arange(min(engine.num_users, 8), dtype=np.int32)
+        for b in (1, 2, 4, 8):
+            if b <= len(warm_users):
+                engine.topk(warm_users[:b], args.topk)
+        queue = engine.start(linger_ms=1.0)
+
+    # ---- SLO-aware degradation loop (off unless --slo-p99-ms > 0) ---------
+    controller = None
+    if args.slo_p99_ms > 0:
+        slo_config = SLOConfig(p99_budget_ms=args.slo_p99_ms, max_rate=args.slo_max_rate)
+        if engine is not None:
+            # the queue supplies every load signal: latency, depth, expiry
+            controller = SLOController(engine, config=slo_config, queue=queue,
+                                       publisher=publisher)
+        else:
+            # the replicas own their queues: latency is observed client-side
+            controller = SLOController(config=slo_config, window=LatencyWindow(),
+                                       router=fleet.router, publisher=publisher,
+                                       params_fn=lambda: updater.params)
+        print(f"# slo: p99 budget {args.slo_p99_ms} ms, floor rate "
+              f"{controller.floor_rate:.3f}, max rate {args.slo_max_rate}")
 
     # ---- concurrent request traffic over the whole stream window ----------
-    num_users = engine.num_users
+    num_users = frontend.num_users
     stop = threading.Event()
     latencies: list = []
     failures: list = []
@@ -153,8 +191,12 @@ def _run_online(args, spill_tmp) -> dict:
             user = int(rng.integers(0, num_users))
             t0 = time.perf_counter()
             try:
-                engine.submit(user, args.topk, timeout=30.0).result(timeout=60)
+                frontend.submit(user, args.topk, timeout=30.0).result(timeout=60)
                 dt = time.perf_counter() - t0
+                if controller is not None and controller.queue is None:
+                    # fleet: the queues live in the replicas, so the
+                    # controller's window is fed client-side
+                    controller.window.record(dt)
                 with lock:
                     ok[0] += 1
                     latencies.append(dt)
@@ -170,6 +212,9 @@ def _run_online(args, spill_tmp) -> dict:
     # ---- the update loop: prequential test-then-learn ----------------------
     evaluator = PrequentialEvaluator(updater, window=args.prequential_window)
     evaluator.add_drift_hook(recalibration_hook(updater, min_events=args.prequential_window))
+    if controller is not None:
+        # quality guardrail: prequential drift makes the next tick relax
+        evaluator.add_drift_hook(controller.quality_hook())
     swaps = []
     events = 0
     work_fractions = []
@@ -182,6 +227,8 @@ def _run_online(args, spill_tmp) -> dict:
             metrics = evaluator.consume(batch)
             events += metrics["events"]
             work_fractions.append(metrics["work_fraction"])
+            if controller is not None:
+                controller.maybe_tick()
             if (b + 1) % args.swap_every == 0:
                 info = updater.maybe_recalibrate()  # no-op within the drift budget
                 if info:
@@ -201,7 +248,17 @@ def _run_online(args, spill_tmp) -> dict:
         stop.set()
         for t in threads:
             t.join(timeout=120)
-        engine.stop()
+        fleet_stats = supervisor_report = None
+        if supervisor is not None:
+            supervisor.stop()
+            supervisor_report = supervisor.report()
+        if engine is not None:
+            engine.stop()
+        else:
+            try:
+                fleet_stats = fleet.stats()
+            finally:
+                fleet.close()
     preq = evaluator.stats
     print(f"# prequential: MAE {preq.mae:.4f} (window {preq.window_mae:.4f},"
           f" ema {preq.ema_mae:.4f}) over {preq.events} events")
@@ -212,12 +269,12 @@ def _run_online(args, spill_tmp) -> dict:
     mae_after = updater.evaluate(test_ds)
     lat_ms = np.asarray(latencies) * 1e3 if latencies else np.zeros(1)
     report = {
-        "device": str(engine.device),
+        "device": str(trainer.device),
         "events": events,
         "event_rate_per_s": events / max(stream_s, 1e-9),
         "mean_work_fraction": float(np.mean(work_fractions)),
         "swaps": len(swaps),
-        "final_version": engine.version,
+        "final_version": engine.version if engine is not None else publisher.version,
         "swap_ms_p50": float(np.percentile([s.swap_s * 1e3 for s in swaps], 50)),
         "swap_ms_max": float(max(s.swap_s * 1e3 for s in swaps)),
         "requests_ok": ok[0],
@@ -239,6 +296,34 @@ def _run_online(args, spill_tmp) -> dict:
             "physical_users": int(updater.num_users),
             "external_users": int(evictor.remap.num_external),
         }
+    if controller is not None:
+        # steady state: the back half of the completions, after the
+        # controller has had the stream window to settle
+        steady = lat_ms[len(lat_ms) // 2:]
+        steady_p99 = float(np.percentile(steady, 99)) if steady.size else 0.0
+        report["slo"] = controller.report()
+        report["steady_p99_ms"] = steady_p99
+        report["slo_violated"] = bool(steady_p99 > args.slo_p99_ms)
+    if supervisor_report is not None:
+        report["failures"] = supervisor_report
+    if fleet_stats is not None:
+        # an unhealthy replica reports a stub without "version"
+        replica_versions = {r["replica_id"]: r.get("version") for r in fleet_stats["replicas"]}
+        stale = [rid for rid, v in replica_versions.items()
+                 if v is not None and v != publisher.version]
+        report.update({
+            "replicas": args.replicas,
+            "replica_backend": args.replica_backend,
+            "routing": fleet_stats["policy"],
+            "affinity_hits": fleet_stats["affinity_hits"],
+            "replica_versions": replica_versions,
+            "publisher_lag": publisher.lag(),
+            "wire_bytes_total": int(sum(s.wire_bytes for s in swaps)),
+            "wire_raw_bytes_total": int(sum(s.wire_raw_bytes for s in swaps)),
+        })
+        if stale:
+            failures.append(f"replicas did not converge to v{publisher.version}: {stale}")
+            report["requests_failed"] = len(failures)
     if failures:
         report["failure_samples"] = failures[:5]
     return report
@@ -283,21 +368,27 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write the run report to PATH")
-    # the reference's fleet and SLO options: refused (ROADMAP A7, A6)
-    parser.add_argument("--replicas", type=int, default=1, help="ROADMAP A7: refused if > 1")
-    parser.add_argument("--replica-backend", choices=("local", "process"), default=None,
-                        help="ROADMAP A7: refused")
-    parser.add_argument("--supervise", action="store_true", help="ROADMAP A7: refused")
-    parser.add_argument("--routing", choices=("affinity", "least", "random"), default=None,
-                        help="ROADMAP A7: refused")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="serve through a fleet of N replica engines on the "
+                             "replication bus (1 = one engine)")
+    parser.add_argument("--replica-backend", choices=("local", "process"), default="local",
+                        help="fleet replicas in this process or as spawned children")
+    parser.add_argument("--supervise", action="store_true",
+                        help="run a FleetSupervisor: heartbeats, failover, respawn of dead "
+                             "replicas (with --replicas > 1)")
+    parser.add_argument("--routing", choices=("affinity", "least", "random"),
+                        default="affinity", help="fleet routing policy")
     parser.add_argument("--evict-max-users", type=int, default=0,
                         help="spill + compact cold user rows past this many physical rows at "
                              "publish points (0 = unbounded, eviction off)")
     parser.add_argument("--evict-target-users", type=int, default=0,
                         help="rows left after a compaction (default: 80%% of "
                              "--evict-max-users)")
-    parser.add_argument("--slo-p99-ms", type=float, default=0.0, help="ROADMAP A6: refused")
-    parser.add_argument("--slo-max-rate", type=float, default=None, help="ROADMAP A6: refused")
+    parser.add_argument("--slo-p99-ms", type=float, default=0.0,
+                        help="enable the SLO controller with this p99 budget (ms; 0 = off); "
+                             "exit non-zero if the steady-state p99 still violates it")
+    parser.add_argument("--slo-max-rate", type=float, default=0.8,
+                        help="ceiling on the controller's effective pruning rate")
     return parser
 
 
@@ -310,6 +401,9 @@ def main(argv=None) -> None:
             json.dump(report, f, indent=2)
     if report["requests_failed"]:
         raise SystemExit(f"{report['requests_failed']} requests failed during the run")
+    if report.get("slo_violated"):
+        raise SystemExit(f"SLO violated: steady-state p99 {report['steady_p99_ms']:.2f} ms "
+                         f"> budget {args.slo_p99_ms:.2f} ms")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Online learning: streaming pruned factor updates and zero-downtime serving.
 
-Counterpart of ``repro/online`` on one engine: consume fresh ``(user, item,
+Counterpart of ``repro/online`` on one device: consume fresh ``(user, item,
 rating)`` events, apply the paper's dynamically pruned row updates to the
 touched rows only, and hot-swap versioned factor snapshots into a running
 :class:`~repro_torch.serving.engine.ServingEngine` without dropping
-requests.  The fleet's replication bus waits for ROADMAP A7.
+requests.  The publisher is also the replication bus of a serving fleet
+(``repro_torch.serving.fleet``): it ships each version to its subscribers as
+a compressed, versioned delta message.
 """
 from repro_torch.online.publisher import (  # noqa: F401
     SnapshotPublisher,

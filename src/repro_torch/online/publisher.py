@@ -1,12 +1,25 @@
-"""Versioned factor publication: updater -> serving engine, without downtime.
+"""Versioned factor publication: updater -> serving engine(s), without downtime.
 
-Counterpart of ``repro/online/publisher.py`` for one engine.
-:class:`SnapshotPublisher` drains the updater's accumulated delta
-(:meth:`OnlineUpdater.snapshot`) and pushes it into a running
-:class:`~repro_torch.serving.engine.ServingEngine` through
-:meth:`ServingEngine.swap`: batches in flight finish on the version they
-started on; the item layouts are patched for the touched rows only, or
+Counterpart of ``repro/online/publisher.py``.  :class:`SnapshotPublisher`
+drains the updater's accumulated delta (:meth:`OnlineUpdater.snapshot`) and
+pushes it into a running :class:`~repro_torch.serving.engine.ServingEngine`
+through :meth:`ServingEngine.swap`: batches in flight finish on the version
+they started on; the item layouts are patched for the touched rows only, or
 rebuilt after a recalibration or a catalog growth.
+
+The publisher is also the **replication bus** of a serving fleet
+(``serving/fleet``): :meth:`subscribe` registers any sink exposing
+``apply_update(msg) -> ack`` (a replica, or a router fanning out to many),
+and every :meth:`publish` ships one versioned
+:class:`~repro_torch.serving.fleet.bus.DeltaMessage` (touched rows only,
+losslessly compressed; ``kind=full`` after a recalibration, and then raw:
+a whole state only crosses between processes of one host, where the codec
+costs more than it saves) to each subscriber in order, waiting for each
+ack.  Acked versions are tracked per
+subscriber; one that falls behind by more than one delta is healed by the
+next publish going out ``kind=full``.  :meth:`set_serving_thresholds` pins
+the thresholds the primary engine serves with (the SLO controller's hook);
+checkpoints and wire messages keep the model's.
 
 Durability rides along as **delta checkpoints**: each publish writes only
 the touched rows (plus thresholds and bookkeeping) through the port's
@@ -21,21 +34,19 @@ With eviction armed (``OnlineUpdater.attach_evictor``) every payload carries
 the id remap (``user_remap``) and its ``remap_epoch``, the engine's swap
 receives them, and a remap-epoch bump (a compaction renumbered the physical
 user rows) forces the next payload to ``kind=full``.
-
-The fleet's replication bus (``subscribe``, the wire messages and their
-``compress`` option) waits for ROADMAP A7.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.core import mf
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.online.updater import OnlineUpdater, PublishSnapshot
 
 
@@ -44,24 +55,32 @@ class SwapReport:
     """What one :meth:`SnapshotPublisher.publish` did."""
 
     version: int
-    swap_s: float               # wall time of the swap
+    swap_s: float               # wall time of the swap and the rolling fan-out
     touched_users: int
     touched_items: int
     full_rebuild: bool
     events_seen: int
     checkpoint_step: Optional[int] = None
-    kind: str = "delta"         # checkpoint payload kind
+    kind: str = "delta"                       # wire/checkpoint payload kind
+    acked: Optional[Dict[str, int]] = None    # per-subscriber acked version
+    wire_bytes: int = 0                       # compressed message payload
+    wire_raw_bytes: int = 0                   # uncompressed equivalent
+    encode_s: float = 0.0                     # building the message (codec included)
 
 
 class SnapshotPublisher:
-    """Publish updater snapshots into one live engine, optionally
+    """Publish updater snapshots into live engines, optionally
     checkpointing.
 
-    ``checkpoint_dir`` enables async delta checkpoints (one per publish,
-    step = publish version, ``keep`` retention, a full anchor whenever the
-    chain would outgrow it).  :meth:`publish` is safe under concurrent
-    request traffic.  ``compress`` and :meth:`subscribe` belong to the
-    fleet (ROADMAP A7).
+    ``engine`` is the co-located primary (swapped directly, no
+    serialization) and may be None for a fleet-only topology where every
+    engine is a subscriber.  ``checkpoint_dir`` enables async delta
+    checkpoints (one per publish, step = publish version, ``keep``
+    retention, a full anchor whenever the chain would outgrow it).
+    ``compress`` turns the lossless byte-shuffle + DEFLATE codec on for
+    shipped deltas (``distributed/compression.py``); ``kind=full`` messages
+    ship raw.  :meth:`publish` is
+    safe under concurrent request traffic.
     """
 
     def __init__(
@@ -71,15 +90,12 @@ class SnapshotPublisher:
         *,
         checkpoint_dir: Optional[str] = None,
         keep: int = 8,
-        compress: bool = False,
+        compress: bool = True,
     ):
-        if compress:
-            raise NotImplementedError(
-                "compressed delta messages belong to the fleet's replication bus, "
-                "not ported yet (ROADMAP A7)")
         self.engine = engine
         self.updater = updater
         self.keep = keep
+        self.compress = compress
         self._ckpt = (
             ckpt_lib.AsyncCheckpointer(checkpoint_dir, keep=keep) if checkpoint_dir else None
         )
@@ -96,8 +112,16 @@ class SnapshotPublisher:
             if frontier is not None:
                 self._last_step = frontier
                 self._force_full_next = True
+        # wire versions share the checkpoint step number line, so a replica
+        # rebuilt by fold_deltas joins the live bus without translation
         self._version = self._last_step
+        self.subscribers: List = []
+        self.acked: Dict[str, int] = {}
         self.reports: list = []
+        # SLO serving-threshold pin: while set, the primary engine swaps in
+        # with these thresholds instead of the snapshot's, so a publish does
+        # not revert the controller's degradation
+        self._serving_thresholds: Optional[Tuple[float, float]] = None
 
     @property
     def version(self) -> int:
@@ -106,23 +130,61 @@ class SnapshotPublisher:
         return self._version
 
     def subscribe(self, sink, *, name: Optional[str] = None):
-        """Replication sinks belong to the fleet (ROADMAP A7)."""
-        raise NotImplementedError("the replication bus is not ported yet (ROADMAP A7)")
+        """Register a replication sink: anything exposing
+        ``apply_update(msg)`` that returns an acked version (int) or a
+        ``{replica_id: version}`` dict (a router fanning out to a fleet).
+        Sinks are shipped to in subscription order, the rolling order.  A
+        sink behind the bus (a late joiner, a fresh replica at version 0) is
+        healed by the next publish going out ``kind=full``.  Returns the
+        sink."""
+        self.subscribers.append(sink)
+        sink_name = name or getattr(sink, "replica_id", None)
+        if sink_name is not None:
+            self.acked[sink_name] = int(getattr(sink, "version", 0))
+        return sink
+
+    def set_serving_thresholds(self, t_p, t_q) -> None:
+        """Pin the thresholds the primary engine swaps in with on every
+        later :meth:`publish` (the SLO controller's hook), until
+        :meth:`clear_serving_thresholds`."""
+        self._serving_thresholds = (float(t_p), float(t_q))
+
+    def clear_serving_thresholds(self) -> None:
+        """Unpin: the next publish serves the snapshot's thresholds again."""
+        self._serving_thresholds = None
+
+    def lag(self) -> int:
+        """Worst subscriber staleness in publish versions (0 = every
+        subscriber acked the latest publish)."""
+        if not self.acked:
+            return 0
+        return self._version - min(self.acked.values())
+
+    def _record_ack(self, sink, ack) -> None:
+        if isinstance(ack, dict):
+            for rid, v in ack.items():
+                self.acked[str(rid)] = int(v)
+        else:
+            name = getattr(sink, "replica_id", None)
+            self.acked[str(name) if name is not None else f"sink{id(sink)}"] = int(ack)
 
     def publish(self) -> SwapReport:
-        """One snapshot -> swap -> (async) checkpoint cycle."""
+        """One snapshot -> swap -> rolling fan-out -> (async) checkpoint
+        cycle."""
         snap = self.updater.snapshot()
         self._version += 1
         version = self._version
         # a full payload wherever a row delta cannot describe the change
-        # (recalibration, an eviction compaction), the chain restarts, or
-        # retention would orphan the delta chain
+        # (recalibration, an eviction compaction), the chain restarts,
+        # retention would orphan the delta chain, or a subscriber is behind
+        # by more than this one delta (its gate would buffer it forever)
         full = (
             snap.full_rebuild
             or self._force_full_next
             or snap.remap_epoch != self._last_remap_epoch
             or (self._ckpt is not None
                 and version - self._last_full_step >= max(self.keep - 1, 1))
+            or any(a < version - 1 for a in self.acked.values())
         )
         self._last_remap_epoch = snap.remap_epoch
         remap_kwargs = ({} if snap.user_remap is None
@@ -130,15 +192,33 @@ class SnapshotPublisher:
 
         start = time.perf_counter()
         engine_version = None
+        pin = self._serving_thresholds
+        serve_t_p = snap.t_p if pin is None else np.float32(pin[0])
+        serve_t_q = snap.t_q if pin is None else np.float32(pin[1])
         if self.engine is not None:
             engine_version = self.engine.swap(
-                snap.params, snap.t_p, snap.t_q,
+                snap.params, serve_t_p, serve_t_q,
                 touched_users=None if snap.full_rebuild else snap.touched_users,
                 touched_items=None if snap.full_rebuild else snap.touched_items,
                 touched_implicit_items=snap.touched_implicit_items,
                 user_history=snap.user_history,
                 **remap_kwargs,
             )
+
+        msg = None
+        acked = None
+        encode_s = 0.0
+        if self.subscribers:
+            from repro_torch.serving.fleet import bus
+
+            t0 = time.perf_counter()
+            msg = bus.make_message(snap, version, version - 1, full=full,
+                                   compress=self.compress and not full)
+            encode_s = time.perf_counter() - t0
+            # rolling: one subscriber at a time, in order, each ack awaited
+            for sink in self.subscribers:
+                self._record_ack(sink, sink.apply_update(msg))
+            acked = dict(self.acked)
         swap_s = time.perf_counter() - start
 
         step = None
@@ -171,6 +251,10 @@ class SnapshotPublisher:
             events_seen=snap.events_seen,
             checkpoint_step=step,
             kind="full" if full else "delta",
+            acked=acked,
+            wire_bytes=0 if msg is None else msg.wire_bytes,
+            wire_raw_bytes=0 if msg is None else msg.raw_bytes,
+            encode_s=encode_s,
         )
         self.reports.append(report)
         return report
@@ -263,14 +347,16 @@ def apply_delta_tree(
     num_users: int,
     num_items: int,
     extras: Optional[dict] = None,
+    device: DeviceLike = None,
 ) -> Tuple[mf.MFParams, torch.Tensor, torch.Tensor, Optional[np.ndarray]]:
     """Fold one delta/full payload (flat ``{key: array}``, as on disk) into
     ``(params, t_p, t_q, history)``.  A delta is scattered **in place** into
     the tables of ``params`` (or of their grown copies): pass tables the
-    caller owns.  A full payload replaces them, on ``params``' device.
+    caller owns.  A full payload replaces them, on ``params``' device, or on
+    ``device`` when ``params`` is None (a state rebuilt from nothing).
     ``extras`` (an optional out-parameter dict) receives the eviction remap
     (``user_remap``, ``remap_epoch``) when the payload has one."""
-    dev = params.p.device
+    dev = resolve_device(device) if params is None else params.p.device
     if kind == "full":
         params = mf.params_from_flat(tree, device=dev)
     else:

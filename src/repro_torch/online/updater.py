@@ -80,8 +80,8 @@ class OnlineUpdater:
     which the tables are moved.  ``batch_size`` caps a step: event batches
     split into power-of-two chunks (:meth:`_chunk_sizes`), which is part of
     the arithmetic, so the chunking is the reference's.  ``pruning_rate``
-    enables :meth:`maybe_recalibrate`.  ``mesh`` (sharded updates) waits for
-    ROADMAP A7.
+    enables :meth:`maybe_recalibrate`.  ``mesh`` (sharded updates) and
+    gradient compression wait for ROADMAP A7, multi-rank half.
     """
 
     def __init__(
@@ -107,7 +107,7 @@ class OnlineUpdater:
         if mesh is not None or grad_compression != "none":
             raise NotImplementedError(
                 "mesh-backed online updates and gradient compression are not "
-                "ported yet (ROADMAP A7)")
+                "ported yet (ROADMAP A7, multi-rank half)")
         self.device = resolve_device(device)
         self.opt = optimizer if isinstance(optimizer, RowOptimizer) else RowOptimizer(name=optimizer)
         self.params = mf.MFParams(*(None if v is None else v.to(self.device) for v in params))

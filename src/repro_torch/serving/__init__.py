@@ -14,3 +14,8 @@ from repro_torch.serving.queue import (  # noqa: F401
     RequestQueue,
     RequestTimeout,
 )
+from repro_torch.serving.slo import (  # noqa: F401
+    SLOConfig,
+    SLOController,
+    SLODecision,
+)

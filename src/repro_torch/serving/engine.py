@@ -2,7 +2,7 @@
 device.
 
 Counterpart of ``repro/serving/engine.py`` on one device (catalog sharding,
-``topk_sharded``, waits for ROADMAP A7).  The engine:
+``topk_sharded``, waits for ROADMAP A7, multi-rank half).  The engine:
 
 * **loads once, serves many**: per-item effective ranks ``r_i``, item biases
   and per-user constants are computed at load, the scoring layouts on first

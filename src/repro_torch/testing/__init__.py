@@ -9,6 +9,7 @@ from repro_torch.testing.faults import (  # noqa: F401
     FaultAction,
     FaultError,
     FaultPlan,
+    corrupt_message,
     delay_s,
     fire,
     install,

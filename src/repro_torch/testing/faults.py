@@ -21,13 +21,12 @@ numpy PCG64 values.
 
 Seams in this package (grep for ``faults.fire``):
 
+* ``"replica.submit"`` (target = replica id): ops ``kill``;
+* ``"bus.deliver"`` (target = replica id): ops ``drop``, ``dup``,
+  ``corrupt`` (through :func:`corrupt_message`), ``delay``;
 * ``"checkpoint.fsync"``: ops ``error`` (the save aborts before publishing);
 * ``"trainer.slab"``: ops ``error`` (a retryable step failure, raised before
   the slab's first write).
-
-The fleet's seams (``"replica.submit"``, ``"bus.deliver"``) and the
-reference's ``corrupt_message`` (a bit flip in a wire message) belong to
-the replication bus and are not here: they wait for ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -160,6 +159,30 @@ def fire(site: str, target: str = "") -> Sequence[FaultAction]:
     if plan is None:
         return ()
     return plan.fire(site, target)
+
+
+def corrupt_message(msg):
+    """Flip one byte of a :class:`~repro_torch.serving.fleet.bus.DeltaMessage`
+    payload without fixing its checksum: what a corrupted wire delivery looks
+    like to the sink.  The byte is the reference's: the middle byte of the
+    largest payload array (its compressed blob, or its raw bytes), so one
+    fault plan corrupts the same delivery in both packages."""
+    from repro_torch.distributed.compression import CompressedArray
+
+    tree = dict(msg.tree)
+    key = max(tree, key=lambda k: tree[k].nbytes if isinstance(tree[k], CompressedArray)
+              else int(np.asarray(tree[k]).nbytes))
+    val = tree[key]
+    if isinstance(val, CompressedArray):
+        blob = bytearray(val.data)
+        blob[len(blob) // 2] ^= 0xFF
+        tree[key] = dataclasses.replace(val, data=bytes(blob))
+    else:
+        arr = np.array(val, copy=True)
+        flat = arr.view(np.uint8).reshape(-1)
+        flat[len(flat) // 2] ^= 0xFF
+        tree[key] = arr
+    return dataclasses.replace(msg, tree=tree)
 
 
 def delay_s(actions: Sequence[FaultAction]) -> float:

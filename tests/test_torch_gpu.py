@@ -784,3 +784,126 @@ def test_evictor_on_cuda_matches_cpu(cuda, tmp_path):
     for name in ("p", "user_bias"):
         assert torch.equal(getattr(g.params, name).cpu(), getattr(c.params, name))
     assert torch.equal(g.opt_state.p["acc"].cpu(), c.opt_state.p["acc"])
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet and the SLO controller on the card
+# ---------------------------------------------------------------------------
+
+
+def _fleet_params(dev, m, n, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return mf.MFParams(p=torch.randn((m, k), generator=g, device=dev).mul_(0.1),
+                       q=torch.randn((n, k), generator=g, device=dev).mul_(0.1),
+                       user_bias=None, item_bias=None, global_mean=None, implicit=None)
+
+
+def _event_batch(rng, m, n, size=512):
+    from repro_torch.online import EventBatch
+
+    return EventBatch(user=rng.integers(0, m, size).astype(np.int32),
+                      item=rng.integers(0, n, size).astype(np.int32),
+                      rating=rng.uniform(1, 5, size).astype(np.float32))
+
+
+def test_process_replica_serves_on_cuda_and_counts_its_launches(cuda):
+    """A spawned replica opens its own CUDA context, loads the built kernel
+    and answers bitwise as an engine in this process; a replicated delta
+    lands bitwise too."""
+    from repro_torch.online import OnlineUpdater
+    from repro_torch.serving.fleet import ProcessReplica, make_message, state_message
+
+    m, n, k = 4096, 50000, 128
+    params = _fleet_params(cuda, m, n, k, 1)
+    t_p = t_q = 0.05
+    rep = ProcessReplica("gpu", init_msg=state_message(params, t_p, t_q),
+                         engine_kwargs={"device": "cuda"}, start_timeout=120.0)
+    try:
+        assert rep.boot["cuda_context_ms"] > 0 and rep.boot["kernel_load_ms"] >= 0
+        upd = OnlineUpdater(params, None, t_p, t_q, optimizer="sgd", lr=0.01, device=cuda)
+        upd.apply(_event_batch(np.random.default_rng(1), m, n))
+        assert rep.apply_update(make_message(upd.snapshot(), 1, 0, full=False)) == 1
+        want = ServingEngine(upd.params, upd.t_p, upd.t_q).topk(np.arange(64), 10)
+        rows = [rep.submit(u, 10, timeout=60.0).result(60) for u in range(64)]
+        np.testing.assert_array_equal(np.stack([r[0] for r in rows]), want[0])
+        np.testing.assert_array_equal(np.stack([r[1] for r in rows]), want[1])
+        stats = rep.stats()
+        assert stats["version"] == 1 and stats["pruned_topk_launches"] >= 1
+    finally:
+        rep.close()
+
+
+def test_local_fleet_under_load_on_cuda_converges_bitwise(cuda):
+    import threading
+
+    from repro_torch.online import OnlineUpdater, SnapshotPublisher
+    from repro_torch.serving.fleet import ServingFleet
+
+    m, n, k = 20000, 100000, 128
+    params = _fleet_params(cuda, m, n, k, 2)
+    upd = OnlineUpdater(params, None, 0.05, 0.05, optimizer="sgd", lr=0.01, device=cuda)
+    fleet = ServingFleet(params, 0.05, 0.05, replicas=3, queue_kwargs={"linger_ms": 0.5})
+    pub = SnapshotPublisher(None, upd)
+    pub.subscribe(fleet.router)
+    failures, done, stop = [], [0], threading.Event()
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            try:
+                fleet.submit(int(rng.integers(0, m)), 10, timeout=30.0).result(60)
+                done[0] += 1
+            except Exception as exc:  # noqa: BLE001
+                failures.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(4)]
+    for t in threads:
+        t.start()
+    rng = np.random.default_rng(2)
+    try:
+        for _ in range(4):
+            upd.apply(_event_batch(rng, m, n))
+            assert pub.publish().kind == "delta"
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    try:
+        assert not failures and done[0] > 0
+        want = ServingEngine(upd.params, upd.t_p, upd.t_q).topk(np.arange(256), 10)
+        for rep in fleet.replicas:
+            assert rep.version == 4
+            got = rep.engine.topk(np.arange(256), 10)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+    finally:
+        fleet.close()
+
+
+def test_slo_apply_on_cuda_serves_as_a_fresh_engine(cuda):
+    """An SLO degrade at 200k x 100k x 128: thresholds within 1e-4 relative
+    of a float64 solve's statistics, the engine bitwise a fresh engine at
+    the applied thresholds."""
+    from repro_torch.core.threshold import threshold_for_rate
+    from repro_torch.core.threshold import MatrixStats
+    from repro_torch.serving import LatencyWindow, SLOConfig, SLOController
+
+    params = _fleet_params(cuda, 200000, 100000, 128, 3)
+    engine = ServingEngine(params, 0.0, 0.0)
+    window = LatencyWindow(64)
+    for _ in range(32):
+        window.record(0.5)
+    ctl = SLOController(engine, config=SLOConfig(p99_budget_ms=50.0, min_window=8,
+                                                 tick_interval_s=0.0),
+                        window=window, depth_fn=lambda: 0, expired_fn=lambda: 0)
+    d = ctl.tick()
+    assert d.action == "degrade" and d.swapped
+    for name, table, t in (("p", params.p, d.t_p), ("q", params.q, d.t_q)):
+        x = table.double()
+        stats = MatrixStats(mu=x.mean().float(), sigma=x.std(correction=0).float())
+        want = float(threshold_for_rate(stats, d.applied_rate))
+        assert t == pytest.approx(want, rel=1e-4), name
+    fresh = ServingEngine(params, np.float32(d.t_p), np.float32(d.t_q))
+    users = np.arange(512)
+    for got, want in zip(engine.topk(users, 100), fresh.topk(users, 100)):
+        np.testing.assert_array_equal(got, want)
