@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives its serving, swap, SLO,
 training, ranking-evaluation, implicit and BPR, online freshness,
-out-of-core (ratings store, streamed training, eviction) and serving-fleet
-paths on one card.
+out-of-core (ratings store, streamed training, eviction), serving-fleet
+and multi-rank paths on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
 Imports nothing of JAX or of the ``repro`` package.  In one process (the
-fleet-process phase spawns replica children and the launcher phases run
-subprocesses; every one is stopped before the script exits) it:
+fleet-process phase spawns replica children, the multirank phase 4 ranks,
+and the launcher phases run subprocesses; every one is stopped before the
+script exits) it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
@@ -131,10 +132,23 @@ subprocesses; every one is stopped before the script exits) it:
    corrupted delivery NAKed and healed; both children's served state and
    top-k bitwise a fault-free shadow's (each child's own counts under
    ``fleet_process``);
-19. runs ``launch.serve --replicas 2 --replica-backend process
+19. multirank-dpmf: 4 ranks spawned on the card (``RankPool``, gloo over
+   CUDA tensors), a (2, 2) ("data", "model") mesh, dpmf's width and
+   catalog with the users cut to 2^22 and adagrad: at 2^16 x 2^15 the
+   sharded step against the single-device ``train_step`` (within 2e-8 +
+   1e-6 relative), the sharded updater against the single-device one
+   (2e-7) and a (2, 2) checkpoint ``elastic_load``-ed onto (1, 4)
+   (bitwise); then two sharded steps of 2^20 ratings in each of none, int8
+   and int8_ef, the last timed by part with the bytes of each collective,
+   every block's replicas bitwise equal; ``topk_sharded`` (top-100, 256
+   users) and ``evaluate_engine(mesh=)`` over 512 users, ``pruned_topk``
+   counted on every rank (under ``multirank``), held against rank 0's
+   ``engine.topk`` and each rank's kernel against the plain version on a
+   slice of its slab; ``OnlineUpdater(mesh=)`` with new ids;
+20. runs ``launch.serve --replicas 2 --replica-backend process
    --slo-p99-ms`` and ``launch.online --replicas 2 --supervise
    --slo-p99-ms`` on a small checkpoint (exit 0);
-20. prints a ``kernels`` JSON line (``launches`` summed over the counted
+21. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
 The store, checkpoint and spill files live in one temporary directory,
@@ -224,6 +238,14 @@ FLEET_USERS, FLEET_REPLICAS, FLEET_BATCHES = 10_000_000, 3, 32
 # fleet-process: 2 spawned replicas, each with its own CUDA context
 PROC_USERS, PROC_ITEMS, PROC_START_TIMEOUT = 1 << 19, 1 << 18, 180.0
 LAUNCHER_SLO_MS = 250.0
+# multirank-dpmf: 4 ranks on the card, a (2, 2) mesh; the users cut to 2^22 so
+# that the four ranks' adagrad tables (29.2 GB summed), int8_ef residuals
+# (14.4 GB) and step transients at B = 2^20 (4.6 GB a rank) fit beside five
+# CUDA contexts; at 2^23 the int8_ef steps ran out of memory
+MR_SHAPE, MR_NAMES = (2, 2), ("data", "model")
+MR_USERS, MR_BATCH, MR_STEPS = 1 << 22, 1 << 20, 2
+MR_SMALL = (1 << 16, 1 << 15)
+MR_ONLINE = (1 << 21, 1 << 22)
 
 failures: list = []
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches in that path's counted run}
@@ -2843,6 +2865,459 @@ def fleet_launchers_phase(tmp):
                                                   "slo_violated")}}
 
 
+# ---------------------------------------------------------------------------
+# multirank-dpmf: 4 ranks on the one card, gloo over CUDA tensors
+# ---------------------------------------------------------------------------
+
+
+def _mr_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mr_peak_gb(dev, reset=False):
+    """This rank's peak device memory (0 on the CPU, where the phase is
+    rehearsed at a tiny size)."""
+    if dev.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _mr_factors(seed, rows, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return decaying_factors(gen, rows, dev)
+
+
+MR_CHUNK = 1 << 22
+
+
+def _mr_rows(seed, rows, lo, hi, dev):
+    """Rows [lo, hi) of a ``rows``-row table drawn in chunks of up to
+    MR_CHUNK rows, each from its own seed, so a rank's block is the same
+    rows as in the whole table and no more than one chunk is drawn beside
+    the result."""
+    size = min(MR_CHUNK, rows)
+    out = torch.empty((hi - lo, K), device=dev)
+    for c in range(lo // size, -(-hi // size)):
+        a, b = max(lo, c * size), min(hi, (c + 1) * size)
+        chunk = _mr_factors(seed * 100_003 + c, size, dev)
+        out[a - lo:b - lo] = chunk[a - c * size:b - c * size]
+        del chunk
+    return out
+
+
+def _mr_full(m, n, seed, dev):
+    """The full (m, K) and (n, K) tables of ``seed``."""
+    return _mr_rows(seed, m, 0, m, dev), _mr_rows(seed + 1, n, 0, n, dev)
+
+
+def _mr_blocks(m, n, seed, mesh, dev):
+    """This rank's blocks of :func:`_mr_full`'s tables."""
+    from repro_torch.distributed import sharding, spmd
+
+    dp = sharding.data_axes(mesh)
+    m_loc, n_loc = m // spmd.axis_size(mesh, dp), n // spmd.axis_size(mesh, "model")
+    d, j = spmd.axis_index(mesh, dp), spmd.axis_index(mesh, "model")
+    return (_mr_rows(seed, m, d * m_loc, (d + 1) * m_loc, dev),
+            _mr_rows(seed + 1, n, j * n_loc, (j + 1) * n_loc, dev))
+
+
+def _mr_batch(rng, count, m, n, n_dp):
+    """``count`` ratings under the ownership contract: data shard s's
+    contiguous chunk holds users of its own rows; items ~ 1/(i + 10^4)."""
+    m_loc = m // n_dp
+    users = np.concatenate([rng.integers(s * m_loc, (s + 1) * m_loc, count // n_dp)
+                            for s in range(n_dp)]).astype(np.int32)
+    ds = dpmf_ratings(rng, count, num_users=m, num_items=n)
+    return {"user": users, "item": ds.item, "rating": ds.rating}
+
+
+def _mr_thresholds(dev, rows=1 << 20):
+    """T for rate 0.3 from a ``rows``-row sample of the factors'
+    distribution (the same on every rank)."""
+    from repro_torch.core.threshold import thresholds_from_matrices
+
+    sample = _mr_factors(SEED + 79, rows, dev)
+    return thresholds_from_matrices(sample, sample, RATE)
+
+
+def _mr_digests(params, mesh):
+    """(data index, model index, digest of p's block, digest of q's block):
+    replicas of a block must hold the same bits.  A digest is an exact
+    integer checksum of the block's bits, position-weighted, taken on the
+    card chunk by chunk."""
+    from repro_torch.distributed import sharding, spmd
+
+    def digest(t):
+        bits = t.contiguous().view(torch.int32).reshape(-1)
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        step = 1 << 26
+        for lo in range(0, bits.numel(), step):
+            piece = bits[lo:lo + step].to(torch.int64)
+            weight = torch.arange(lo, lo + piece.numel(), device=t.device) % 65_521 + 1
+            total += (piece * weight).sum()
+        return int(total)
+
+    return (spmd.axis_index(mesh, sharding.data_axes(mesh)), spmd.axis_index(mesh, "model"),
+            digest(params.p), digest(params.q))
+
+
+def _mr_finite(*tables) -> bool:
+    """Every entry finite, read 2^22 rows at a time (a table may fill most
+    of the card)."""
+    return all(bool(torch.isfinite(piece).all()) for t in tables for piece in t.split(MR_CHUNK))
+
+
+def _mr_replicas_agree(digests) -> bool:
+    by_data, by_model = {}, {}
+    for d, m, p_digest, q_digest in digests:
+        by_data.setdefault(d, set()).add(p_digest)
+        by_model.setdefault(m, set()).add(q_digest)
+    return all(len(v) == 1 for v in (*by_data.values(), *by_model.values()))
+
+
+def _mr_small(ctx, tmp, sizes):
+    """At ``sizes`` (users, items) on the (2, 2) mesh: the sharded step against the
+    single-device train_step (sgd and adagrad, T = 0 and rate 0.3), the
+    sharded updater against the single-device updater, and a (2, 2)
+    checkpoint restored by elastic_load onto (1, 4), bitwise."""
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.distributed import sharding
+    from repro_torch.online import EventBatch, OnlineUpdater
+    from repro_torch.optim.optimizers import RowOptimizer
+
+    dev = torch.device(ctx.device)
+    mesh = ctx.mesh(MR_SHAPE, MR_NAMES)
+    m, n = sizes
+    p, q = _mr_full(m, n, SEED + 71, dev)
+    t_p, t_q = thresholds_from_matrices(p, q, RATE)
+    out = {}
+    rows = min(1 << 14, m)
+    batch = _mr_batch(np.random.default_rng(SEED + 72), rows, m, n, 2)
+    batch["weight"] = np.random.default_rng(SEED + 73).uniform(0.3, 1.0, rows).astype(np.float32)
+    for opt_name in ("sgd", "adagrad"):
+        opt = RowOptimizer(name=opt_name)
+        for label, tp, tq in (("T=0", 0.0, 0.0), (f"rate {RATE}", t_p, t_q)):
+            single = mf.MFParams(p.clone(), q.clone(), None, None, None, None)
+            s_state = mf.init_opt_state(single, opt)
+            tree = sharding.shard_tree({"params": single, "opt_state": s_state}, mesh)
+            tb = {key: torch.as_tensor(value).to(dev) for key, value in batch.items()}
+            tb["user"], tb["item"] = tb["user"].long(), tb["item"].long()
+            mf.train_step(single, s_state, tb, torch.as_tensor(tp, device=dev),
+                          torch.as_tensor(tq, device=dev), LR, torch.ones(K, device=dev),
+                          opt=opt, lam=LAM)
+            blk, b_state, _ = mf.train_step_shard_map(
+                tree["params"], tree["opt_state"], batch, tp, tq, lr=LR, lam=LAM,
+                opt_name=opt_name, mesh=mesh)
+            full = sharding.assemble_tree({"params": blk, "opt_state": b_state}, mesh)
+            pairs = [(full["params"].p, single.p), (full["params"].q, single.q)]
+            if opt_name == "adagrad":
+                pairs += [(full["opt_state"].p["acc"], s_state.p["acc"]),
+                          (full["opt_state"].q["acc"], s_state.q["acc"])]
+            # (max abs err, max of err - 1e-6 |want|): the single-device
+            # step's atomics add repeated rows in any order
+            out[f"step {opt_name} {label}"] = (
+                max(float((g - w).abs().max()) for g, w in pairs),
+                max(float(((g - w).abs() - 1e-6 * w.abs()).max()) for g, w in pairs))
+            out[f"digest {opt_name} {label}"] = _mr_digests(blk, mesh)
+    # the sharded updater against the single-device one (adagrad, 3 batches)
+    rng = np.random.default_rng(SEED + 74)
+    base = mf.MFParams(p, q, None, None, None, None)
+    single = OnlineUpdater(base, None, t_p, t_q, optimizer="adagrad", lr=0.03, lam=LAM,
+                           batch_size=4096, seed=SEED, device=dev)
+    sharded = OnlineUpdater(base, None, t_p, t_q, optimizer="adagrad", lr=0.03, lam=LAM,
+                            batch_size=4096, seed=SEED, device=dev, mesh=mesh)
+    errs = []
+    for _ in range(3):
+        ev = dpmf_ratings(rng, rows // 4, num_users=m, num_items=n)
+        events = EventBatch(user=ev.user, item=ev.item, rating=ev.rating,
+                            weight=rng.uniform(0.25, 1.0, rows // 4).astype(np.float32))
+        single.apply(events)
+        sharded.apply(events)
+        got, _ = sharded._assembled(with_state=False)
+        errs.append(max(float((got.p - single.params.p).abs().max()),
+                        float((got.q - single.params.q).abs().max())))
+    out["updater"] = max(errs)
+    # elastic restore: a (2, 2) checkpoint onto (1, 4)
+    tree = sharding.assemble_tree({"params": sharded.params, "opt_state": sharded.opt_state},
+                                  mesh)
+    written = {key: value for key, value in checkpoint.flatten_with_paths(tree)}
+    if ctx.rank == 0:
+        checkpoint.save(tmp, 1, tree)
+    torch.distributed.barrier()
+    wide = ctx.mesh((1, 4), MR_NAMES)
+    blocks, _ = checkpoint.elastic_load(tmp, tree, lambda t: sharding.shard_tree(t, wide, device=dev))
+    back = dict(checkpoint.flatten_with_paths(sharding.assemble_tree(blocks, wide)))
+    out["restore bitwise"] = set(back) == set(written) and all(
+        np.array_equal(back[key], value) for key, value in written.items())
+    out["restore q block rows"] = int(blocks["params"].q.shape[0])
+    return out
+
+
+def _mr_train(ctx, mode, steps, m, n, batch_rows):
+    """``steps`` sharded steps of ``batch_rows`` ratings in ``mode`` on this
+    rank's blocks of (m, n) tables (made on the first call), adagrad at
+    rate 0.3: the last step measured,
+    collectives by name (bytes this rank sent, host ms with the card
+    synchronised around each) and the step's host ms."""
+    from repro_torch.core import mf
+    from repro_torch.distributed import sharding, spmd
+
+    dev = torch.device(ctx.device)
+    mesh = ctx.mesh(MR_SHAPE, MR_NAMES)
+    st = ctx.state
+    if "params" not in st:
+        _mr_peak_gb(dev, reset=True)
+        p, q = _mr_blocks(m, n, SEED + 70, mesh, dev)
+        st["params"] = mf.MFParams(p, q, None, None, None, None)
+        st["state"] = mf.MFOptState(p={"acc": torch.zeros_like(p)}, q={"acc": torch.zeros_like(q)},
+                                    user_bias=None, item_bias=None, implicit=None)
+        st["t"] = _mr_thresholds(dev, min(1 << 20, m))
+    if mode == "int8_ef":
+        st["state"] = mf.init_error_feedback_state(st["params"], st["state"], mesh)
+    n_dp = spmd.axis_size(mesh, sharding.data_axes(mesh))
+    log = spmd.CollectiveLog()
+    for step in range(steps):
+        batch = _mr_batch(np.random.default_rng(SEED + 75 + step), batch_rows, m, n, n_dp)
+        batch = {key: torch.as_tensor(value).to(dev) for key, value in batch.items()}
+        measured = step == steps - 1
+        _mr_sync(dev)
+        t0 = time.perf_counter()
+        with spmd.recording(log if measured else spmd.CollectiveLog()):
+            _, _, metrics = mf.train_step_shard_map(
+                st["params"], st["state"], batch, *st["t"], lr=LR, lam=LAM, opt_name="adagrad",
+                grad_compression=mode, mesh=mesh)
+            abs_err = float(metrics["abs_err"])
+        _mr_sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    digests = _mr_digests(st["params"], mesh)
+    if mode == "int8_ef":
+        for side in (st["state"].p, st["state"].q):
+            for key in ("ef_psum", "ef_gather"):
+                side.pop(key, None)
+    coll_ms = sum(log.ms.values())
+    return dict(step_ms=step_ms, local_ms=step_ms - coll_ms, collective_ms=dict(log.ms),
+                digests=digests,
+                collective_bytes=dict(log.bytes_sent), calls=dict(log.calls), abs_err=abs_err,
+                finite=_mr_finite(st["params"].p, st["params"].q),
+                peak_gb=_mr_peak_gb(dev))
+
+
+def _mr_release(ctx):
+    ctx.state.clear()
+    gc.collect()
+    if torch.device(ctx.device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _mr_serve(ctx, users, m, n, slab_rows):
+    """The served model at (m, n) x 128 (rate 0.3) behind one engine
+    per rank: the counted run (topk_sharded at top-100 for the users, then
+    evaluate_engine(mesh=) over 512 users), then, uncounted, rank 0's local
+    engine.topk and each rank's kernel against the plain version on a
+    slice of its slab."""
+    from repro_torch.core import mf
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.eval import ranking
+    from repro_torch.kernels import pruned_topk
+    from repro_torch.serving import ServingEngine
+
+    dev = torch.device(ctx.device)
+    mesh = ctx.mesh(MR_SHAPE, MR_NAMES)
+    _mr_peak_gb(dev, reset=True)
+    p, q = _mr_full(m, n, SEED + 80, dev)
+    t_p, t_q = thresholds_from_matrices(p, q, RATE)
+    engine = ServingEngine(mf.MFParams(p, q, None, None, None, None), t_p, t_q, device=dev,
+                           max_batch=TOPK_USERS)
+    del p, q
+    engine._snap.kernel_shard_slab(mesh)   # the slab, built before the counted run
+    rng = np.random.default_rng(SEED + 81)
+    rel_users = np.arange(2 * TOPK_USERS, dtype=np.int64)
+    relevant = np.where(rng.random((len(rel_users), 20)) < 0.5,
+                        rng.integers(0, 200, (len(rel_users), 20)),
+                        rng.integers(0, n, (len(rel_users), 20))).astype(np.int32)
+    relevant.sort(axis=1)
+    counts = np.full(len(rel_users), 20, np.int32)
+    _mr_sync(dev)
+    pruned_topk.launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got_s, got_i = engine.topk_sharded(users, TOPK, mesh=mesh)
+        times.append((time.perf_counter() - t0) * 1e3)
+    report = ranking.evaluate_engine(engine, None, RANKING_TOPK, mesh=mesh,
+                                     relevance=(rel_users, relevant, counts))
+    launches = pruned_topk.launches
+    out = dict(launches=launches, sharded_ms=times, report=report)
+    if ctx.rank == 0:
+        local = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want_s, want_i = engine.topk(users, TOPK)
+            local.append((time.perf_counter() - t0) * 1e3)
+        out.update(local_ms=local, got=(got_s, got_i), want=(want_s, want_i),
+                   local_report=ranking.evaluate_engine(engine, None, RANKING_TOPK,
+                                                        relevance=(rel_users, relevant, counts)))
+    # this rank's kernel against the plain version on a slice of its slab
+    q_slab, r_slab, b_slab, n_loc = engine._snap.kernel_shard_slab(mesh)
+    rows = slice(0, slab_rows)
+    pu = engine.params.p[torch.as_tensor(users, device=dev)].contiguous()
+    r_u = effective_ranks(pu, engine.t_p)
+    ks, ki = pruned_topk.pruned_topk_ranked(pu, q_slab[rows].contiguous(), r_u,
+                                            r_slab[rows].contiguous(), b_slab[rows].contiguous(),
+                                            TOPK)
+    ps, pi = pruned_topk.pruned_topk_plain(pu, q_slab[rows], r_u, r_slab[rows], b_slab[rows],
+                                           TOPK, block_n=PLAIN_BLOCK_N)
+    near = (ks - ps).abs() <= ATOL + RTOL * ps.abs()
+    out["slab"] = dict(n_loc=n_loc, err=float((ks - ps).abs().max()), near=bool(near.all()),
+                       ids_outside_ties=bool(((ki == pi) | near).all()))
+    out["peak_gb"] = _mr_peak_gb(dev)
+    del engine
+    _mr_release(ctx)
+    return out
+
+
+def _mr_online(ctx, m, n, batch_rows):
+    """OnlineUpdater(mesh=) at (m, n) x 128, adagrad: 3 batches of
+    ``batch_rows`` events within the tables, then one naming new users and items (growth
+    to the mesh multiples: assemble, grow, re-shard); per batch host ms."""
+    from repro_torch.core import mf
+    from repro_torch.online import EventBatch, OnlineUpdater
+
+    dev = torch.device(ctx.device)
+    mesh = ctx.mesh(MR_SHAPE, MR_NAMES)
+    p, q = _mr_full(m, n, SEED + 90, dev)
+    t_p, t_q = _mr_thresholds(dev, min(1 << 20, m))
+    upd = OnlineUpdater(mf.MFParams(p, q, None, None, None, None), None, t_p, t_q,
+                        optimizer="adagrad", lr=ONLINE_LR, lam=LAM, batch_size=batch_rows,
+                        seed=SEED, device=dev, mesh=mesh)
+    del p, q
+    rng = np.random.default_rng(SEED + 91)
+    ms = []
+    for b in range(4):
+        ev = dpmf_ratings(rng, batch_rows, num_users=m, num_items=n)
+        users, items = ev.user.copy(), ev.item.copy()
+        if b == 3:
+            users[:8] = m + np.arange(8)
+            items[:8] = n + np.arange(8)
+        _mr_sync(dev)
+        t0 = time.perf_counter()
+        upd.apply(EventBatch(user=users, item=items, rating=ev.rating))
+        _mr_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    finite = _mr_finite(upd.params.p, upd.params.q)
+    return dict(batch_ms=ms, num_users=upd.num_users, num_items=upd.num_items, finite=finite,
+                block_rows=(int(upd.params.p.shape[0]), int(upd.params.q.shape[0])),
+                mean_abs_err=upd.mean_abs_err)
+
+
+def multirank_phase(dev, tmp, sizes=None):
+    """multirank-dpmf: 4 ranks spawned on the one card, a (2, 2) ("data",
+    "model") mesh, gloo over CUDA tensors (NCCL refuses two ranks on one
+    device), dpmf at full width (k = 128, 10M items) with its own
+    optimizer, adagrad, and the users cut to MR_USERS so that the four
+    ranks' tables fit the card.  Checks at MR_SMALL first (step, updater,
+    restore), then the sharded step at B = 2^20 in each gradient mode, the
+    served model (topk_sharded at top-100 for 256 users, evaluate_engine
+    over 512 users; pruned_topk counted under "multirank", on every rank),
+    and OnlineUpdater(mesh=) with new ids.  ``sizes`` overrides the sizes
+    (a rehearsal on the CPU passes tiny ones)."""
+    from repro_torch.testing.ranks import RankPool
+
+    sz = dict(small=MR_SMALL, users=MR_USERS, items=N_ITEMS, batch=MR_BATCH, topk_users=TOPK_USERS,
+              slab_rows=1 << 18, online=MR_ONLINE, online_batch=ONLINE_BATCH)
+    sz.update(sizes or {})
+
+    log(f"## multirank-dpmf: 4 ranks on the card, mesh {MR_SHAPE} {MR_NAMES}, gloo over CUDA "
+        f"tensors; {sz['users']} users x {sz['items']} items x {K}, adagrad, batch {sz['batch']}")
+    t0 = time.perf_counter()
+    out = {}
+    with RankPool(4, backend="gloo", device=dev.type, timeout_s=120.0) as pool:
+        out["spawn_s"] = time.perf_counter() - t0
+        small = pool.run(_mr_small, os.path.join(tmp, "multirank_ckpt"), sz["small"])
+        for key in small[0]:
+            if key.startswith("step"):
+                err = max(r[key][0] for r in small)
+                excess = max(r[key][1] for r in small)
+                check(excess <= 2e-8, f"multirank-dpmf: sharded step {key[5:]} at {sz['small']} "
+                                      f"within 2e-8 + 1e-6 |x| of the single-device train_step "
+                                      f"(max abs err {err:.3e})")
+                check(_mr_replicas_agree([r["digest" + key[4:]] for r in small]),
+                      f"multirank-dpmf: sharded step {key[5:]}: the replicas of every block "
+                      "hold the same bits")
+        worst = max(r["updater"] for r in small)
+        check(worst <= 2e-7, f"multirank-dpmf: sharded OnlineUpdater within 2e-7 of the "
+                             f"single-device updater over 3 batches (max abs err {worst:.3e})")
+        check(all(r["restore bitwise"] for r in small)
+              and all(r["restore q block rows"] == sz["small"][1] // 4 for r in small),
+              "multirank-dpmf: a (2, 2) checkpoint restored by elastic_load onto (1, 4), bitwise")
+        out["small"] = small[0]
+        train = {}
+        for mode in ("none", "int8", "int8_ef"):
+            res = pool.run(_mr_train, mode, MR_STEPS, sz["users"], sz["items"], sz["batch"])
+            train[mode] = res
+            r0 = res[0]
+            log(f"  {mode}: step {r0['step_ms']:.1f} ms (local {r0['local_ms']:.1f} ms), "
+                f"collectives ms {({k: round(v, 1) for k, v in r0['collective_ms'].items()})}, "
+                f"bytes sent by rank 0 {r0['collective_bytes']}, abs err {r0['abs_err']:.4f}, "
+                f"peak {[round(r['peak_gb'], 2) for r in res]} GB")
+            check(all(r["finite"] for r in res) and len({r["abs_err"] for r in res}) == 1
+                  and _mr_replicas_agree([r["digests"] for r in res]),
+                  f"multirank-dpmf: {mode} steps finite, metrics equal on every rank, the "
+                  "replicas of every block bitwise equal")
+        out["train"] = {mode: {k: v for k, v in res[0].items() if k != "digests"}
+                        for mode, res in train.items()}
+        out["train_peak_gb"] = [r["peak_gb"] for r in train["int8_ef"]]
+        pool.run(_mr_release)
+        users = np.random.default_rng(SEED + 82).integers(0, sz["users"], sz["topk_users"])
+        serve = pool.run(_mr_serve, users, sz["users"], sz["items"], sz["slab_rows"])
+        r0 = serve[0]
+        compare_topk(torch.as_tensor(r0["got"][0]), torch.as_tensor(r0["got"][1]),
+                     torch.as_tensor(r0["want"][0]), torch.as_tensor(r0["want"][1]),
+                     f"multirank-dpmf: topk_sharded vs rank 0's engine.topk (top-{TOPK})")
+        check(all(np.array_equal(r["got"][1], r0["got"][1]) for r in serve if "got" in r),
+              "multirank-dpmf: every rank returns the same answer")
+        rep, local = r0["report"], r0["local_report"]
+        check(all(r["report"] == rep for r in serve)
+              and max(abs(rep.hr - local.hr), abs(rep.ndcg - local.ndcg),
+                      abs(rep.recall - local.recall)) <= 2.0 / rep.users,
+              f"multirank-dpmf: evaluate_engine(mesh=) {rep} against the local engine {local} "
+              "(within one near-tie swap)")
+        for rank, r in enumerate(serve):
+            check(r["slab"]["near"] and r["slab"]["ids_outside_ties"],
+                  f"multirank-dpmf: rank {rank}'s pruned_topk on {sz['slab_rows']} rows of its slab against "
+                  f"the plain version (max abs err {r['slab']['err']:.3e})")
+        launches = [r["launches"] for r in serve]
+        check(all(n > 0 for n in launches),
+              f"multirank-dpmf: pruned_topk launched on every rank ({launches})")
+        PATH_LAUNCHES["multirank"] = {"pruned_topk": sum(launches)}
+        out["serve"] = dict(sharded_ms=r0["sharded_ms"], local_ms=r0["local_ms"],
+                            launches=launches, peak_gb=[r["peak_gb"] for r in serve],
+                            slab_rows=r0["slab"]["n_loc"],
+                            report=(rep.hr, rep.ndcg, rep.recall))
+        log(f"  topk_sharded ms {[round(t, 2) for t in r0['sharded_ms']]} vs local engine.topk ms "
+            f"{[round(t, 2) for t in r0['local_ms']]}; launches per rank {launches}; peak "
+            f"{out['serve']['peak_gb']} GB")
+        online = pool.run(_mr_online, *sz["online"], sz["online_batch"])
+        o0 = online[0]
+        check(all(r["finite"] for r in online) and o0["num_users"] % 2 == 0
+              and o0["num_users"] >= sz["online"][0] + 8 and o0["num_items"] >= sz["online"][1] + 8,
+              f"multirank-dpmf: OnlineUpdater(mesh=) grew to {o0['num_users']} x "
+              f"{o0['num_items']} (mesh multiples), tables finite")
+        out["online"] = o0
+        log(f"  online: batch ms {[round(t, 1) for t in o0['batch_ms']]}; tables "
+            f"{o0['num_users']} x {o0['num_items']}, blocks {o0['block_rows']}")
+    out["total_s"] = time.perf_counter() - t0
+    log(f"  multirank-dpmf: {out['total_s']:.1f} s (spawn {out['spawn_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
@@ -2908,6 +3383,7 @@ def main() -> int:
         store_launchers = phase("store and eviction launchers", store_launchers_phase, tmp)
         fleet_local = phase("fleet-local", fleet_local_phase, dev)
         fleet_process = phase("fleet-process", fleet_process_phase, dev)
+        multirank = phase("multirank-dpmf", multirank_phase, dev, tmp)
         fleet_launchers = phase("fleet and SLO launchers", fleet_launchers_phase, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2947,6 +3423,7 @@ def main() -> int:
         "fleet_local": {k: v for k, v in fleet_local.items() if k != "launches"},
         "fleet_process": {k: v for k, v in fleet_process.items() if k != "launches"},
         "fleet_launchers": fleet_launchers,
+        "multirank": {k: v for k, v in multirank.items() if k != "small"},
     }
     log("# workloads " + json.dumps(workloads))
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,7 @@
 """Checkpoints in the reference trainer's on-disk format.
 
 Counterpart of ``repro/checkpoint/checkpoint.py`` (numpy and the standard
-library; no elastic re-sharding).  A step lives at
+library).  A step lives at
 ``<dir>/step_<012d>``, a symlink to its payload directory
 ``step_<012d>.data.<pid>.<usec>``, as ``arrays.npz`` plus ``metadata.json``.
 
@@ -317,6 +317,17 @@ def _shape_restore(tree_like: Tree, arrays: Dict[str, np.ndarray]) -> Tree:
         return arr
 
     return _map_leaves(tree_like, take)
+
+
+def elastic_load(directory: str, tree_like: Tree, shard_fn: Callable[[Tree], Tree], *,
+                 step: Optional[int] = None) -> Tuple[Tree, Dict[str, Any]]:
+    """Restore, then re-shard onto the *current* mesh, which may differ from
+    the one the checkpoint was written under (elastic scaling):
+    ``shard_fn`` takes the restored numpy tree, e.g.
+    ``lambda tree: sharding.shard_tree(tree, mesh)`` for this rank's
+    blocks.  Returns ``(shard_fn(tree), metadata)``."""
+    host_tree, meta = restore(directory, tree_like, step=step)
+    return shard_fn(host_tree), meta
 
 
 class AsyncCheckpointer:

@@ -1,7 +1,6 @@
 """MF model family (FunkSVD, BiasSVD, SVD++) with dynamic pruning.
 
-Counterpart of ``repro/core/mf.py`` without the multi-device owner-compute
-step.  ``p`` is (m, k) user-major, ``q`` is (n, k) item-major, biases are
+Counterpart of ``repro/core/mf.py``.  ``p`` is (m, k) user-major, ``q`` is (n, k) item-major, biases are
 (rows, 1), ``implicit`` is SVD++'s (n + 1, k) table whose row n is the zero
 padding row.  Thresholds ``(t_p, t_q)`` of 0 disable pruning numerically, so
 the dense baseline and the pruned path share one code path.
@@ -10,6 +9,11 @@ Training updates the tables **in place**: :func:`train_step` and
 :func:`train_epoch_scan` write into ``params`` and ``opt_state`` and return
 them, where the reference returns new arrays (and donates the old ones).  At
 the dpmf size (a 51.2 GB user table) there is no room for a second copy.
+
+The owner-compute step across ranks (:func:`train_step_shard_map`) runs
+SPMD on a ``torch.distributed`` mesh (``repro_torch.distributed.spmd``):
+each rank holds only its blocks of the tables and state
+(``repro_torch.distributed.sharding.shard_tree``).
 """
 from __future__ import annotations
 
@@ -443,3 +447,314 @@ def eval_ranking_epoch_scan(
                                 None if weight is None else weight[s])
         sums = {key: sums[key] + counts[key] for key in sums}
     return sums
+
+
+# ---------------------------------------------------------------------------
+# Owner-compute step across ranks
+# ---------------------------------------------------------------------------
+
+
+def _check_owner_compute_opt(opt_name: str) -> None:
+    if opt_name not in ("adagrad", "sgd"):
+        raise ValueError(
+            "the owner-compute step implements sgd and adagrad only, got "
+            f"{opt_name!r}"
+        )
+
+
+def _resolve_grad_compression(grad_compression: str, compress_grads: bool) -> str:
+    """Normalize the two compression knobs: the legacy ``compress_grads``
+    bool maps to plain ``"int8"``; the string knob wins when both are set."""
+    if grad_compression == "none" and compress_grads:
+        return "int8"
+    if grad_compression not in ("none", "int8", "int8_ef"):
+        raise ValueError(
+            f"grad_compression must be none|int8|int8_ef, got {grad_compression!r}"
+        )
+    return grad_compression
+
+
+def _add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *,
+              keep: Optional[torch.Tensor] = None, in_passes: Optional[bool] = None) -> None:
+    """``table[idx] += rows`` with repeated indices added in batch order, so
+    every replica of a block that applies the same rows holds the same
+    bits.  On the CPU that is ``index_add_``; on CUDA its atomics add
+    repeats in any order, so the rows go in passes of distinct indices:
+    pass j adds each index's j-th row (``in_passes`` forces either way).
+    ``keep`` drops rows that are exact zeros (adding them changes no bit,
+    and the padding rows of a routed batch would each cost a pass)."""
+    if keep is not None:
+        idx, rows = idx[keep], rows[keep]
+    if not (table.is_cuda if in_passes is None else in_passes):
+        table.index_add_(0, idx, rows)
+        return
+    n = idx.numel()
+    if n == 0:
+        return
+    order = torch.argsort(idx, stable=True)
+    ordered = idx[order]
+    at = torch.arange(n, device=idx.device)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = ordered[1:] != ordered[:-1]
+    rank_in_run = at - torch.cummax(torch.where(first, at, 0), 0).values
+    by_pass = order[torch.argsort(rank_in_run, stable=True)]
+    lo = 0
+    for count in torch.bincount(rank_in_run).tolist():
+        sel = by_pass[lo:lo + count]
+        table.index_add_(0, idx[sel], rows[sel])
+        lo += count
+
+
+def init_error_feedback_state(params: MFParams, opt_state: MFOptState, mesh=None) -> MFOptState:
+    """Attach this rank's blocks of the int8 error-feedback residual tables
+    to ``opt_state`` (``params`` are the rank's blocks).
+
+    ``grad_compression="int8_ef"`` keeps, per sender, the running
+    quantization residual of each compressed collective and folds it into
+    the next transmission (EF-SGD).  Globally the tables are the
+    reference's: ``opt_state.p["ef_psum"]`` (m, n_model * k) over
+    ``P(dp, "model")`` (each model rank's untransmitted part of the
+    p-gradient psum, keyed by user row) and ``opt_state.q["ef_gather"]``
+    (n, n_dp * k) over ``P("model", dp)`` (each data rank's untransmitted
+    part of the q-delta all-gather, keyed by item row); a rank's blocks are
+    (m_loc, k) and (n_loc, k).
+    """
+    if mesh is None:
+        raise ValueError("init_error_feedback_state needs a mesh: pass mesh=")
+    k = params.p.shape[1]
+    zeros = lambda rows: torch.zeros((rows, k), dtype=torch.float32,  # noqa: E731
+                                     device=params.p.device)
+    return opt_state._replace(
+        p={**opt_state.p, "ef_psum": zeros(params.p.shape[0])},
+        q={**opt_state.q, "ef_gather": zeros(params.q.shape[0])},
+    )
+
+
+def train_step_shard_map(
+    params: MFParams,
+    opt_state: MFOptState,
+    batch: Batch,
+    t_p,
+    t_q,
+    *,
+    lr: float,
+    lam: float,
+    opt_name: str = "adagrad",
+    eps: float = 1e-8,
+    compress_grads: bool = False,
+    grad_compression: str = "none",
+    mesh=None,
+) -> Tuple[MFParams, MFOptState, Dict[str, torch.Tensor]]:
+    """DP-MF minibatch step with owner-compute collectives (FunkSVD only),
+    SPMD: every rank calls it with the same global ``batch`` and its own
+    blocks of ``params`` and ``opt_state``, which it updates in place.
+
+    The user rows ``p`` are split over the data axes and the batch with
+    them: data shard ``s`` takes the ``s``-th contiguous chunk of the batch,
+    whose users it must own (``sharding.route_batch_to_owner_shards``), so
+    all ``p`` traffic is local.  The item rows ``q`` are split over
+    ``"model"``: each model rank computes the partial masked dot of the
+    ratings whose item it owns (exact zeros elsewhere).  In the reference's
+    order and gating:
+
+    1. ownership: ``is_local`` marks the rows whose item this rank owns;
+    2. one psum of the partial predictions over ``"model"``;
+    3. the ``g_p`` exchange over ``"model"``: a psum (``"none"``), the
+       int8 :func:`~repro_torch.distributed.compression.compressed_psum`
+       (``"int8"``), or int8 with the sender's residual folded in on a
+       ``pmax`` common scale (``"int8_ef"``);
+    4. adagrad or sgd on the local rows;
+    5. one all-gather over the data axes of the q-delta rows (int8 in the
+       compressed modes), their indices and, for adagrad, ``g_q^2``, so
+       every replica of a ``q`` block applies the same total update;
+    6. the weighted metrics, summed over the data axes.
+
+    Replicated blocks (``p`` over ``"model"``, ``q`` over the data axes)
+    add their rows in batch order (:func:`_add_rows`), so the replicas stay
+    bitwise equal on the card as on the CPU.
+
+    An optional ``batch["weight"]`` gates rows out of the update and the
+    metrics (weight-0 rows are inert, which lets the router pad buckets).
+    Duplicate rows accumulate.  Returns ``(params, opt_state, metrics)``
+    with the metrics equal on every rank.
+    """
+    from repro_torch.distributed import compression, sharding, spmd
+
+    if mesh is None:
+        raise ValueError("train_step_shard_map needs a mesh: pass mesh=")
+    dp = sharding.data_axes(mesh)
+    m_loc, k = params.p.shape
+    n_loc = params.q.shape[0]
+    _check_owner_compute_opt(opt_name)
+    adagrad = opt_name == "adagrad"
+    gc = _resolve_grad_compression(grad_compression, compress_grads)
+    if gc == "int8_ef" and ("ef_psum" not in opt_state.p or "ef_gather" not in opt_state.q):
+        raise ValueError(
+            "grad_compression='int8_ef' needs the residual tables: call "
+            "mf.init_error_feedback_state(params, opt_state, mesh) first"
+        )
+    dev = params.p.device
+    t_p = torch.as_tensor(t_p, dtype=torch.float32, device=dev)
+    t_q = torch.as_tensor(t_q, dtype=torch.float32, device=dev)
+
+    # this rank's chunk of the global batch; the weight column is laid out
+    # as the others
+    weight = batch.get("weight")
+    cols = {
+        "user": batch["user"], "item": batch["item"], "rating": batch["rating"],
+        "weight": torch.ones_like(torch.as_tensor(batch["rating"]), dtype=torch.float32)
+        if weight is None else weight,
+    }
+    specs = sharding.mf_batch_shardings(mesh)
+    cols = {key: sharding.block(torch.as_tensor(value).to(dev), specs.get(key, specs["rating"]),
+                                mesh)
+            for key, value in cols.items()}
+    u, i = cols["user"].long(), cols["item"].long()
+    r, w = cols["rating"].float(), cols["weight"].float()
+
+    # 1. block-local coordinates; the router guarantees user ownership
+    u_loc = u - spmd.axis_index(mesh, dp) * m_loc
+    off_i = spmd.axis_index(mesh, "model") * n_loc
+    is_local = (i >= off_i) & (i < off_i + n_loc)
+    i_loc = torch.clamp(i - off_i, 0, n_loc - 1)
+
+    p_rows = params.p[u_loc].float()
+    q_rows = torch.where(is_local[:, None], params.q[i_loc].float(), 0.0)
+    r_u = effective_ranks(p_rows, t_p)
+    r_i = effective_ranks(q_rows, t_q)  # 0 on non-owners at t_q > 0 (zero rows)
+    pair_mask = rank_mask(r_u, k) * rank_mask(r_i, k)
+
+    # 2. everything is gated by ownership: at t_q == 0 a zero (non-owner)
+    # row has rank k, and the lambda term would count n_model times
+    own = is_local[:, None].float()
+    pred = spmd.psum(torch.sum(p_rows * q_rows * pair_mask, dim=-1) * is_local, mesh,
+                     "model", name="pred psum")
+    err = r - pred
+    wv = w[:, None]
+
+    # 3. the p gradient, assembled on the item owner, then one exchange
+    g_p_partial = own * pair_mask * wv * (lam * p_rows - err[:, None] * q_rows)
+    model_group = mesh.get_group("model") if spmd.axis_size(mesh, "model") > 1 else None
+    if gc == "int8_ef":
+        ef_p = opt_state.p["ef_psum"]
+        target = g_p_partial + ef_p[u_loc]
+        scale = (compression.common_scale(torch.max(torch.abs(target)), model_group,
+                                          name="g_p scale")
+                 if model_group is not None
+                 else compression.int8_scale(torch.max(torch.abs(target))))
+        q8 = torch.clamp(torch.round(target / scale), -127, 127).to(torch.int8)
+        recon = q8.float() * scale
+        summed = (compression.psum_int8(q8, model_group, name="g_p int8")
+                  if model_group is not None else q8.to(torch.int32))
+        g_p = summed.float() * scale
+        ef_p.index_add_(0, u_loc, g_p_partial - recon)
+    elif gc == "int8":
+        if model_group is not None:
+            g_p = compression.compressed_psum(g_p_partial, model_group)
+        else:
+            q8, scale = compression.quantize_int8(g_p_partial)
+            g_p = q8.to(torch.int32).float() * scale
+    else:
+        g_p = spmd.psum(g_p_partial, mesh, "model", name="g_p psum")
+    g_q = own * pair_mask * wv * (lam * q_rows - err[:, None] * p_rows)
+    safe_i = torch.where(is_local, i_loc, 0)
+    # rows whose updates are exact zeros, left out of the replicated
+    # tables' adds: weight 0, and for q an item another rank owns.  Under
+    # int8_ef a weight-0 row still carries its item's (and user's) residual
+    inert_ok = gc != "int8_ef"
+    p_keep = (w != 0) if inert_ok else None
+    q_keep = is_local & (w != 0) if inert_ok else is_local
+
+    # 4. the optimizer on the local rows.  The second ``* wv`` mirrors
+    # RowOptimizer.apply_rows, whose delta multiplies the mask again
+    if adagrad:
+        acc_p, acc_q = opt_state.p["acc"], opt_state.q["acc"]
+        acc_p_rows = acc_p[u_loc] + g_p * g_p
+        dp_rows = -lr * g_p / torch.sqrt(acc_p_rows + eps) * wv
+        _add_rows(acc_p, u_loc, g_p * g_p, keep=p_keep)
+        acc_q_rows = acc_q[safe_i] + g_q * g_q
+        dq_rows = torch.where(is_local[:, None],
+                              -lr * g_q / torch.sqrt(acc_q_rows + eps) * wv, 0.0)
+    else:
+        dp_rows = -lr * g_p
+        dq_rows = -lr * g_q
+    _add_rows(params.p, u_loc, dp_rows.to(params.p.dtype), keep=p_keep)
+
+    # 5. each data shard computed q deltas for its own ratings only: gather
+    # the sparse (B_loc, k) rows so every replica of the block applies all
+    if dp:
+        if gc in ("int8", "int8_ef"):
+            if gc == "int8_ef":
+                # residual rows exist only for items this model rank owns
+                ef_q = opt_state.q["ef_gather"]
+                payload = torch.where(is_local[:, None], dq_rows + ef_q[safe_i], 0.0)
+            else:
+                payload = dq_rows
+            q8, scale = compression.quantize_int8(payload)
+            gat_q8 = spmd.all_gather(q8, mesh, dp, name="dq int8 gather")
+            gat_scale = spmd.all_gather(scale.reshape(1), mesh, dp, name="dq scale gather")
+            gat_dq = compression.dequantize_int8(
+                gat_q8.reshape(-1, q8.shape[0], k), gat_scale.reshape(-1, 1, 1)).reshape(-1, k)
+            if gc == "int8_ef":
+                recon = compression.dequantize_int8(q8, scale)
+                ef_q.index_add_(0, safe_i, torch.where(is_local[:, None], dq_rows - recon, 0.0))
+        else:
+            gat_dq = spmd.all_gather(dq_rows, mesh, dp, name="dq gather")
+        # the indices travel with -1 on the rows left out
+        gat_idx = spmd.all_gather(torch.where(q_keep, i_loc, -1), mesh, dp,
+                                  name="dq index gather")
+        gat_keep = gat_idx >= 0
+        _add_rows(params.q, gat_idx, gat_dq.to(params.q.dtype), keep=gat_keep)
+        if adagrad:
+            _add_rows(acc_q, gat_idx, spmd.all_gather(g_q * g_q, mesh, dp, name="g_q^2 gather"),
+                      keep=gat_keep)
+    else:
+        params.q.index_add_(0, safe_i, dq_rows.to(params.q.dtype))
+        if adagrad:
+            acc_q.index_add_(0, safe_i, g_q * g_q)
+
+    # 6. weighted metrics (err and w agree across model ranks, so only the
+    # data axes are summed)
+    r_i_owner = spmd.psum(r_i * is_local, mesh, "model", name="metrics psum")
+    sums = torch.stack([
+        torch.sum(w),
+        torch.sum(torch.abs(err) * w),
+        torch.sum(torch.minimum(r_u, r_i_owner).float() * w),
+    ])
+    if dp:
+        sums = spmd.psum(sums, mesh, dp, name="metrics psum")
+    denom = torch.clamp(sums[0], min=1e-9)
+    metrics = {"abs_err": sums[1] / denom, "work_fraction": sums[2] / (denom * k)}
+    return params, opt_state, metrics
+
+
+def train_epoch_scan_shard_map(
+    params: MFParams,
+    opt_state: MFOptState,
+    batches: Batch,
+    t_p,
+    t_q,
+    *,
+    lr: float,
+    lam: float,
+    opt_name: str = "adagrad",
+    eps: float = 1e-8,
+    compress_grads: bool = False,
+    grad_compression: str = "none",
+    mesh=None,
+) -> Tuple[MFParams, MFOptState, Dict[str, torch.Tensor]]:
+    """A whole epoch of :func:`train_step_shard_map` over packed
+    ``(steps, B)`` batches (each step under the ownership contract), the
+    metrics averaged as :func:`train_epoch_scan` averages them (sum of
+    per-step means, divided once)."""
+    _check_owner_compute_opt(opt_name)
+    if mesh is None:
+        raise ValueError("train_epoch_scan_shard_map needs a mesh: pass mesh=")
+
+    def step(p, s, batch):
+        return train_step_shard_map(
+            p, s, batch, t_p, t_q, lr=lr, lam=lam, opt_name=opt_name, eps=eps,
+            compress_grads=compress_grads, grad_compression=grad_compression, mesh=mesh,
+        )
+
+    return _epoch_loop(step, params, opt_state, batches)

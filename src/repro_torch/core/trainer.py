@@ -95,6 +95,8 @@ class TrainConfig:
     prefetch_slabs: int = 2            # bounded prefetch queue depth
     checkpoint_every_slabs: int = 0    # 0 = no mid-epoch checkpoints
     max_step_retries: int = 0          # retries per streamed slab; 0 = no wrapper
+    # -- gradient exchange of the sharded step (mf.train_step_shard_map) ----
+    grad_compression: str = "none"     # none | int8 | int8_ef; the trainer does not read it
 
 
 @dataclasses.dataclass

@@ -1,8 +1,20 @@
-"""Fault tolerance of the training launcher, and the lossless codec of the
-serving fleet's replication bus (distributed training across ranks comes
-later)."""
+"""Training and serving across ranks: meshes and named-axis collectives on
+``torch.distributed`` (``spmd``), the MF layouts (``sharding``), int8
+gradient compression and the fleet's lossless codec (``compression``), and
+the training launcher's fault tolerance."""
 from repro_torch.distributed.compression import (  # noqa: F401
     CompressedArray,
     compress_array,
+    compressed_psum,
+    compress_with_feedback,
     decompress_array,
+    dequantize_int8,
+    init_error_feedback,
+    quantize_int8,
+)
+from repro_torch.distributed.sharding import (  # noqa: F401
+    data_axes,
+    mf_batch_shardings,
+    mf_spec_fn,
+    route_batch_to_owner_shards,
 )

@@ -1,0 +1,267 @@
+"""How the MF tables, batches and serving operands map onto a mesh.
+
+Counterpart of the MF parts of ``repro/distributed/sharding.py``.  Axes:
+``"data"`` (and ``"pod"`` when present) carry the user rows and the batch,
+``"model"`` carries the item rows: a rating batch sharded over the data
+axes meets its item rows across ``"model"``, the MF analogue of DP x TP.
+
+A layout is a :func:`P` spec as in jax, one entry a dim: ``None``
+(replicated) or a tuple of axis names whose ranks split that dim into
+equal contiguous blocks, in row-major order of the named axes.  Where the
+reference hands a global array and a ``PartitionSpec`` to ``device_put`` or
+``shard_map``, a rank of the port holds only its block: :func:`block` cuts
+a rank's block out of a full table (numpy or torch), :func:`assemble`
+all-gathers the blocks back into the full table on every rank, and
+:func:`shard_tree` / :func:`assemble_tree` do both over a whole state tree
+with :func:`mf_spec_fn`'s layout.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.distributed import spmd
+
+Spec = Tuple[Optional[Tuple[str, ...]], ...]
+
+
+def P(*entries) -> Spec:
+    """A layout: each entry None, an axis name or a tuple of axis names."""
+    out = []
+    for entry in entries:
+        if entry is None or entry == ():
+            out.append(None)
+        else:
+            out.append((entry,) if isinstance(entry, str) else tuple(entry))
+    return tuple(out)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes, ``("pod", "data")`` where present."""
+    names = spmd.axis_names(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _span(mesh, axes, rows: int) -> Tuple[int, int]:
+    parts = spmd.axis_size(mesh, axes)
+    if rows % parts:
+        raise ValueError(f"{rows} rows do not divide over {parts} shards of {axes}")
+    size = rows // parts
+    lo = spmd.axis_index(mesh, axes) * size
+    return lo, lo + size
+
+
+def block(x, spec: Spec, mesh, *, pad_rows: Optional[int] = None, fill=0):
+    """This rank's block of the full table ``x`` under ``spec``.
+
+    ``pad_rows`` treats dim 0 as padded with ``fill`` to that many rows
+    first (the serving slabs): only this rank's rows are made, a view where
+    they lie inside ``x``."""
+    out = x
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        rows = out.shape[dim] if dim or pad_rows is None else pad_rows
+        lo, hi = _span(mesh, axes, rows)
+        start = min(lo, out.shape[dim])
+        real = min(hi, out.shape[dim]) - start
+        piece = out.narrow(dim, start, real) if isinstance(out, torch.Tensor) else \
+            np.take(out, np.arange(start, start + real), axis=dim)
+        if real < hi - lo:
+            shape = list(out.shape)
+            shape[dim] = hi - lo - real
+            if isinstance(out, torch.Tensor):
+                pad = torch.full(shape, fill, dtype=out.dtype, device=out.device)
+                piece = torch.cat([piece, pad], dim=dim)
+            else:
+                piece = np.concatenate([piece, np.full(shape, fill, out.dtype)], axis=dim)
+        out = piece
+    return out
+
+
+def assemble(x_blk: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full table from every rank's block under ``spec`` (one
+    all-gather per sharded dim; every rank gets the whole table), always a
+    new tensor: a block that is already whole is cloned."""
+    out = x_blk
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            out = spmd.all_gather(out, mesh, axes, dim=dim)
+    return out.clone() if out is x_blk else out
+
+
+# ---------------------------------------------------------------------------
+# MF (the paper's model)
+# ---------------------------------------------------------------------------
+
+_USER_FIELDS = ("p", "user_bias")
+_ITEM_FIELDS = ("q", "item_bias", "implicit")
+
+
+def mf_spec_fn(mesh) -> Callable:
+    """``spec_fn(parts, leaf)``: user tables (and their optimizer state)
+    over the data axes, item tables over ``"model"``, the rest replicated.
+    ``parts`` is the leaf's path; its first MF field name decides.  The
+    error-feedback residuals take the layouts of the sharded step's
+    operands: ``ef_psum`` ``P(dp, "model")``, ``ef_gather`` ``P("model",
+    dp)``."""
+    dp = data_axes(mesh)
+
+    def spec_fn(parts, leaf) -> Spec:
+        ndim = len(getattr(leaf, "shape", ()))
+        if parts and parts[-1] == "ef_psum":
+            return P(dp, "model")
+        if parts and parts[-1] == "ef_gather":
+            return P("model", dp)
+        field = next((x for x in parts if x in _USER_FIELDS + _ITEM_FIELDS), None)
+        if field in _USER_FIELDS:
+            return P(dp, None) if ndim == 2 else P(dp)
+        if field in _ITEM_FIELDS:
+            return P("model", None) if ndim == 2 else P("model")
+        return P(*(None,) * ndim)
+
+    return spec_fn
+
+
+def _map_tree(tree: Any, fn: Callable, path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path_parts, leaf)`` over a tree of dicts, NamedTuples, lists and
+    leaves; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: _map_tree(value, fn, path + (str(key),)) for key, value in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tree(value, fn, path + (name,))
+                            for name, value in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(value, fn, path + (str(i),)) for i, value in enumerate(tree))
+    return fn(list(path), tree)
+
+
+def shard_tree(tree: Any, mesh, *, device=None, spec_fn: Optional[Callable] = None) -> Any:
+    """This rank's blocks of every leaf of ``tree`` (full tables, numpy or
+    torch) under ``spec_fn`` (default :func:`mf_spec_fn`), as new torch
+    tensors on ``device`` (default: the leaf's own device; numpy on the
+    CPU).  The port's counterpart of ``device_put`` with the
+    ``mf_spec_fn`` shardings."""
+    spec_fn = spec_fn or mf_spec_fn(mesh)
+
+    def one(parts, leaf):
+        if not hasattr(leaf, "shape"):
+            return leaf
+        if not isinstance(leaf, torch.Tensor):
+            leaf = np.asarray(leaf)
+        blk = block(leaf, spec_fn(parts, leaf), mesh)
+        if isinstance(blk, np.ndarray):
+            blk = torch.from_numpy(np.array(blk))
+        return blk.to(device if device is not None else blk.device, copy=True).contiguous()
+
+    return _map_tree(tree, one)
+
+
+def assemble_tree(tree: Any, mesh, *, spec_fn: Optional[Callable] = None) -> Any:
+    """The full tables of every leaf of a tree of blocks (the inverse of
+    :func:`shard_tree`; every rank gets them)."""
+    spec_fn = spec_fn or mf_spec_fn(mesh)
+
+    def one(parts, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return assemble(leaf, spec_fn(parts, leaf), mesh)
+
+    return _map_tree(tree, one)
+
+
+def serving_row_multiple(mesh) -> int:
+    """Batch sizes fed to the sharded serving program must be a multiple of
+    the user-axis extent (each data shard takes an equal user slab)."""
+    return spmd.axis_size(mesh, data_axes(mesh))
+
+
+def serving_topk_specs(mesh):
+    """``(in_specs, out_specs)`` of the sharded top-k over streaming tiles:
+    user rows over the data axes (replicated on a mesh without them),
+    catalog tiles over ``"model"``; outputs are (B, topk) rows sharded like
+    the users (the model axis is reduced by the merge)."""
+    dp = data_axes(mesh)
+    user_spec = P(dp or None, None)
+    in_specs = (user_spec, P("model", None, None), P("model", None), P("model"))
+    return in_specs, (user_spec, user_spec)
+
+
+def serving_topk_kernel_specs(mesh):
+    """``(in_specs, out_specs)`` of the kernel-path sharded top-k: the raw
+    user factor block, the replicated ``t_p``, and the padded catalog's
+    ``q``, ``r_i`` and bias slabs, row-sharded over ``"model"``."""
+    dp = data_axes(mesh)
+    user_spec = P(dp or None, None)
+    in_specs = (user_spec, P(), P("model", None), P("model", None), P("model", None))
+    return in_specs, (user_spec, user_spec)
+
+
+def mf_batch_shardings(mesh, has_hist: bool = False) -> Dict[str, Spec]:
+    """Layouts of a rating batch: every column over the data axes."""
+    dp = data_axes(mesh)
+    out = {"user": P(dp), "item": P(dp), "rating": P(dp)}
+    if has_hist:
+        out["hist"] = P(dp, None)
+    return out
+
+
+def route_batch_to_owner_shards(
+    users,
+    items,
+    ratings,
+    *,
+    num_users: int,
+    n_dp: int,
+    weight=None,
+    pad_to_pow2: bool = False,
+):
+    """Reorder a rating batch to satisfy the owner-compute contract.
+
+    ``mf.train_step_shard_map`` splits the batch positionally into ``n_dp``
+    contiguous chunks and requires chunk ``s`` to hold only users owned by
+    data shard ``s`` (``u // m_loc == s``).  This host-side router buckets
+    the rows by owner and pads every bucket to a common length with
+    weight-0 rows (user = the shard's first owned row, item 0, rating 0),
+    inert under the step's weight gate.  ``pad_to_pow2`` rounds the
+    per-shard length up to a power of two.  Returns a numpy batch dict with
+    ``"weight"``; bitwise the reference's.
+    """
+    if num_users % n_dp:
+        raise ValueError(
+            f"num_users ({num_users}) must divide over {n_dp} data shards"
+        )
+    users = np.asarray(users, np.int32)
+    items = np.asarray(items, np.int32)
+    ratings = np.asarray(ratings, np.float32)
+    if users.size and (users.min() < 0 or users.max() >= num_users):
+        raise ValueError(
+            f"user ids must lie in [0, {num_users}) — grow the tables first "
+            f"(got range [{users.min()}, {users.max()}])"
+        )
+    m_loc = num_users // n_dp
+    owner = users // m_loc
+    buckets = [np.nonzero(owner == s)[0] for s in range(n_dp)]
+    length = max(1, max(len(b) for b in buckets))
+    if pad_to_pow2:
+        length = 1 << (length - 1).bit_length()
+    out = {
+        "user": np.empty(n_dp * length, np.int32),
+        "item": np.zeros(n_dp * length, np.int32),
+        "rating": np.zeros(n_dp * length, np.float32),
+        "weight": np.zeros(n_dp * length, np.float32),
+    }
+    for s, idx in enumerate(buckets):
+        base = s * length
+        out["user"][base : base + length] = s * m_loc  # inert padding rows
+        out["user"][base : base + len(idx)] = users[idx]
+        out["item"][base : base + len(idx)] = items[idx]
+        out["rating"][base : base + len(idx)] = ratings[idx]
+        out["weight"][base : base + len(idx)] = (
+            1.0 if weight is None else np.asarray(weight, np.float32)[idx]
+        )
+    return out

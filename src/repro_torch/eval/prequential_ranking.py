@@ -118,8 +118,9 @@ class PrequentialRankingEvaluator:
       rankings reflect exactly what was served, including snapshot lag
       between updater and engine;
     * ``rank_fn(users, topk) -> (scores, indices)`` — any custom path, such
-      as a serving fleet's router (submit each user, stack the rows);
-      ``topk_sharded`` waits for ROADMAP A7, multi-rank half;
+      as ``engine.topk_sharded`` on a mesh (every rank consuming the same
+      stream) or a serving fleet's router (submit each user, stack the
+      rows);
     * neither — the updater's own factors ranked through the pruned
       brute-force pass (:func:`repro_torch.eval.ranking.dense_topk` at the
       updater's live thresholds).

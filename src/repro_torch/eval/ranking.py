@@ -313,21 +313,20 @@ def evaluate_engine(
     relevance: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
 ) -> RankingReport:
     """Ranking metrics of a live :class:`~repro_torch.serving.ServingEngine`,
-    ranked through its real serving path (``engine.topk``: the
-    ``pruned_topk`` kernel on CUDA, the streaming merge on the CPU).
-    ``relevance`` takes a precomputed :func:`relevance_from_dataset` triple.
-    Catalog-sharded serving on a mesh is not ported yet (ROADMAP A7,
-    multi-rank half): ``mesh`` other than None raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded serving (topk_sharded on a mesh) is not ported yet "
-            "(ROADMAP A7, multi-rank half)"
-        )
+    ranked through its real serving path: ``engine.topk`` (the
+    ``pruned_topk`` kernel on CUDA, the streaming merge on the CPU), or
+    ``engine.topk_sharded`` on ``mesh`` (SPMD: every rank of the mesh calls
+    this with the same arguments and gets the same report).  ``relevance``
+    takes a precomputed :func:`relevance_from_dataset` triple."""
     users, relevant, counts = _resolve_relevance(
         ds, relevance, min_rating, max_users, engine.num_users
     )
+    if mesh is not None:
+        rank_fn = lambda u, k: engine.topk_sharded(u, k, mesh=mesh)  # noqa: E731
+    else:
+        rank_fn = engine.topk
     return _metrics_over_batches(
-        engine.topk, users, relevant, counts, topk, batch_size
+        rank_fn, users, relevant, counts, topk, batch_size
     )
 
 

@@ -1,6 +1,6 @@
 """Incremental pruned factor updates: the paper's Alg. 2/3 applied online.
 
-Counterpart of ``repro/online/updater.py`` on one device.  The same masked
+Counterpart of ``repro/online/updater.py``.  The same masked
 update as training (``mf.train_step`` with the trained thresholds, through
 any :class:`~repro_torch.optim.optimizers.RowOptimizer`) is applied to
 streaming event micro-batches; each batch touches only its gathered rows,
@@ -25,6 +25,15 @@ With a :class:`~repro_torch.store.eviction.UserEvictor` attached
 translated to physical rows (reviving spilled users), snapshots carry the
 remap table and its epoch, and :meth:`evaluate` scores spilled users by the
 bias-only fallback.
+
+**Across ranks** (``mesh=``, SPMD: every rank makes the same calls with
+the same batches) each rank holds only its blocks of the tables and
+optimizer state (``sharding.shard_tree``), and every event batch goes
+through ``route_batch_to_owner_shards`` and one owner-compute
+``mf.train_step_shard_map`` (FunkSVD with sgd or adagrad, as the reference
+refuses the rest).  Growth, snapshots, drift and evaluation work on the
+assembled tables (one all-gather each); growth rounds up to the mesh
+multiples and re-shards.
 
 **Published versions are immutable.**  The port trains in place, where the
 reference's arrays are immutable and its :meth:`snapshot` can hand the
@@ -80,8 +89,11 @@ class OnlineUpdater:
     which the tables are moved.  ``batch_size`` caps a step: event batches
     split into power-of-two chunks (:meth:`_chunk_sizes`), which is part of
     the arithmetic, so the chunking is the reference's.  ``pruning_rate``
-    enables :meth:`maybe_recalibrate`.  ``mesh`` (sharded updates) and
-    gradient compression wait for ROADMAP A7, multi-rank half.
+    enables :meth:`maybe_recalibrate`.  ``mesh`` (a ``DeviceMesh`` with
+    a ``"model"`` dim and data axes) shards the updates: ``params`` and
+    ``opt_state`` are the full tables on every rank, of which each keeps
+    its blocks; ``grad_compression`` (none | int8 | int8_ef) then picks the
+    sharded step's gradient exchange.
     """
 
     def __init__(
@@ -104,10 +116,6 @@ class OnlineUpdater:
         grad_compression: str = "none",
         device: DeviceLike = None,
     ):
-        if mesh is not None or grad_compression != "none":
-            raise NotImplementedError(
-                "mesh-backed online updates and gradient compression are not "
-                "ported yet (ROADMAP A7, multi-rank half)")
         self.device = resolve_device(device)
         self.opt = optimizer if isinstance(optimizer, RowOptimizer) else RowOptimizer(name=optimizer)
         self.params = mf.MFParams(*(None if v is None else v.to(self.device) for v in params))
@@ -120,6 +128,11 @@ class OnlineUpdater:
         # copy on write: the caller's tables (and state) are never written
         self._shared_params: Set[str] = set(_FIELDS)
         self._shared_state: Set[str] = set(_FIELDS) if opt_state is not None else set()
+        self.mesh = mesh
+        self.grad_compression = grad_compression
+        self._n_dp = self._user_multiple = self._item_multiple = 1
+        if mesh is not None:
+            self._init_mesh(mesh, grad_compression)
         self.t_p = self._scalar(t_p)
         self.t_q = self._scalar(t_q)
         self.lr = float(lr)
@@ -151,6 +164,55 @@ class OnlineUpdater:
         self._work_sum = 0.0
         self._abs_err_sum = 0.0
 
+    def _init_mesh(self, mesh, grad_compression: str) -> None:
+        """Distributed refresh: the reference's refusals, then this rank's
+        blocks (new tensors: nothing of the caller's is written)."""
+        from repro_torch.distributed import sharding, spmd
+
+        if self.opt.name not in ("sgd", "adagrad"):
+            raise ValueError(
+                "mesh-backed online updates support sgd/adagrad only "
+                f"(got {self.opt.name!r})")
+        params = self.params
+        if params.user_bias is not None or params.implicit is not None:
+            raise ValueError(
+                "mesh-backed online updates support the FunkSVD variant "
+                "only (no biases / implicit factors)")
+        self._n_dp = spmd.axis_size(mesh, sharding.data_axes(mesh))
+        self._user_multiple = self._n_dp
+        self._item_multiple = spmd.axis_size(mesh, "model")
+        if params.p.shape[0] % self._user_multiple or params.q.shape[0] % self._item_multiple:
+            raise ValueError(
+                "factor tables must divide over the mesh: "
+                f"P rows {params.p.shape[0]} over {self._user_multiple}, "
+                f"Q rows {params.q.shape[0]} over {self._item_multiple}")
+        mf._resolve_grad_compression(grad_compression, False)
+        self._shard({"params": self.params, "opt_state": self.opt_state})
+        if grad_compression == "int8_ef":
+            # per-sender residuals ride in the opt_state (row-indexed, so
+            # growth keeps them aligned)
+            self.opt_state = mf.init_error_feedback_state(self.params, self.opt_state, mesh)
+
+    def _shard(self, tree) -> None:
+        from repro_torch.distributed import sharding
+
+        blocks = sharding.shard_tree(tree, self.mesh, device=self.device)
+        self.params, self.opt_state = blocks["params"], blocks["opt_state"]
+        self._shared_params.clear()
+        self._shared_state.clear()
+
+    def _assembled(self, with_state: bool = True):
+        """``(params, opt_state)`` as full tables (on a mesh: one all-gather
+        of every block, the state only ``with_state``; otherwise the live
+        tables)."""
+        if self.mesh is None:
+            return self.params, self.opt_state
+        from repro_torch.distributed import sharding
+
+        tree = {"params": self.params, "opt_state": self.opt_state if with_state else None}
+        full = sharding.assemble_tree(tree, self.mesh)
+        return full["params"], full["opt_state"]
+
     def _scalar(self, value) -> torch.Tensor:
         return torch.as_tensor(value, dtype=torch.float32).to(self.device)
 
@@ -168,13 +230,18 @@ class OnlineUpdater:
         kwargs.setdefault("user_history", trainer.hist)
         kwargs.setdefault("batch_size", min(cfg.batch_size, 4096))
         kwargs.setdefault("device", trainer.device)
+        kwargs.setdefault("grad_compression", cfg.grad_compression)
         return cls(trainer.params, trainer.opt_state, trainer.t_p, trainer.t_q, **kwargs)
 
     def attach_evictor(self, evictor) -> None:
         """Arm cold-row eviction (``store/eviction.UserEvictor``): event user
         ids become external ids, translated to physical rows on every apply;
         ``evictor.maybe_evict()`` may spill and compact the user tables at
-        publish points."""
+        publish points.  Not on a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "eviction compacts whole user tables; mesh-backed updates "
+                "hold blocks of them")
         evictor.bind(self)
         self.evictor = evictor
 
@@ -195,12 +262,12 @@ class OnlineUpdater:
     @property
     def num_users(self) -> int:
         """Current user-table rows (grows with cold-start events)."""
-        return self.params.p.shape[0]
+        return self.params.p.shape[0] * self._user_multiple
 
     @property
     def num_items(self) -> int:
         """Current catalog size (grows with cold-start events)."""
-        return self.params.q.shape[0]
+        return self.params.q.shape[0] * self._item_multiple
 
     @property
     def mean_work_fraction(self) -> float:
@@ -246,7 +313,8 @@ class OnlineUpdater:
 
     def ensure_capacity(self, max_user: int, max_item: int) -> bool:
         """Grow the tables so ``max_user``/``max_item`` are valid ids, by
-        exactly the rows needed.
+        exactly the rows needed (on a mesh, rounded up to the mesh
+        multiples: the assembled tables grow, then are re-sharded).
 
         New factor rows get the training init (``init_scale * N(0, 1)``),
         biases and optimizer accumulators start at zero, new SVD++ history
@@ -254,12 +322,20 @@ class OnlineUpdater:
         the engine holds keeps its own), and the grown rows join the touched
         sets.  Returns True if anything grew.
         """
-        params, grew = self.params, False
-        m, k = params.p.shape
-        n = params.q.shape[0]
-        add_n = max(0, max_item + 1 - n)
-        add_m = max(0, max_user + 1 - m)
-        state = self.opt_state
+        m, n = self.num_users, self.num_items
+        k = self.params.p.shape[1]
+
+        # on a mesh, growth rounds up to the mesh multiples so the grown
+        # tables keep dividing over the data/model axes
+        def round_up(v: int, mult: int) -> int:
+            return -(-v // mult) * mult
+
+        add_n = max(0, round_up(max_item + 1, self._item_multiple) - n)
+        add_m = max(0, round_up(max_user + 1, self._user_multiple) - m)
+        if not (add_n or add_m):
+            return False
+        params, state = self._assembled()
+        grew = False
         if add_n:
             grew = True
             new_n = n + add_n
@@ -313,9 +389,11 @@ class OnlineUpdater:
                     np.full((add_m, self.user_history.shape[1]), n, np.int32),
                 ])
             self._touched_users.update(range(m, m + add_m))
-        if grew:
-            # growth does not mark the layout dirty: the engine's swap sees
-            # a changed catalog on its own, and grown rows are touched rows
+        # growth does not mark the layout dirty: the engine's swap sees a
+        # changed catalog on its own, and grown rows are touched rows
+        if self.mesh is not None:
+            self._shard({"params": params, "opt_state": state})
+        else:
             self.params = params
             self.opt_state = state
         return grew
@@ -389,6 +467,9 @@ class OnlineUpdater:
         self._own_tables()
 
         total = len(users)
+        if self.mesh is not None:
+            return self._finish_apply(users, items, total, *self._apply_sharded(
+                users, items, ratings, weights))
         sizes = self._chunk_sizes(total, self.batch_size)
         parts = []
         lo = 0
@@ -414,7 +495,27 @@ class OnlineUpdater:
         for size, e, w in zip(sizes, values[0::2], values[1::2]):
             abs_err += e * size
             work += w * size
+        return self._finish_apply(users, items, total, abs_err, work)
 
+    def _apply_sharded(self, users, items, ratings, weights):
+        """One owner-compute sharded step over the whole event batch, routed
+        to its owners' shards (weight-0 padding to a power-of-two length);
+        returns the batch's ``(abs_err, work)`` sums."""
+        from repro_torch.distributed.sharding import route_batch_to_owner_shards
+
+        routed = route_batch_to_owner_shards(
+            users, items, ratings, num_users=self.num_users, n_dp=self._n_dp,
+            weight=weights, pad_to_pow2=True)
+        step_batch = {key: torch.as_tensor(value) for key, value in routed.items()}
+        self.params, self.opt_state, metrics = mf.train_step_shard_map(
+            self.params, self.opt_state, step_batch, self.t_p, self.t_q, lr=self.lr,
+            lam=self.lam, opt_name=self.opt.name, grad_compression=self.grad_compression,
+            mesh=self.mesh)
+        abs_err, work = torch.stack([metrics["abs_err"], metrics["work_fraction"]]).tolist()
+        total = len(users)
+        return abs_err * total, work * total
+
+    def _finish_apply(self, users, items, total, abs_err, work) -> Dict[str, float]:
         self._touched_users.update(users.tolist())
         self._touched_items.update(items.tolist())
         if self.params.implicit is not None:
@@ -431,8 +532,8 @@ class OnlineUpdater:
     def _candidate_thresholds(self):
         """(cand_p, cand_q, drift): the thresholds the current factors imply
         and their relative distance from the live ones."""
-        cand_p, cand_q = threshold.thresholds_from_matrices(
-            self.params.p, self.params.q, self.pruning_rate)
+        params, _ = self._assembled(with_state=False)
+        cand_p, cand_q = threshold.thresholds_from_matrices(params.p, params.q, self.pruning_rate)
         t_p, t_q = float(self.t_p), float(self.t_q)
         drift = max(abs(float(cand_p) - t_p) / max(t_p, 1e-8),
                     abs(float(cand_q) - t_q) / max(t_q, 1e-8))
@@ -459,7 +560,9 @@ class OnlineUpdater:
             return None
         old_t_p, old_t_q = float(self.t_p), float(self.t_q)
         self.t_p, self.t_q = cand_p.to(self.device), cand_q.to(self.device)
-        perm = rearrange.rearrangement(self.params.p, self.params.q, self.t_p, self.t_q).perm
+        full, _ = self._assembled(with_state=False)
+        perm = rearrange.rearrangement(full.p, full.q, self.t_p, self.t_q).perm
+        del full
         self._own_tables()
         k = self.params.p.shape[1]
         tables = [self.params.p, self.params.q]
@@ -479,14 +582,16 @@ class OnlineUpdater:
         """Freeze the accumulated delta for publication and reset the
         touched-row bookkeeping.  The snapshot holds the live tables, which
         become shared: the updater's next write clones them first, so the
-        published version never changes.  The history is copied."""
+        published version never changes.  On a mesh it holds the assembled
+        tables (new tensors on every rank).  The history is copied."""
         self.snapshots_taken += 1
+        params, _ = self._assembled(with_state=False)
 
         def ids(rows: Set[int]) -> np.ndarray:
             return np.fromiter(sorted(rows), np.int64, len(rows))
 
         snap = PublishSnapshot(
-            params=self.params,
+            params=params,
             t_p=self.t_p,
             t_q=self.t_q,
             touched_users=ids(self._touched_users),
@@ -499,7 +604,8 @@ class OnlineUpdater:
             user_remap=None if self.evictor is None else self.evictor.remap.as_array(),
             remap_epoch=0 if self.evictor is None else self.evictor.remap.epoch,
         )
-        self._shared_params = set(_FIELDS)
+        if self.mesh is None:
+            self._shared_params = set(_FIELDS)
         self._touched_users.clear()
         self._touched_items.clear()
         self._touched_implicit.clear()
@@ -518,6 +624,7 @@ class OnlineUpdater:
         """
         if self.evictor is not None:
             return self._evaluate_remapped(ds, batch_size)
+        params, _ = self._assembled(with_state=False)
         total = self._scalar(0.0)
         count = self._scalar(0.0)
         for batch_np in loader.iterate_batches(
@@ -527,7 +634,7 @@ class OnlineUpdater:
             batch = {key: torch.as_tensor(value).to(self.device) for key, value in batch_np.items()}
             if "hist" in batch:
                 batch["hist"] = batch["hist"].long()
-            s, c = mf.eval_mae(self.params, batch, self.t_p, self.t_q)
+            s, c = mf.eval_mae(params, batch, self.t_p, self.t_q)
             total = total + s
             count = count + c
         return float(total) / max(float(count), 1.0)

@@ -1,8 +1,6 @@
-"""Batched top-k recommendation engine over a trained DP-MF model, on one
-device.
+"""Batched top-k recommendation engine over a trained DP-MF model.
 
-Counterpart of ``repro/serving/engine.py`` on one device (catalog sharding,
-``topk_sharded``, waits for ROADMAP A7, multi-rank half).  The engine:
+Counterpart of ``repro/serving/engine.py``.  The engine:
 
 * **loads once, serves many**: per-item effective ranks ``r_i``, item biases
   and per-user constants are computed at load, the scoring layouts on first
@@ -27,7 +25,14 @@ Counterpart of ``repro/serving/engine.py`` on one device (catalog sharding,
   writing into a tensor the previous snapshot holds;
 * **serves evicted users**: with an eviction remap, request ids are external
   ids mapped to physical rows; a spilled user gets the bias-only
-  :meth:`_Snapshot.fallback_topk` ranking.
+  :meth:`_Snapshot.fallback_topk` ranking;
+* **shards both operand axes**: :meth:`ServingEngine.topk_sharded` runs
+  SPMD on a ``torch.distributed`` mesh (every rank calls it with the same
+  request): each rank scores its data shard's slab of the request's users
+  against its ``"model"`` slab of the catalog (the ``pruned_topk`` kernel
+  on CUDA), one all-gather of the (b, topk) winners over ``"model"`` and a
+  merge follow, then one all-gather over the data axes hands every rank
+  the whole answer.
 
 Scores returned are full model scores: user and global biases are added on
 the host after ranking, since a per-user constant never changes the order.
@@ -50,6 +55,11 @@ from repro_torch.kernels.pruned_topk import (
     tile_catalog,
 )
 from repro_torch.serving.batching import LRUCache, bucket_size
+
+# Catalog slabs of the sharded top-k are whole multiples of this many rows
+# (the reference pads to its kernel's item block, TOPK_BLOCK_N); padding
+# rows carry rank 0 and a -inf bias, so they never win.
+SLAB_ROWS = 256
 
 
 def load_mf_checkpoint(
@@ -148,6 +158,7 @@ class _Snapshot:
             self.user_const = None
         self._stream_layout = None
         self._kernel_layout = None
+        self._shard_slabs = {}   # (mesh shape, names, model index) -> kernel slab
         self._build_lock = threading.Lock()
 
     # -- spilled-user fallback ----------------------------------------------
@@ -203,6 +214,30 @@ class _Snapshot:
                     self.params.q.float().contiguous(), self.r_i, self.item_bias_vec,
                 )
             return self._kernel_layout
+
+    def kernel_shard_slab(self, mesh):
+        """This rank's slab of the kernel operands ``(q, r_i, bias)`` for the
+        sharded top-k, and the slab's row count: the catalog padded to a
+        multiple of ``SLAB_ROWS x n_model`` rows (rank 0, -inf bias) and
+        split over ``"model"``.  Only this rank's rows are made (views where
+        they lie inside the catalog).  One slab per mesh layout."""
+        from repro_torch.distributed import sharding, spmd
+
+        n_model = spmd.axis_size(mesh, "model")
+        key = (tuple(mesh.shape), spmd.axis_names(mesh), spmd.axis_index(mesh, "model"))
+        q, r_i, bias = self.kernel_layout()
+        with self._build_lock:
+            if key not in self._shard_slabs:
+                mult = SLAB_ROWS * n_model
+                rows = -(-self.n_items // mult) * mult
+                spec = sharding.P("model", None)
+                self._shard_slabs[key] = (
+                    sharding.block(q, spec, mesh, pad_rows=rows, fill=0.0),
+                    sharding.block(r_i, spec[:1], mesh, pad_rows=rows, fill=0),
+                    sharding.block(bias, spec[:1], mesh, pad_rows=rows, fill=float("-inf")),
+                    rows // n_model,
+                )
+            return self._shard_slabs[key]
 
     # -- incremental rebuilds (hot-swap fast path) ---------------------------
     def layouts_view(self):
@@ -298,6 +333,7 @@ class ServingEngine:
         self._queue = None  # async frontend, created by start()/submit()
         self._queue_lock = threading.Lock()  # guards _queue transitions
         self._stopping = False               # stop() drain in progress
+        self._queue_mesh = None              # mesh of a leading sharded queue
         self._swap_lock = threading.Lock()   # serializes swap() builders
 
     def _on_device(self, params: mf.MFParams) -> mf.MFParams:
@@ -666,9 +702,11 @@ class ServingEngine:
             out_i[evicted] = fi
         return out_s, out_i
 
-    def _run_chunked(self, snap: _Snapshot, ids: np.ndarray, topk: int):
+    def _run_chunked(self, snap: _Snapshot, ids: np.ndarray, topk: int, block_fn=None):
         """Split into max_batch chunks, pad each chunk to its power-of-two
-        bucket, score, fold the user constants back in."""
+        bucket, score (``block_fn(pu, topk)``, default the local path),
+        fold the user constants back in."""
+        block_fn = block_fn or (lambda pu, k_: self._topk_block(snap, pu, k_))
         out_s = np.empty((len(ids), topk), np.float32)
         out_i = np.empty((len(ids), topk), np.int32)
         for lo in range(0, len(ids), self.max_batch):
@@ -676,7 +714,7 @@ class ServingEngine:
             bucket = bucket_size(len(chunk), self.max_batch)
             padded = np.pad(chunk, (0, bucket - len(chunk)), mode="edge")
             pu = self._user_vectors(snap, padded)
-            scores, idx = self._topk_block(snap, pu, topk)
+            scores, idx = block_fn(pu, topk)
             scores = scores[: len(chunk)].cpu().numpy()
             idx = idx[: len(chunk)].cpu().numpy()
             if snap.user_const is not None:
@@ -696,24 +734,97 @@ class ServingEngine:
         out_s, out_i = self._run_chunked(snap, phys, topk)
         return self._apply_fallback(snap, evicted, topk, out_s, out_i)
 
+    # -- sharded catalog -----------------------------------------------------
+    def topk_sharded(self, user_ids, topk: int = 10, *, mesh=None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Mesh-sharded top-k, SPMD: every rank of ``mesh`` (a
+        ``DeviceMesh`` with a ``"model"`` dim, and ``"data"``/``"pod"``
+        where present) calls it with the same ``user_ids``, and every rank
+        returns the whole ``(scores, indices)``, equal to :meth:`topk`'s.
+
+        Requests go through :meth:`topk`'s chunk/bucket loop; each bucket is
+        padded to :func:`~repro_torch.distributed.sharding.serving_row_multiple`
+        and split over the data axes.  A rank scores its user slab against
+        its catalog slab (:meth:`_Snapshot.kernel_shard_slab`) through
+        ``pruned_topk_ranked`` (the kernel on CUDA, the plain version on the
+        CPU), offsets the indices by its model coordinate times the slab's
+        rows, and :func:`_merge_over_model` keeps the best ``topk`` of the
+        ``"model"`` ranks' winners, ties to the lower item index; one
+        all-gather over the data axes assembles the batch.  The collective
+        traffic is O(b * topk), independent of the catalog.  Evicted users
+        get the fallback ranking, as in :meth:`topk`."""
+        from repro_torch.distributed import sharding, spmd
+
+        if mesh is None or "model" not in spmd.axis_names(mesh):
+            raise ValueError("topk_sharded needs a mesh with a 'model' axis")
+        snap = self._snap
+        ids = self._validate_for(snap, user_ids, topk)
+        if ids.size == 0:
+            return np.empty((0, topk), np.float32), np.empty((0, topk), np.int32)
+        ids, evicted = self._translate_ids(snap, ids)
+        q, r_i, bias, n_loc = snap.kernel_shard_slab(mesh)
+        offset = spmd.axis_index(mesh, "model") * n_loc
+        row_mult = sharding.serving_row_multiple(mesh)
+        (user_spec, *_), (out_spec, _) = sharding.serving_topk_kernel_specs(mesh)
+
+        def block_fn(pu, k_):
+            b = pu.shape[0]
+            pm = pu.float()
+            pad = (-b) % row_mult  # equal user slabs per data shard
+            if pad:
+                pm = torch.cat([pm, pm.new_zeros((pad, pm.shape[1]))])
+            pu_blk = sharding.block(pm, user_spec, mesh).contiguous()
+            r_u = effective_ranks(pu_blk, snap.t_p)
+            local_s, local_i = pruned_topk_ranked(pu_blk, q, r_u, r_i, bias, k_)
+            merged_s, merged_i = _merge_over_model(local_s, local_i + offset, mesh, k_)
+            scores = sharding.assemble(merged_s, out_spec, mesh)
+            idx = sharding.assemble(merged_i, out_spec, mesh)
+            return scores[:b], idx[:b]
+
+        out_s, out_i = self._run_chunked(snap, ids, topk, block_fn)
+        return self._apply_fallback(snap, evicted, topk, out_s, out_i)
+
     # -- async frontend ------------------------------------------------------
-    def start(self, **queue_kwargs):
+    def start(self, *, mesh=None, **queue_kwargs):
         """Start the async request pipeline; returns the
         :class:`~repro_torch.serving.queue.RequestQueue` (kwargs such as
         ``max_batch``, ``max_pending``, ``linger_ms`` pass through).
-        Restartable after :meth:`stop`."""
-        with self._queue_lock:
-            return self._start_locked(**queue_kwargs)
+        Restartable after :meth:`stop`.
 
-    def _start_locked(self, **queue_kwargs):
+        With ``mesh`` (spanning every rank of the default process group) the
+        queue scores through :meth:`topk_sharded`.  The queue forms its
+        batches by time, so only the mesh's first rank runs one: each of its
+        batches is broadcast to the other ranks, whose ``start(mesh=)``
+        returns None and runs a follower thread that scores every broadcast
+        batch with it, until the first rank's :meth:`stop`.  While the queue
+        runs, the ranks run no other collective."""
+        with self._queue_lock:
+            return self._start_locked(mesh=mesh, **queue_kwargs)
+
+    def _start_locked(self, *, mesh=None, **queue_kwargs):
         from repro_torch.serving.queue import RequestQueue
 
         if self._queue is not None:
             if not self._queue.closed:
                 raise RuntimeError("engine already has a running request queue")
             self._queue = None  # stale handle: queue was closed directly
-        self._queue = RequestQueue(self, **queue_kwargs)
+        score_fn = None
+        if mesh is not None:
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                self._queue = _ShardFollower(self, mesh)
+                return None
+            score_fn = lambda users, k: self._lead_sharded(users, k, mesh)  # noqa: E731
+        self._queue = RequestQueue(self, score_fn=score_fn, **queue_kwargs)
+        self._queue_mesh = mesh
         return self._queue
+
+    def _lead_sharded(self, users, topk: int, mesh):
+        """The first rank's scoring under ``start(mesh=)``: announce the
+        batch to the followers, then score it with them."""
+        _broadcast_batch(np.asarray(users, np.int64), topk, self.device)
+        return self.topk_sharded(users, topk, mesh=mesh)
 
     def submit(self, user_id: int, topk: int = 10, *, timeout=None, priority: int = 0):
         """Async single-user request: a ``concurrent.futures.Future``
@@ -746,6 +857,9 @@ class ServingEngine:
         try:
             if queue is not None:
                 queue.close()  # outside the lock: close() joins the scheduler
+                if self._queue_mesh is not None:
+                    self._queue_mesh = None
+                    _broadcast_batch(None, 0, self.device)   # releases the followers
         finally:
             with self._queue_lock:
                 self._stopping = False
@@ -758,3 +872,67 @@ class ServingEngine:
             [{"item": int(i), "score": round(float(s), 4)} for i, s in zip(row_i, row_s)]
             for row_i, row_s in zip(idx, scores)
         ]
+
+
+def _merge_over_model(local_s: torch.Tensor, local_i: torch.Tensor, mesh, topk: int):
+    """Cross-shard merge of per-shard (b, topk) winners: one all-gather over
+    ``"model"``, then the best ``topk`` of the ``n_model * topk``
+    candidates by a stable descending sort over the shard-major candidate
+    order, so ties go to the lower item index as ``lax.top_k`` sends them."""
+    from repro_torch.distributed import spmd
+
+    b = local_s.shape[0]
+    gs = spmd.all_gather(local_s, mesh, "model").reshape(-1, b, topk)
+    gi = spmd.all_gather(local_i, mesh, "model").reshape(-1, b, topk)
+    cand_s = gs.permute(1, 0, 2).reshape(b, -1)
+    cand_i = gi.permute(1, 0, 2).reshape(b, -1)
+    merged_s, sel = torch.sort(cand_s, dim=1, descending=True, stable=True)
+    return merged_s[:, :topk], torch.gather(cand_i, 1, sel[:, :topk])
+
+
+def _broadcast_batch(users: Optional[np.ndarray], topk: int, device: torch.device):
+    """Broadcast one batch header and its user ids from rank 0 over the
+    default process group; ``users=None`` on rank 0 sends the stop header.
+    Returns ``(users, topk)`` on every rank (``(None, 0)`` for a stop)."""
+    import torch.distributed as dist
+
+    on = device if dist.get_backend() == "nccl" else torch.device("cpu")
+    head = torch.zeros(2, dtype=torch.int64, device=on)
+    if dist.get_rank() == 0 and users is not None:
+        head[0], head[1] = len(users), topk
+    dist.broadcast(head, 0)
+    n, k = int(head[0]), int(head[1])
+    if k == 0:
+        return None, 0
+    ids = (torch.as_tensor(users, dtype=torch.int64).to(on) if dist.get_rank() == 0
+           else torch.empty(n, dtype=torch.int64, device=on))
+    dist.broadcast(ids, 0)
+    return ids.cpu().numpy(), k
+
+
+class _ShardFollower:
+    """A non-first rank's side of ``start(mesh=)``: a thread that scores
+    every batch the first rank broadcasts, until the stop header."""
+
+    def __init__(self, engine: "ServingEngine", mesh):
+        self.closed = False
+        self.depth = 0
+        self._thread = threading.Thread(target=self._loop, args=(engine, mesh),
+                                        name="shard-follower", daemon=True)
+        self._thread.start()
+
+    def _loop(self, engine, mesh):
+        try:
+            while True:
+                users, topk = _broadcast_batch(None, 0, engine.device)
+                if users is None:
+                    break
+                engine.topk_sharded(users, topk, mesh=mesh)
+        finally:
+            self.closed = True
+
+    def submit(self, *args, **kwargs):
+        raise RuntimeError("requests go to the mesh's first rank")
+
+    def close(self):
+        self._thread.join()

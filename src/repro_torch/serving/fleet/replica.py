@@ -568,7 +568,11 @@ class ProcessReplica:
 
     @property
     def exitcode(self) -> Optional[int]:
-        """The child's exit code (None while it runs)."""
+        """The child's exit code (None while it runs).  Once the replica is
+        known dead the child is reaped first: its pipe can break a moment
+        before the process has exited."""
+        if self._dead.is_set():
+            self._proc.join(timeout=5.0)
         return self._proc.exitcode
 
     def kill(self) -> None:

@@ -237,7 +237,9 @@ def test_evaluate_engine_refuses_a_mesh():
     params = _grid_params(8, 40, 8)
     _, ds = _dataset(8, 40, 100)
     engine = ServingEngine(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # a mesh is served through topk_sharded (tests/test_torch_multirank_serving.py);
+    # anything but a DeviceMesh with named dims is refused
+    with pytest.raises(ValueError, match="DeviceMesh"):
         R.evaluate_engine(engine, ds, topk=5, mesh=object())
 
 

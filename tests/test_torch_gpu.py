@@ -907,3 +907,71 @@ def test_slo_apply_on_cuda_serves_as_a_fresh_engine(cuda):
     users = np.arange(512)
     for got, want in zip(engine.topk(users, 100), fresh.topk(users, 100)):
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# two ranks on the one card (gloo over CUDA tensors)
+# ---------------------------------------------------------------------------
+
+
+def _rank_pool():
+    from repro_torch.testing.ranks import RankPool
+
+    return RankPool(2, backend="gloo", device="cuda")
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adagrad"])
+def test_sharded_step_on_cuda_matches_single_device_step(cuda, opt_name):
+    """Two gloo ranks on cuda:0, a (1, 2) data x model mesh: the sharded
+    step against the single-device ``train_step`` on the card within 2e-8
+    plus 1e-6 relative: the single-device step's scatter-add atomics add
+    repeated rows in any order, the sharded step in batch order."""
+    import test_torch_multirank_cases as cases
+
+    rng = np.random.default_rng(1)
+    m, n, k, b = 64, 48, 32, 128
+    full = {"p": rng.normal(0, 0.1, (m, k)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (n, k)).astype(np.float32)}
+    batch = {"user": rng.integers(0, m, b).astype(np.int32),
+             "item": rng.integers(0, n, b).astype(np.int32),
+             "rating": rng.uniform(1, 5, b).astype(np.float32),
+             "weight": rng.uniform(0.3, 1.0, b).astype(np.float32)}
+    with _rank_pool() as pool:
+        got = pool.run(cases.step_case, (1, 2), ("data", "model"), full, batch, 0.05,
+                       opt_name, "none")
+    opt = RowOptimizer(name=opt_name)
+    params = mf.params_from_numpy(full, device=cuda)
+    state = mf.init_opt_state(params, opt)
+    tb = {key: torch.as_tensor(value).to(cuda) for key, value in batch.items()}
+    tb["user"], tb["item"] = tb["user"].long(), tb["item"].long()
+    t = torch.tensor(0.05, device=cuda)
+    mf.train_step(params, state, tb, t, t, 0.05, torch.ones(k, device=cuda), opt=opt, lam=0.02)
+    for out in got:
+        np.testing.assert_allclose(out["p"], params.p.cpu().numpy(), atol=2e-8, rtol=1e-6)
+        np.testing.assert_allclose(out["q"], params.q.cpu().numpy(), atol=2e-8, rtol=1e-6)
+    # the replicas of the p block (over "model") hold the same bits
+    np.testing.assert_array_equal(got[0]["p"], got[1]["p"])
+
+
+def test_topk_sharded_on_cuda_launches_the_kernel(cuda):
+    """Two gloo ranks on cuda:0, a 1-D model mesh: each rank's slab goes
+    through the ``pruned_topk`` kernel (one launch per rank for one chunk),
+    and the merged answer equals the plain version of the whole catalog:
+    ids identical outside near-ties, scores within 1e-5."""
+    import test_torch_multirank_cases as cases
+
+    rng = np.random.default_rng(2)
+    full = {"p": rng.normal(0, 0.1, (300, 64)).astype(np.float32),
+            "q": rng.normal(0, 0.1, (5001, 64)).astype(np.float32),
+            "user_bias": rng.normal(0, 0.1, (300, 1)).astype(np.float32),
+            "item_bias": rng.normal(0, 0.1, (5001, 1)).astype(np.float32),
+            "global_mean": np.float32(3.0)}
+    users = rng.integers(0, 300, 77).astype(np.int32)
+    with _rank_pool() as pool:
+        got = pool.run(cases.kernel_topk_case, (2,), ("model",), full, 0.05, users, 20)
+    for scores, ids, launches, want_s, want_i in got:
+        assert launches == 1
+        const = full["user_bias"][users] + full["global_mean"]
+        near = np.abs(scores - (want_s + const)) <= 1e-5 + 1e-5 * np.abs(want_s + const)
+        assert near.all()
+        assert ((ids == want_i) | near).all() and (ids == want_i).mean() > 0.99

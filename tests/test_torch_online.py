@@ -452,7 +452,9 @@ def test_prequential_ranking_matches_reference(source):
 def test_unported_parts_raise_naming_the_roadmap_item(monkeypatch, tmp_path):
     fields = _fields(11)
     upd = updater.OnlineUpdater(_port_params(fields), None, T, T, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # sharded updates were refused until the multi-rank half was ported
+    # (tests/test_torch_multirank_serving.py); a mesh must be a DeviceMesh
+    with pytest.raises(ValueError, match="DeviceMesh"):
         updater.OnlineUpdater(_port_params(fields), mesh=object(), device="cpu")
     # eviction was refused until the out-of-core path was ported
     ev = UserEvictor(EvictionConfig(max_users=M + 10, spill_dir=str(tmp_path / "spill")))
