@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives its serving, swap, SLO,
 training, ranking-evaluation, implicit and BPR, online freshness,
-out-of-core (ratings store, streamed training, eviction), serving-fleet
-and multi-rank paths on one card.
+out-of-core (ratings store, streamed training, eviction), serving-fleet,
+multi-rank and recsys (FM, DLRM, SASRec with its sessions, BST) paths on
+one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -45,7 +46,12 @@ script exits) it:
 4. frees the serving model, then holds ``fused_mf_sgd`` against its plain
    version at the training step's shape (B = 2^20 rows, k = 128, float32) at
    T = 0 and at rate 0.3, with and without bias and weight columns, plus a
-   bfloat16 case and an exact case on 1/8-grid rows, and times it;
+   bfloat16 case and an exact case on 1/8-grid rows, and times it; then
+   holds ``add_rows`` (the batch-order row scatter of every training step)
+   at 2^20 rows x k = 128 into a 10M-row table with the training path's
+   skewed items bitwise against the CPU's ``index_add_`` on CPU copies of
+   the touched rows and against its plain form in passes, with a bfloat16
+   table and two bias vectors, and times it against ``index_add_``;
 5. trains a small model (20k users x 5k items x 400k ratings, k = 128,
    3 epochs, rate 0.3) on the card and on the CPU from the same initial
    factors, once with sgd through the fused kernel and once with adagrad,
@@ -60,8 +66,9 @@ script exits) it:
    256-user ``pruned_topk`` launches an epoch, counted); the last epoch's
    ids are held against the plain version's and one evaluation is timed;
    then one more full-size step is held against the plain masked step
-   recomputed on the CPU over the touched rows only, and the stages of the
-   step are timed one by one;
+   recomputed on the CPU over the touched rows only, two steps from one
+   state must give the same bits, and the stages of the step are timed one
+   by one (the scatter both as ``add_rows`` and as ``index_add_``);
 7. ranking evaluation: ``evaluate_engine`` (the ``pruned_topk`` kernel)
    against ``evaluate_oracle`` (``pruned_matmul`` and a stable sort of the
    (B, n) scores) at T = 0 on 1/8-grid factors, 100k users x 1M items x
@@ -135,8 +142,8 @@ script exits) it:
 19. multirank-dpmf: 4 ranks spawned on the card (``RankPool``, gloo over
    CUDA tensors), a (2, 2) ("data", "model") mesh, dpmf's width and
    catalog with the users cut to 2^22 and adagrad: at 2^16 x 2^15 the
-   sharded step against the single-device ``train_step`` (within 2e-8 +
-   1e-6 relative), the sharded updater against the single-device one
+   sharded step against the single-device ``train_step`` (bitwise: both
+   scatter through ``add_rows``), the sharded updater against the single-device one
    (2e-7) and a (2, 2) checkpoint ``elastic_load``-ed onto (1, 4)
    (bitwise); then two sharded steps of 2^20 ratings in each of none, int8
    and int8_ef, the last timed by part with the bytes of each collective,
@@ -148,7 +155,22 @@ script exits) it:
 20. runs ``launch.serve --replicas 2 --replica-backend process
    --slo-p99-ms`` and ``launch.online --replicas 2 --supervise
    --slo-p99-ms`` on a small checkpoint (exit 0);
-21. prints a ``kernels`` JSON line (``launches`` summed over the counted
+21. recsys: FM (39 x 2^20 x k = 10), SASRec (2^20 items x k = 50, 2
+   blocks), BST and DLRM (k = 128, MLPerf's MLPs, each table cut to 2^23
+   rows: 23.6 of 96.1 GB) at their published widths with random weights from
+   the seed; counted under ``recsys``: FM's forward at 512 and
+   ``fm_retrieval`` of 512 contexts against 1M candidates (one
+   ``pruned_matmul`` launch), ``sasrec_retrieval`` of 512 sessions against
+   1M candidates (one more), 4096 sessions served at top-100 by
+   ``serve_sessions`` (``pruned_topk``, one launch a 256-session chunk),
+   SASRec's, BST's and DLRM's losses with their backward at 65,536 rows,
+   and BST's and DLRM's ranking of 2^18 candidates; then both
+   ``pruned_matmul`` answers on 4096-candidate slices and the sessions'
+   top-100 against the plain versions, rate 0 against the dense routes
+   (bitwise on 1/8-grid operands; the sessions against ``dense_topk``),
+   each model at its widths on a 64-row batch on the card against the CPU
+   (1e-4 of the largest value), and the timings;
+22. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
 The store, checkpoint and spill files live in one temporary directory,
@@ -323,9 +345,9 @@ def decaying_factors(gen, rows, dev):
 
 
 def reset_launch_counts():
-    from repro_torch.kernels import fused_mf_sgd, pruned_matmul, pruned_topk
+    from repro_torch.kernels import fused_mf_sgd, pruned_matmul, pruned_topk, scatter
 
-    for module in (fused_mf_sgd, pruned_matmul, pruned_topk):
+    for module in (fused_mf_sgd, pruned_matmul, pruned_topk, scatter):
         module.launches = 0
 
 
@@ -1081,7 +1103,8 @@ def training_main_path(dev):
     history = trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches}
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches,
+                "add_rows": scatter_launches()}
     PATH_LAUNCHES["training"] = launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  launches on the training path: {launches}; run() {run_s:.2f} s")
@@ -1099,6 +1122,9 @@ def training_main_path(dev):
     check(launches["fused_mf_sgd"] == EPOCHS * TRAIN_STEPS,
           f"fused_mf_sgd launched {EPOCHS * TRAIN_STEPS} times on the training path "
           f"({launches['fused_mf_sgd']})")
+    check(launches["add_rows"] == 2 * EPOCHS * TRAIN_STEPS,
+          f"add_rows launched {2 * EPOCHS * TRAIN_STEPS} times on the training path, for p and q "
+          f"every step ({launches['add_rows']})")
     check(all(math.isfinite(v) for r in history for v in (
         r.train_abs_err, r.test_mae, r.work_fraction, r.t_p, r.t_q)), "epoch records finite")
     packed = trainer._packed_ranking
@@ -1165,9 +1191,10 @@ def training_main_path(dev):
     dim_mask = torch.ones((K,), device=dev)
     step_ms = step_against_cpu(trainer, batch, LR, "step")
     log(f"  one step (host clock, synchronized): {step_ms:.2f} ms")
+    steps_reproducible(trainer, batch, LR, "train-dpmf")
 
     # -- where a step's time goes: its stages one by one (CUDA events) --------
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, scatter
 
     u, i, r = batch["user"], batch["item"], batch["rating"]
     pu, qi = params.p[u], params.q[i]
@@ -1181,7 +1208,9 @@ def training_main_path(dev):
             pu, qi, r, trainer.t_p, trainer.t_q, lr=1.0, lam=LAM),
         "deltas ((new - old) * lr * dim_mask, 2 tables)": lambda: (
             (new[0] - pu).mul_(LR).mul_(dim_mask), (new[1] - qi).mul_(LR).mul_(dim_mask)),
-        "scatter (2 x index_add_)": lambda: (
+        "scatter (2 x add_rows, batch order)": lambda: (
+            scatter.add_rows(params.p, u, dp), scatter.add_rows(params.q, i, dq)),
+        "scatter as before (2 x index_add_, atomics)": lambda: (
             params.p.index_add_(0, u, dp), params.q.index_add_(0, i, dq)),
         "whole step (mf.train_step)": lambda: mf.train_step(
             params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, LR, dim_mask,
@@ -1196,7 +1225,7 @@ def training_main_path(dev):
     t0 = time.perf_counter()
     trainer.evaluate()
     log(f"  evaluate() on {len(test)} test ratings {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    return {"launches": launches, "ranking_eval_ms": eval_ms}
+    return {"launches": launches, "ranking_eval_ms": eval_ms, "step_breakdown_ms": breakdown}
 
 
 # ---------------------------------------------------------------------------
@@ -1277,7 +1306,8 @@ def implicit_phase(dev):
     history = trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches}
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches,
+                "add_rows": scatter_launches()}
     PATH_LAUNCHES["implicit"] = launches
     ranking_steps = trainer._packed_ranking["user"].shape[0]
     log(f"  launches: {launches}; run() {run_s:.2f} s; peak device memory "
@@ -1375,7 +1405,7 @@ def bpr_phase(dev):
     history = trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"pruned_topk": pruned_topk.launches}
+    launches = {"pruned_topk": pruned_topk.launches, "add_rows": scatter_launches()}
     PATH_LAUNCHES["bpr"] = launches
     r = history[0]
     log(f"  launches: {launches}; run() {run_s:.2f} s; epoch 0: BPR loss {r.train_abs_err:.6f}, "
@@ -1692,7 +1722,8 @@ def online_phase(dev):
             t.join(timeout=180)
         engine.stop()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    launches = {"pruned_topk": pruned_topk.launches - compare_launches[0]}
+    launches = {"pruned_topk": pruned_topk.launches - compare_launches[0],
+                "add_rows": scatter_launches()}
     PATH_LAUNCHES["online"] = launches
     got_s, got_i, want_s, want_i = (torch.cat(parts) for parts in zip(*plain_rows))
     compare_topk(got_s, got_i, want_s, want_i,
@@ -1876,7 +1907,8 @@ def store_dpmf_phase(dev, tmp):
     history = trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches}
+    launches = {"fused_mf_sgd": fused_mf_sgd.launches, "pruned_topk": pruned_topk.launches,
+                "add_rows": scatter_launches()}
     PATH_LAUNCHES["store"] = launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  launches on the store path: {launches}; run() {run_s:.2f} s; peak device memory "
@@ -2230,7 +2262,7 @@ def evict_phase(dev, tmp):
             pub.publish()
             out["publish_ms"].append((time.perf_counter() - t0) * 1e3)
             probes_ok &= probe_check("later")
-    launches = {"pruned_topk": pruned_topk.launches - compare[0]}
+    launches = {"pruned_topk": pruned_topk.launches - compare[0], "add_rows": scatter_launches()}
     PATH_LAUNCHES["evict"] = launches
     got_s, got_i, want_s, want_i = (torch.cat(parts) for parts in zip(*plain_rows))
     compare_topk(got_s, got_i, want_s, want_i,
@@ -2584,7 +2616,7 @@ def fleet_local_phase(dev):
         loop_s = time.perf_counter() - t_loop
     finally:
         stuck = clients.stop()
-    launches = {"pruned_topk": pruned_topk.launches}
+    launches = {"pruned_topk": pruned_topk.launches, "add_rows": scatter_launches()}
     PATH_LAUNCHES["fleet_local"] = launches
     stats = fleet.stats()
     n, p50, p99 = clients.percentiles()
@@ -3019,8 +3051,8 @@ def _mr_small(ctx, tmp, sizes):
             if opt_name == "adagrad":
                 pairs += [(full["opt_state"].p["acc"], s_state.p["acc"]),
                           (full["opt_state"].q["acc"], s_state.q["acc"])]
-            # (max abs err, max of err - 1e-6 |want|): the single-device
-            # step's atomics add repeated rows in any order
+            # (max abs err, max of err - 1e-6 |want|): both steps add
+            # repeated rows in batch order (add_rows), so the first is 0
             out[f"step {opt_name} {label}"] = (
                 max(float((g - w).abs().max()) for g, w in pairs),
                 max(float(((g - w).abs() - 1e-6 * w.abs()).max()) for g, w in pairs))
@@ -3245,9 +3277,9 @@ def multirank_phase(dev, tmp, sizes=None):
             if key.startswith("step"):
                 err = max(r[key][0] for r in small)
                 excess = max(r[key][1] for r in small)
-                check(excess <= 2e-8, f"multirank-dpmf: sharded step {key[5:]} at {sz['small']} "
-                                      f"within 2e-8 + 1e-6 |x| of the single-device train_step "
-                                      f"(max abs err {err:.3e})")
+                check(err == 0.0, f"multirank-dpmf: sharded step {key[5:]} at {sz['small']} "
+                                  f"bitwise the single-device train_step (max abs err {err:.3e}, "
+                                  f"past 1e-6 |x| {excess:.3e})")
                 check(_mr_replicas_agree([r["digest" + key[4:]] for r in small]),
                       f"multirank-dpmf: sharded step {key[5:]}: the replicas of every block "
                       "hold the same bits")
@@ -3318,6 +3350,598 @@ def multirank_phase(dev, tmp, sizes=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# add_rows: the batch-order row scatter of the training path (C7)
+# ---------------------------------------------------------------------------
+
+
+def scatter_launches() -> int:
+    from repro_torch.kernels import scatter
+
+    return scatter.launches
+
+
+def _touched_rows_against_cpu(table, before, idx, rows, what):
+    """``table`` after ``add_rows`` against the CPU's ``index_add_`` on CPU
+    copies of the touched rows (bitwise), and every other row unchanged."""
+    uniq, inv = torch.unique(idx, return_inverse=True)
+    want = before[uniq].cpu().index_add_(0, inv.cpu(), rows.cpu())
+    got = table[uniq].cpu()
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.equal(got, want), f"add_rows {what}: the {len(uniq)} touched rows bitwise the "
+                                  f"CPU's index_add_ (max abs err {err:.3e})")
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    touched[uniq] = True
+    changed = table != before if table.dim() == 1 else (table != before).any(1)
+    check(not bool((changed & ~touched).any()), f"add_rows {what}: no other row changed")
+    return len(uniq), err
+
+
+def add_rows_phase(dev):
+    """``add_rows`` (csrc/add_rows.cu) at the training step's shape: 2^20
+    rows of k = 128 into dpmf's 10M-row ``q`` with the training path's
+    skewed items, against the CPU's ``index_add_`` on CPU copies (bitwise)
+    and against its plain form in passes on the card (bitwise); a bfloat16
+    table and two bias vectors likewise; timed against ``index_add_`` (one
+    PyTorch call, atomics) and the passes."""
+    from repro_torch.kernels import scatter
+
+    log(f"## add_rows: {BATCH} rows x k={K} into a {N_ITEMS}-row table, items ~ 1/(i + "
+        f"{ITEM_OFFSET}), float32")
+    rng = np.random.default_rng(SEED + 9)
+    idx = torch.as_tensor(dpmf_ratings(rng, BATCH).item.astype(np.int64)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    table = decaying_factors(gen, N_ITEMS, dev)
+    rows = decaying_factors(gen, BATCH, dev).mul_(LR)
+    before = table.clone()
+    n0 = scatter.launches
+    scatter.add_rows(table, idx, rows)
+    torch.cuda.synchronize()
+    check(scatter.launches == n0 + 1, f"add_rows: one launch ({scatter.launches - n0})")
+    unique, err = _touched_rows_against_cpu(table, before, idx, rows, "float32")
+    passes = scatter.add_rows_in_passes(before.clone(), idx, rows)
+    check(torch.equal(passes, table), "add_rows float32: bitwise its plain form in passes on the card")
+    del passes
+    again = scatter.add_rows(before.clone(), idx, rows)
+    check(torch.equal(again, table), "add_rows float32: a second run from the same table, bitwise")
+    del again
+    # a bias vector of the same table, float32
+    bias = torch.randn(N_ITEMS, generator=gen, device=dev)
+    bias_before = bias.clone()
+    scatter.add_rows(bias, idx, rows[:, 0].contiguous())
+    _touched_rows_against_cpu(bias, bias_before, idx, rows[:, 0], "float32 vector")
+    del bias, bias_before
+    # bfloat16: a (n, k) table sums in float32 and rounds once, a vector rounds each add
+    small = 1 << 20
+    bidx = torch.as_tensor(dpmf_ratings(rng, BATCH, num_items=small).item.astype(np.int64)).to(dev)
+    btab = decaying_factors(gen, small, dev).bfloat16()
+    brows = rows.bfloat16()
+    bbefore = btab.clone()
+    scatter.add_rows(btab, bidx, brows)
+    _touched_rows_against_cpu(btab, bbefore, bidx, brows, f"bfloat16 {small} x {K}")
+    bvec = btab[:, 3]
+    bvec_before = bvec.clone()
+    scatter.add_rows(bvec, bidx, brows[:, 0].contiguous())
+    _touched_rows_against_cpu(bvec, bvec_before, bidx, brows[:, 0], "bfloat16 column view")
+    del btab, bbefore, brows, bvec, bvec_before
+
+    ms = time_ms(lambda: scatter.add_rows(table, idx, rows), 20)
+    sort_ms = time_ms(lambda: torch.sort(idx, stable=True), 20)
+    lib_ms = time_ms(lambda: table.index_add_(0, idx, rows), 20)
+    plain_ms = time_ms(lambda: scatter.add_rows_in_passes(table, idx, rows), 3)
+    # rows and indices read once; each touched table row read once and written once
+    nbytes = 4.0 * BATCH * K + 8.0 * BATCH + 2 * 4.0 * unique * K
+    b_ms, b_by = bound(float(BATCH * K), nbytes)
+    log(f"  {unique} distinct rows; add_rows {ms:.3f} ms (its stable sort alone {sort_ms:.3f} ms), "
+        f"index_add_ (atomics, any order) {lib_ms:.3f} ms, plain passes {plain_ms:.3f} ms; bound "
+        f"{b_ms:.3f} ms ({b_by}: {nbytes / 1e9:.3f} GB); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+    del table, before, rows, idx
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=ms, sort_ms=sort_ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, unique=unique)
+
+
+def steps_reproducible(trainer, batch, lr, what):
+    """Two full-size fused steps from one state (the touched rows restored
+    in between) give the same bits."""
+    from repro_torch.core import mf
+
+    params = trainer.params
+    users, items = torch.unique(batch["user"]), torch.unique(batch["item"])
+    p0, q0 = params.p[users].clone(), params.q[items].clone()
+    dim_mask = torch.ones((K,), device=params.p.device)
+    outs = []
+    for _ in range(2):
+        params.p[users], params.q[items] = p0, q0
+        mf.train_step(params, trainer.opt_state, batch, trainer.t_p, trainer.t_q, lr, dim_mask,
+                      opt=trainer.opt, lam=LAM, use_fused_kernel=True)
+        outs.append((params.p[users].clone(), params.q[items].clone()))
+    same = torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    check(same, f"{what}: two steps from one state bitwise equal ({len(users)} p rows, "
+                f"{len(items)} q rows; max abs difference {err:.3e})")
+
+
+# ---------------------------------------------------------------------------
+# recsys: FM, SASRec (and its sessions through the engine), BST and DLRM
+# ---------------------------------------------------------------------------
+
+# the configs' published sizes, copied by hand from src/repro/configs/
+# fm_arch.py, sasrec_arch.py, bst_arch.py and dlrm_mlperf.py (and the MLPerf
+# vocabularies of src/repro/models/recsys.py), as dpmf's are above
+FM_FIELDS, FM_VOCAB, FM_K, FM_T = 39, 1_048_576, 10, 0.02
+SR_ITEMS, SR_K, SR_BLOCKS, SR_HEADS, SR_SEQ, SR_T = 1_048_575, 50, 2, 1, 50, 0.002
+BST_ITEMS, BST_K, BST_SEQ, BST_BLOCKS, BST_HEADS = 1_048_575, 32, 20, 1, 8
+BST_MLP, BST_PROFILE = (1024, 512, 256), 16
+DLRM_K, DLRM_BOT, DLRM_TOP, DLRM_T = 128, (512, 256, 128), (1024, 1024, 512, 256, 1), 0.002
+DLRM_CAP = 1 << 23  # rows a table keeps on one card: the five larger tables are cut to it
+# configs/base.py: serve_p99 512, train_batch 65536, retrieval_cand 1M candidates;
+# the ranking models (BST, DLRM) score 2^18 candidates, not 1M (PERF.md section 4)
+RS_SERVE, RS_TRAIN, RS_CANDS, RS_RANK_CANDS = 512, 65536, 1_000_000, 1 << 18
+RS_SESSIONS, RS_SESSION_TOPK, RS_SLICE, RS_CHECK_ROWS, RS_CHECK_VOCAB = 4096, 100, 4096, 64, 2048
+
+
+def dlrm_vocabs(cap=DLRM_CAP):
+    """dlrm_mlperf's tables (MLPerf's vocabularies, those of 8192 rows or more
+    padded to a multiple of 512), each cut to ``cap`` rows."""
+    from repro_torch.models import recsys
+
+    return tuple(min(v + (-v) % 512 if v >= 8192 else v, cap) for v in recsys.MLPERF_CRITEO_VOCABS)
+
+
+def _timer(dev):
+    """CUDA events on the card; the host clock on the CPU (a rehearsal)."""
+    if dev.type == "cuda":
+        return time_ms
+
+    def host_ms(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    return host_ms
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _backward(loss_fn, params, *args):
+    """The loss and its gradients by autograd; the parameters' ``grad``s are
+    left for the caller (and cleared before)."""
+    for t in _leaves(params):
+        t.grad = None
+        t.requires_grad_(True)
+    loss = loss_fn(params, *args)
+    loss.backward()
+    return loss
+
+
+def _release(params):
+    for t in _leaves(params):
+        t.grad = None
+        t.requires_grad_(False)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.detach().cpu().float() - want.detach().float()).abs().max()) / max(
+        float(want.detach().float().abs().max()), 1e-30)
+
+
+def _matmul_against_plain(out, p, q, r_u, r_i, add, what, slices):
+    """Slices of a ``pruned_matmul`` answer inside a model's output (``add``
+    maps the raw product of a slice to the output's columns) against
+    ``pruned_matmul_plain`` on the same inputs."""
+    from repro_torch.kernels import pruned_matmul
+
+    errs = []
+    for sl in slices:
+        want = add(pruned_matmul.pruned_matmul_plain(p, q[sl], r_u, r_i[sl]), sl)
+        got = out[:, sl]
+        errs.append(float((got - want).abs().max()))
+        ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+        check(ok, f"{what} columns {sl.start}:{sl.stop} against pruned_matmul_plain within "
+                  f"rtol/atol {RTOL} (max abs err {errs[-1]:.3e})")
+    return max(errs)
+
+
+def _card_against_cpu(dev, gen_seed, rs):
+    """Each model at its published widths (a small catalog) on a 64-row batch:
+    the forward and the loss gradient on the card against the port's CPU run
+    from the same weights, within 1e-4 of the largest |value| per tensor."""
+    from repro_torch.data import clicks
+    from repro_torch.models import recsys
+
+    cpu = torch.device("cpu")
+    vocab, rows = rs["check_vocab"], rs["check_rows"]
+    gen = torch.Generator().manual_seed(gen_seed)
+    cases = {}
+    fm_cfg = recsys.FMConfig(n_fields=FM_FIELDS, embed_dim=FM_K, vocab_per_field=vocab)
+    fm_b = clicks.fm_batch(rows, n_fields=FM_FIELDS, vocab_per_field=vocab, seed=SEED + 50)
+    cases["fm"] = (recsys.init_fm_params(gen, fm_cfg, cpu), fm_b,
+                   lambda p, b: recsys.fm_forward(p, b["ids"], fm_cfg, FM_T),
+                   lambda p, b: recsys.fm_loss(p, b, fm_cfg, FM_T))
+    sr_cfg = recsys.SASRecConfig(n_items=vocab, embed_dim=SR_K, n_blocks=SR_BLOCKS,
+                                 n_heads=SR_HEADS, seq_len=SR_SEQ)
+    sr_b = clicks.sasrec_batch(rows, seq_len=SR_SEQ, n_items=vocab, seed=SEED + 51)
+    cases["sasrec"] = (recsys.init_sasrec_params(gen, sr_cfg, cpu), sr_b,
+                       lambda p, b: recsys.sasrec_encode(p, b["seq"], sr_cfg),
+                       lambda p, b: recsys.sasrec_loss(p, b, sr_cfg))
+    bst_cfg = recsys.BSTConfig(n_items=vocab, embed_dim=BST_K, seq_len=BST_SEQ,
+                               n_blocks=BST_BLOCKS, n_heads=BST_HEADS, mlp_dims=BST_MLP,
+                               n_profile=BST_PROFILE)
+    bst_b = clicks.bst_batch(rows, seq_len=BST_SEQ, n_items=vocab, n_profile=BST_PROFILE,
+                             seed=SEED + 52)
+    cases["bst"] = (recsys.init_bst_params(gen, bst_cfg, cpu), bst_b,
+                    lambda p, b: recsys.bst_forward(p, b["hist"], b["target"], b["profile"],
+                                                    bst_cfg),
+                    lambda p, b: recsys.bst_loss(p, b, bst_cfg))
+    dlrm_cfg = recsys.DLRMConfig(embed_dim=DLRM_K, vocab_sizes=dlrm_vocabs(vocab),
+                                 bot_mlp=DLRM_BOT, top_mlp=DLRM_TOP)
+    dlrm_b = clicks.criteo_batch(rows, n_dense=dlrm_cfg.n_dense, vocab_sizes=dlrm_cfg.vocab_sizes,
+                                 seed=SEED + 53)
+    cases["dlrm"] = (recsys.init_dlrm_params(gen, dlrm_cfg, cpu), dlrm_b,
+                     lambda p, b: recsys.dlrm_forward(p, b["dense"], b["sparse"], dlrm_cfg, DLRM_T),
+                     lambda p, b: recsys.dlrm_loss(p, b, dlrm_cfg, DLRM_T))
+    worst = {}
+    for name, (params, batch, forward, loss_fn) in cases.items():
+        on_card = recsys.recsys_params_from_numpy(recsys.recsys_params_to_numpy(params), dev)
+        cb = {key: torch.as_tensor(v) for key, v in batch.items()}
+        gb = {key: v.to(dev) for key, v in cb.items()}
+        with torch.no_grad():
+            f_err = _rel_err(forward(on_card, gb), forward(params, cb))
+        _backward(loss_fn, params, cb)
+        _backward(loss_fn, on_card, gb)
+        g_err = max(_rel_err(g.grad, c.grad) for g, c in zip(_leaves(on_card), _leaves(params)))
+        worst[name] = (f_err, g_err)
+        check(f_err <= RECORD_RTOL and g_err <= RECORD_RTOL,
+              f"recsys {name} at its widths, {rows} rows: forward and loss gradient on the card "
+              f"within {RECORD_RTOL} of the CPU (relative to the largest |value|: forward "
+              f"{f_err:.3e}, gradients {g_err:.3e})")
+    return worst
+
+
+def recsys_phase(dev, sizes=None):
+    """recsys: FM, SASRec, BST and DLRM at their published widths with random
+    weights from the seed.  In one counted run: FM's forward at the serving
+    batch and ``fm_retrieval`` through ``pruned_matmul`` (k = 10) against 1M
+    candidates; ``sasrec_retrieval`` through ``pruned_matmul`` (k = 50) against
+    1M candidates; a session engine over 4096 SASRec sessions served at
+    top-100 by ``serve_sessions`` (``pruned_topk``); SASRec's loss, its
+    backward and one SGD step at 65,536 x 50; BST's forward and loss backward
+    at 65,536 and its ranking of 2^18 candidates; DLRM (every table cut to
+    2^23 rows) likewise.  Then each kernel answer against its plain version,
+    rate 0 against the dense routes, each model on the card against the CPU,
+    and the timings.  ``sizes`` overrides the sizes (a rehearsal on the CPU
+    passes tiny ones)."""
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.data import clicks
+    from repro_torch.eval import ranking
+    from repro_torch.kernels import ops, pruned_matmul, pruned_topk
+    from repro_torch.models import recsys
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads import sequential
+
+    rs = dict(fm_vocab=FM_VOCAB, sr_items=SR_ITEMS, bst_items=BST_ITEMS, dlrm_cap=DLRM_CAP,
+              serve=RS_SERVE, train=RS_TRAIN, cands=RS_CANDS, rank_cands=RS_RANK_CANDS,
+              sessions=RS_SESSIONS, topk=RS_SESSION_TOPK, slice=RS_SLICE,
+              check_rows=RS_CHECK_ROWS, check_vocab=RS_CHECK_VOCAB, max_batch=256)
+    rs.update(sizes or {})
+    ms_of = _timer(dev)
+    vocabs = dlrm_vocabs(rs["dlrm_cap"])
+    full_vocabs = dlrm_vocabs(1 << 62)
+    dlrm_bytes = 4.0 * DLRM_K * sum(vocabs)
+    log(f"## recsys: FM {FM_FIELDS} x {rs['fm_vocab']} x k={FM_K} (T {FM_T}), SASRec "
+        f"{rs['sr_items']} x k={SR_K} (T {SR_T}), BST {rs['bst_items']} x k={BST_K}, DLRM "
+        f"k={DLRM_K} with {sum(vocabs)} rows = {dlrm_bytes / 1e9:.2f} GB of tables (uncut "
+        f"{sum(full_vocabs)} rows = {4.0 * DLRM_K * sum(full_vocabs) / 1e9:.2f} GB), float32")
+    out = {"dlrm_rows": sum(vocabs), "dlrm_table_gb": dlrm_bytes / 1e9}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    fm_cfg = recsys.FMConfig(name="fm", n_fields=FM_FIELDS, embed_dim=FM_K,
+                             vocab_per_field=rs["fm_vocab"])
+    fm = recsys.init_fm_params(gen, fm_cfg, dev)
+    fm_ids = torch.as_tensor(clicks.fm_batch(rs["serve"], n_fields=FM_FIELDS,
+                                             vocab_per_field=rs["fm_vocab"], seed=SEED)["ids"]).to(dev)
+    fm_ctx = fm_ids[:, :FM_FIELDS - 1]
+    fm_cands = torch.as_tensor(rng.integers(0, rs["fm_vocab"], rs["cands"])).to(dev)
+    sr_cfg = recsys.SASRecConfig(name="sasrec", n_items=rs["sr_items"], embed_dim=SR_K,
+                                 n_blocks=SR_BLOCKS, n_heads=SR_HEADS, seq_len=SR_SEQ)
+    sr = recsys.init_sasrec_params(gen, sr_cfg, dev)
+    sr_seq = torch.as_tensor(clicks.sasrec_batch(rs["serve"], seq_len=SR_SEQ,
+                                                 n_items=rs["sr_items"], seed=SEED + 1)["seq"]).to(dev)
+    sr_cands = torch.as_tensor(rng.integers(1, rs["sr_items"] + 1, rs["cands"])).to(dev)
+    sessions = clicks.sasrec_batch(rs["sessions"], seq_len=SR_SEQ, n_items=rs["sr_items"],
+                                   seed=SEED + 2)["seq"]
+    sr_train = {key: torch.as_tensor(v).to(dev) for key, v in clicks.sasrec_batch(
+        rs["train"], seq_len=SR_SEQ, n_items=rs["sr_items"], seed=SEED + 3).items()}
+    bst_cfg = recsys.BSTConfig(name="bst", n_items=rs["bst_items"], embed_dim=BST_K,
+                               seq_len=BST_SEQ, n_blocks=BST_BLOCKS, n_heads=BST_HEADS,
+                               mlp_dims=BST_MLP, n_profile=BST_PROFILE)
+    bst = recsys.init_bst_params(gen, bst_cfg, dev)
+    bst_train = {key: torch.as_tensor(v).to(dev) for key, v in clicks.bst_batch(
+        rs["train"], seq_len=BST_SEQ, n_items=rs["bst_items"], n_profile=BST_PROFILE,
+        seed=SEED + 4).items()}
+    bst_cands = torch.as_tensor(rng.integers(1, rs["bst_items"] + 1, rs["rank_cands"])).to(dev)
+    dlrm_cfg = recsys.DLRMConfig(name="dlrm-mlperf", embed_dim=DLRM_K, vocab_sizes=vocabs,
+                                 bot_mlp=DLRM_BOT, top_mlp=DLRM_TOP)
+    dlrm = recsys.init_dlrm_params(gen, dlrm_cfg, dev)
+    dlrm_train = {key: torch.as_tensor(v).to(dev) for key, v in clicks.criteo_batch(
+        rs["train"], n_dense=dlrm_cfg.n_dense, vocab_sizes=vocabs, seed=SEED + 5).items()}
+    dlrm_cands = torch.as_tensor(rng.integers(0, vocabs[0], rs["rank_cands"])).to(dev)
+    _sync(dev)
+    out["setup_s"] = time.perf_counter() - t0
+    log(f"  weights and batches made in {out['setup_s']:.2f} s")
+
+    # -- the counted run ---------------------------------------------------------
+    reset_launch_counts()
+    wall = {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        wall[name] = (time.perf_counter() - t) * 1e3
+        return res
+
+    with torch.no_grad():
+        fm_logits = run("fm forward", lambda: recsys.fm_forward(fm, fm_ids, fm_cfg, FM_T))
+        fm_scores = run("fm retrieval", lambda: recsys.fm_retrieval(
+            fm, fm_ctx, fm_cands, fm_cfg, FM_T, use_kernel=True))
+        sr_scores = run("sasrec retrieval", lambda: recsys.sasrec_retrieval(
+            sr, sr_seq, sr_cfg, SR_T, use_kernel=True, cand_ids=sr_cands))
+        engine = run("session engine", lambda: sequential.session_engine(
+            sr, sessions, sr_cfg, 0.0, SR_T, device=dev, max_batch=rs["max_batch"]))
+        sess_ids = np.arange(rs["sessions"])
+        sess_s, sess_i = run("serve sessions", lambda: sequential.serve_sessions(
+            engine, sess_ids, rs["topk"]))
+    sr_loss = run("sasrec loss + backward", lambda: _backward(recsys.sasrec_loss, sr, sr_train,
+                                                              sr_cfg))
+    with torch.no_grad():
+        bst_logits = run("bst forward", lambda: recsys.bst_forward(
+            bst, bst_train["hist"], bst_train["target"], bst_train["profile"], bst_cfg))
+    bst_loss = run("bst loss + backward", lambda: _backward(recsys.bst_loss, bst, bst_train, bst_cfg))
+    _release(bst)
+    with torch.no_grad():
+        bst_ranked = run("bst ranking", lambda: recsys.bst_forward(
+            bst, bst_train["hist"][:1].expand(len(bst_cands), -1), bst_cands,
+            bst_train["profile"][:1].expand(len(bst_cands), -1), bst_cfg))
+        dlrm_logits = run("dlrm forward", lambda: recsys.dlrm_forward(
+            dlrm, dlrm_train["dense"], dlrm_train["sparse"], dlrm_cfg, DLRM_T))
+    dlrm_loss = run("dlrm loss + backward", lambda: _backward(recsys.dlrm_loss, dlrm, dlrm_train,
+                                                              dlrm_cfg, DLRM_T))
+    _release(dlrm)
+    with torch.no_grad():
+        dlrm_ranked = run("dlrm ranking", lambda: recsys.dlrm_retrieval(
+            dlrm, dlrm_train["dense"][:1], dlrm_train["sparse"][:1], dlrm_cands, dlrm_cfg, DLRM_T))
+    launches = {"pruned_matmul": pruned_matmul.launches, "pruned_topk": pruned_topk.launches}
+    PATH_LAUNCHES["recsys"] = launches
+    out["launches"] = launches
+    out["wall_ms"] = wall
+    log(f"  launches on the recsys path: {launches}; host ms (synchronized, first calls): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    chunks = -(-rs["sessions"] // rs["max_batch"])
+    check(launches["pruned_matmul"] == 2,
+          f"pruned_matmul launched twice on the recsys path, by fm_retrieval and "
+          f"sasrec_retrieval ({launches['pruned_matmul']})")
+    check(launches["pruned_topk"] == chunks,
+          f"pruned_topk launched once per {rs['max_batch']}-session chunk by serve_sessions "
+          f"({launches['pruned_topk']} of {chunks})")
+
+    # -- what came out -------------------------------------------------------------
+    finite = {name: bool(torch.isfinite(v).all()) for name, v in (
+        ("fm logits", fm_logits), ("fm retrieval", fm_scores), ("sasrec retrieval", sr_scores),
+        ("bst logits", bst_logits), ("bst ranking", bst_ranked), ("dlrm logits", dlrm_logits),
+        ("dlrm ranking", dlrm_ranked))}
+    finite["losses"] = all(math.isfinite(v) for v in (sr_loss.item(), bst_loss.item(),
+                                                      dlrm_loss.item()))
+    check(all(finite.values()) and fm_scores.shape == (rs["serve"], rs["cands"])
+          and sr_scores.shape == (rs["serve"], rs["cands"])
+          and bst_ranked.shape == (rs["rank_cands"],) and dlrm_ranked.shape == (rs["rank_cands"],),
+          f"recsys outputs finite and of the expected shapes ({finite})")
+    check(sess_i.shape == (rs["sessions"], rs["topk"]) and sess_i.min() >= 1
+          and sess_i.max() <= rs["sr_items"] and bool((sess_s[:, :-1] >= sess_s[:, 1:]).all()),
+          "serve_sessions: item ids in [1, n_items], scores descending")
+    out["losses"] = dict(sasrec=sr_loss.item(), bst=bst_loss.item(), dlrm=dlrm_loss.item())
+    del fm_logits, bst_logits, bst_ranked, dlrm_logits, dlrm_ranked
+    for t in _leaves(dlrm):
+        t.grad = None
+    for t in _leaves(bst):
+        t.grad = None
+
+    # -- kernels against their plain versions ------------------------------------
+    n = rs["cands"]
+    width = min(rs["slice"], n)
+    slices = [slice(0, width), slice(n - width, n)]
+    offsets = recsys._offsets(fm_cfg, fm_ctx)
+    s_u, const_u = recsys._fm_context(fm, fm_ctx, fm_cfg, FM_T)
+    v_c = fm["v"][fm_cands + offsets[FM_FIELDS - 1]]
+    w_c = fm["w"][fm_cands + offsets[FM_FIELDS - 1]]
+    fm_ru, fm_ri = effective_ranks(s_u, 0.0), effective_ranks(v_c, FM_T)
+    err_fm = _matmul_against_plain(
+        fm_scores, s_u, v_c, fm_ru, fm_ri,
+        lambda cross, sl: const_u[:, None] + cross + w_c[sl][None, :], "fm_retrieval", slices)
+    with torch.no_grad():
+        h = recsys.sasrec_encode(sr, sr_seq, sr_cfg)[:, -1]
+    table = sr["item_embed"].detach()[sr_cands]
+    sr_ru, sr_ri = effective_ranks(h, 0.0), effective_ranks(table, SR_T)
+    err_sr = _matmul_against_plain(sr_scores, h, table, sr_ru, sr_ri, lambda cross, sl: cross,
+                                   "sasrec_retrieval", slices)
+    del fm_scores, sr_scores
+    # the session engine's top-100 against the plain top-k on its own tables
+    view = engine.params
+    first = min(rs["max_batch"], rs["sessions"])
+    pu = view.p[:first].float().contiguous()
+    r_u = effective_ranks(pu, engine.t_p)
+    zero_bias = torch.zeros(view.q.shape[0], device=dev)
+    want_s, want_i = pruned_topk.pruned_topk_plain(pu, view.q.float().contiguous(), r_u,
+                                                   engine.r_i, zero_bias, rs["topk"],
+                                                   block_n=min(PLAIN_BLOCK_N, view.q.shape[0]))
+    err_topk = compare_topk(torch.as_tensor(sess_s[:first]).to(dev),
+                            torch.as_tensor(sess_i[:first] - 1).to(dev), want_s, want_i,
+                            f"serve_sessions (first {first} sessions) vs pruned_topk_plain")
+    out["max_abs_err"] = dict(fm=err_fm, sasrec=err_sr, sessions=err_topk)
+    # SASRec's one SGD step (lr 0.01, configs/base.py's recsys train cell), taken
+    # after the checks that read the weights it changes
+    with torch.no_grad():
+        for t in _leaves(sr):
+            t -= 0.01 * t.grad
+        out["losses"]["sasrec_after_step"] = recsys.sasrec_loss(sr, sr_train, sr_cfg).item()
+    _release(sr)
+    check(math.isfinite(out["losses"]["sasrec_after_step"]), "SASRec's loss finite after its step")
+    log(f"  losses: {out['losses']}")
+
+    # -- rate 0 is the dense model -------------------------------------------------
+    sub = slice(0, min(1 << 16, n))
+    with torch.no_grad():
+        for name, fn in (
+            ("fm_retrieval", lambda k: recsys.fm_retrieval(fm, fm_ctx, fm_cands[sub], fm_cfg, 0.0,
+                                                           use_kernel=k)),
+            ("sasrec_retrieval", lambda k: recsys.sasrec_retrieval(
+                sr, sr_seq, sr_cfg, 0.0, use_kernel=k, cand_ids=sr_cands[sub])),
+        ):
+            got, want = fn(True), fn(False)
+            err = float((got - want).abs().max())
+            check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+                  f"{name} at T = 0: the kernel route within rtol/atol {RTOL} of the dense route "
+                  f"(max abs err {err:.3e})")
+    # 1/8-grid operands at both widths: the two routes' scoring, bitwise
+    for name, k_w in (("fm", FM_K), ("sasrec", SR_K)):
+        gp = torch.randint(-16, 17, (rs["serve"], k_w), generator=gen, device=dev).float() / 8
+        gq = torch.randint(-16, 17, (sub.stop, k_w), generator=gen, device=dev).float() / 8
+        got = ops.pruned_matmul(gp, gq, 0.0, 0.0, device=dev)
+        want = torch.matmul(gp, recsys._mask_by_rank(gq, 0.0).T)
+        check(torch.equal(got, want), f"{name} scoring at T = 0 on 1/8-grid operands (k = {k_w}): "
+                                      "the kernel route bitwise the dense route")
+    # serve_sessions at thresholds 0 against dense_topk (score everything, stable sort)
+    dense_engine = sequential.session_engine(sr, sessions[:2 * first], sr_cfg, 0.0, 0.0, device=dev,
+                                             max_batch=rs["max_batch"])
+    ids0 = np.arange(2 * first if rs["sessions"] >= 2 * first else first)
+    got_s, got_i = sequential.serve_sessions(dense_engine, ids0, rs["topk"])
+    want_s, want_i = ranking.dense_topk(dense_engine.params, ids0, rs["topk"])
+    compare_topk(torch.as_tensor(got_s), torch.as_tensor(got_i - 1), torch.as_tensor(want_s),
+                 torch.as_tensor(want_i), f"serve_sessions at T = 0 vs dense_topk "
+                 f"({len(ids0)} sessions)")
+    same_ids = int((got_i - 1 == want_i).all(axis=1).sum())
+    log(f"  serve_sessions at T = 0: {same_ids} of {len(ids0)} sessions with ids identical to "
+        "dense_topk's")
+    # and on a 1/8-grid session view the ids and scores are exactly dense_topk's
+    grid_view = mf_grid_view(dense_engine.params)
+    grid_engine = ServingEngine(grid_view, 0.0, 0.0, device=dev,
+                                           max_batch=rs["max_batch"])
+    got_s, got_i = sequential.serve_sessions(grid_engine, ids0, rs["topk"])
+    want_s, want_i = ranking.dense_topk(grid_view, ids0, rs["topk"])
+    check(np.array_equal(got_i - 1, want_i) and np.array_equal(got_s, want_s),
+          "serve_sessions at T = 0 on a 1/8-grid session view: ids and scores exactly dense_topk's")
+    del dense_engine, grid_engine, grid_view
+    out["card_vs_cpu"] = _card_against_cpu(dev, SEED + 54, rs)
+
+    # -- timings -------------------------------------------------------------------
+    log("## recsys timings (CUDA events)")
+    ms = {}
+    with torch.no_grad():
+        ms["fm forward"] = ms_of(lambda: recsys.fm_forward(fm, fm_ids, fm_cfg, FM_T), 5)
+        ms["fm retrieval"] = ms_of(lambda: recsys.fm_retrieval(fm, fm_ctx, fm_cands, fm_cfg, FM_T),
+                                   3)
+        ms["sasrec encode"] = ms_of(lambda: recsys.sasrec_encode(sr, sr_seq, sr_cfg), 5)
+        ms["sasrec retrieval"] = ms_of(lambda: recsys.sasrec_retrieval(
+            sr, sr_seq, sr_cfg, SR_T, cand_ids=sr_cands), 3)
+        t = time.perf_counter()
+        sequential.serve_sessions(engine, sess_ids, rs["topk"])
+        ms["serve sessions (host clock)"] = (time.perf_counter() - t) * 1e3
+        ms["sasrec loss forward"] = ms_of(lambda: recsys.sasrec_loss(sr, sr_train, sr_cfg), 2)
+        ms["bst forward"] = ms_of(lambda: recsys.bst_forward(
+            bst, bst_train["hist"], bst_train["target"], bst_train["profile"], bst_cfg), 3)
+        ms["bst ranking"] = ms_of(lambda: recsys.bst_forward(
+            bst, bst_train["hist"][:1].expand(len(bst_cands), -1), bst_cands,
+            bst_train["profile"][:1].expand(len(bst_cands), -1), bst_cfg), 3)
+        ms["dlrm forward"] = ms_of(lambda: recsys.dlrm_forward(
+            dlrm, dlrm_train["dense"], dlrm_train["sparse"], dlrm_cfg, DLRM_T), 3)
+        ms["dlrm ranking"] = ms_of(lambda: recsys.dlrm_retrieval(
+            dlrm, dlrm_train["dense"][:1], dlrm_train["sparse"][:1], dlrm_cands, dlrm_cfg,
+            DLRM_T), 3)
+    for name, fn in (("sasrec loss + backward", lambda: _backward(recsys.sasrec_loss, sr, sr_train,
+                                                                   sr_cfg)),
+                     ("bst loss + backward", lambda: _backward(recsys.bst_loss, bst, bst_train,
+                                                                bst_cfg)),
+                     ("dlrm loss + backward", lambda: _backward(recsys.dlrm_loss, dlrm, dlrm_train,
+                                                                 dlrm_cfg, DLRM_T))):
+        ms[name] = ms_of(fn, 2)
+    for params in (sr, bst, dlrm):
+        _release(params)
+    log("  " + "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    out["ms"] = ms
+
+    # the two pruned_matmul shapes and the session top-k, against bounds and yardsticks
+    kernels = {}
+    for name, mp, mq, m_ru, m_ri in (("k=10 (fm)", s_u, v_c, fm_ru, fm_ri),
+                                     ("k=50 (sasrec)", h, table, sr_ru, sr_ri)):
+        mp, mq = mp.contiguous(), mq.contiguous()
+        k_w = mp.shape[1]
+        kms = ms_of(lambda: pruned_matmul.pruned_matmul_ranked(mp, mq, m_ru, m_ri), 5)
+        plain_ms = ms_of(lambda: pruned_matmul.pruned_matmul_plain(mp, mq, m_ru, m_ri), 2)
+        pm = mp * (torch.arange(k_w, device=dev) < m_ru[:, None])
+        qm = mq * (torch.arange(k_w, device=dev) < m_ri[:, None])
+        lib_ms = ms_of(lambda: torch.matmul(pm, qm.T), 3)
+        del pm, qm
+        flops = pair_flops(m_ru, m_ri, k_w)
+        nbytes = factor_bytes(m_ru, m_ri, 4) + 4.0 * mp.shape[0] * mq.shape[0]
+        b_ms, b_by = bound(flops, nbytes)
+        kernels[name] = dict(ms=kms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                             mean_r_i=float(m_ri.float().mean()))
+        log(f"  pruned_matmul {name}: {mp.shape[0]} x {mq.shape[0]}, mean r_i "
+            f"{kernels[name]['mean_r_i']:.3f}; kernel {kms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"torch.matmul on pre-masked rows {lib_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.3f} GB)")
+    q_all = view.q.float().contiguous()
+    kms = ms_of(lambda: pruned_topk.pruned_topk_ranked(pu, q_all, r_u, engine.r_i, zero_bias,
+                                                       rs["topk"]), 5)
+    plain_ms = ms_of(lambda: pruned_topk.pruned_topk_plain(
+        pu, q_all, r_u, engine.r_i, zero_bias, rs["topk"],
+        block_n=min(PLAIN_BLOCK_N, q_all.shape[0])), 2)
+    flops = pair_flops(r_u, engine.r_i, SR_K)
+    nbytes = factor_bytes(r_u, engine.r_i, 4) + 4.0 * q_all.shape[0] + 8.0 * first * rs["topk"]
+    b_ms, b_by = bound(flops, nbytes)
+    kernels["pruned_topk k=50"] = dict(ms=kms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       mean_r_i=float(engine.r_i.float().mean()))
+    log(f"  pruned_topk k=50 (sessions): {first} x {q_all.shape[0]}, top-{rs['topk']}, mean r_i "
+        f"{kernels['pruned_topk k=50']['mean_r_i']:.3f}; kernel {kms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by})")
+    out["kernels"] = kernels
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  peak device memory (max_memory_allocated) {out['peak_gb']:.2f} GB")
+    return out
+
+
+def mf_grid_view(view):
+    """A copy of an MF view with each table scaled to unit spread and rounded
+    to the 1/8 grid in [-2, 2]: every product and sum of the scoring exact."""
+    from repro_torch.core import mf
+
+    def grid(t):
+        scale = 8.0 / max(float(t.std()), 1e-30)
+        return torch.clamp(torch.round(t * scale), -16, 16) / 8.0
+    return mf.MFParams(p=grid(view.p), q=grid(view.q), user_bias=None, item_bias=None,
+                       global_mean=None, implicit=None)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
@@ -3367,6 +3991,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fused = phase("fused_mf_sgd kernel", fused_kernel_phase, dev)
+    scatter_stats = phase("add_rows kernel", add_rows_phase, dev)
     phase("small trainer", small_trainer_phase)
     train = phase("training main path", training_main_path, dev)
     phase("ranking evaluation", ranking_eval_phase, dev)
@@ -3385,6 +4010,7 @@ def main() -> int:
         fleet_process = phase("fleet-process", fleet_process_phase, dev)
         multirank = phase("multirank-dpmf", multirank_phase, dev, tmp)
         fleet_launchers = phase("fleet and SLO launchers", fleet_launchers_phase, tmp)
+        recsys_stats = phase("recsys", recsys_phase, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3399,15 +4025,30 @@ def main() -> int:
         "library_ms": None, "dense_ms": fused["T=0"]["ms"],
         "dense_bound_ms": fused["T=0"]["bound_ms"],
     })
+    rows.append({
+        "name": "add_rows", "route": "cuda", "source": "src/repro_torch/kernels/csrc/add_rows.cu",
+        "replaces": "none (the reference's XLA scatter .at[].add, src/repro/core/mf.py:276)",
+        "max_abs_err": scatter_stats["err"], "ms": scatter_stats["ms"],
+        "plain_ms": scatter_stats["plain_ms"], "bound_ms": scatter_stats["bound_ms"],
+        "bound_by": scatter_stats["bound_by"], "library_ms": scatter_stats["lib_ms"],
+        "library": "Tensor.index_add_ (atomics, repeats in any order)",
+        "sort_ms": scatter_stats["sort_ms"], "distinct_rows": scatter_stats["unique"],
+        "step_scatter_ms": {name: ms for name, ms in train["step_breakdown_ms"].items()
+                            if name.startswith("scatter")},
+    })
     for row in rows:
         # launches: the sum over the main paths' counted runs
         by_path = {path: counts[row["name"]] for path, counts in PATH_LAUNCHES.items()
                    if row["name"] in counts}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-        row["wide"] = repairs[row["name"]]
+        if row["name"] in repairs:
+            row["wide"] = repairs[row["name"]]
     rows[0]["ranking_eval_ms"] = train["ranking_eval_ms"]
     rows[2]["implicit_step_ms"] = implicit["step_ms"]
+    rows[0]["recsys_k50"] = recsys_stats["kernels"]["pruned_topk k=50"]
+    rows[1]["recsys"] = {name: recsys_stats["kernels"][name] for name in ("k=10 (fm)",
+                                                                           "k=50 (sasrec)")}
     workloads = {
         "implicit": {k: v for k, v in implicit.items() if k != "launches"},
         "bpr": {k: v for k, v in bpr_stats.items() if k != "launches"},
@@ -3424,6 +4065,7 @@ def main() -> int:
         "fleet_process": {k: v for k, v in fleet_process.items() if k != "launches"},
         "fleet_launchers": fleet_launchers,
         "multirank": {k: v for k, v in multirank.items() if k != "small"},
+        "recsys": {k: v for k, v in recsys_stats.items() if k not in ("launches", "kernels")},
     }
     log("# workloads " + json.dumps(workloads))
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.ranks import effective_ranks, rank_mask
 from repro_torch.device import DeviceLike, check_on, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.scatter import add_rows, add_rows_in_passes
 from repro_torch.optim.optimizers import RowOptimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -236,8 +237,9 @@ def _train_step(
     (``kernels.ops.fused_mf_sgd``: the CUDA kernel on the card, its plain
     version on the CPU); every other (variant, optimizer) pair takes the
     masked tensor formulation with the same semantics.  Duplicate rows in a
-    batch accumulate (scatter-add).  An optional ``batch["weight"]`` (B,)
-    gates rows out of the update and the metrics, never the prediction.
+    batch accumulate in batch order (``kernels.scatter.add_rows``).  An
+    optional ``batch["weight"]`` (B,) gates rows out of the update and the
+    metrics, never the prediction.
     ``t_p``/``t_q`` should be tensors on the tables' device: a Python float
     there costs a host-to-device copy per step.  The metrics are device
     scalars; nothing here waits on the card.
@@ -266,14 +268,14 @@ def _train_step(
             weight=weight, device=params.p.device,
         )
         # delta = (new - old) * lr * dim_mask, formed in the kernel's output
-        # buffers, then scattered (duplicate-safe) into the tables
+        # buffers, then scattered into the tables, duplicates in batch order
         dp = new_pu.sub_(pu).float().mul_(lr).mul_(dim_mask)
         dq = new_qi.sub_(qi).float().mul_(lr).mul_(dim_mask)
-        params.p.index_add_(0, u, dp.to(params.p.dtype))
-        params.q.index_add_(0, i, dq.to(params.q.dtype))
+        add_rows(params.p, u, dp.to(params.p.dtype))
+        add_rows(params.q, i, dq.to(params.q.dtype))
         if has_bias:
-            params.user_bias[:, 0].index_add_(0, u, ((new_bu - bu) * lr).to(params.user_bias.dtype))
-            params.item_bias[:, 0].index_add_(0, i, ((new_bi - bi) * lr).to(params.item_bias.dtype))
+            add_rows(params.user_bias[:, 0], u, ((new_bu - bu) * lr).to(params.user_bias.dtype))
+            add_rows(params.item_bias[:, 0], i, ((new_bi - bi) * lr).to(params.item_bias.dtype))
         return params, opt_state, _metrics(err, pair_ranks, w, k)
 
     pred_mask = rank_mask(pair_ranks, k) * dim_mask[None, :]
@@ -478,31 +480,14 @@ def _add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *,
               keep: Optional[torch.Tensor] = None, in_passes: Optional[bool] = None) -> None:
     """``table[idx] += rows`` with repeated indices added in batch order, so
     every replica of a block that applies the same rows holds the same
-    bits.  On the CPU that is ``index_add_``; on CUDA its atomics add
-    repeats in any order, so the rows go in passes of distinct indices:
-    pass j adds each index's j-th row (``in_passes`` forces either way).
-    ``keep`` drops rows that are exact zeros (adding them changes no bit,
-    and the padding rows of a routed batch would each cost a pass)."""
-    if keep is not None:
-        idx, rows = idx[keep], rows[keep]
-    if not (table.is_cuda if in_passes is None else in_passes):
-        table.index_add_(0, idx, rows)
-        return
-    n = idx.numel()
-    if n == 0:
-        return
-    order = torch.argsort(idx, stable=True)
-    ordered = idx[order]
-    at = torch.arange(n, device=idx.device)
-    first = torch.ones(n, dtype=torch.bool, device=idx.device)
-    first[1:] = ordered[1:] != ordered[:-1]
-    rank_in_run = at - torch.cummax(torch.where(first, at, 0), 0).values
-    by_pass = order[torch.argsort(rank_in_run, stable=True)]
-    lo = 0
-    for count in torch.bincount(rank_in_run).tolist():
-        sel = by_pass[lo:lo + count]
-        table.index_add_(0, idx[sel], rows[sel])
-        lo += count
+    bits: :func:`~repro_torch.kernels.scatter.add_rows` (``index_add_`` on
+    the CPU, the batch-order kernel on CUDA), or with ``in_passes`` its
+    plain form in passes of distinct indices.  ``keep`` drops rows that are
+    exact zeros (adding them changes no bit)."""
+    if in_passes:
+        add_rows_in_passes(table, idx, rows, keep=keep)
+    else:
+        add_rows(table, idx, rows, keep=keep)
 
 
 def init_error_feedback_state(params: MFParams, opt_state: MFOptState, mesh=None) -> MFOptState:
@@ -647,7 +632,7 @@ def train_step_shard_map(
         summed = (compression.psum_int8(q8, model_group, name="g_p int8")
                   if model_group is not None else q8.to(torch.int32))
         g_p = summed.float() * scale
-        ef_p.index_add_(0, u_loc, g_p_partial - recon)
+        add_rows(ef_p, u_loc, g_p_partial - recon)
     elif gc == "int8":
         if model_group is not None:
             g_p = compression.compressed_psum(g_p_partial, model_group)
@@ -697,7 +682,7 @@ def train_step_shard_map(
                 gat_q8.reshape(-1, q8.shape[0], k), gat_scale.reshape(-1, 1, 1)).reshape(-1, k)
             if gc == "int8_ef":
                 recon = compression.dequantize_int8(q8, scale)
-                ef_q.index_add_(0, safe_i, torch.where(is_local[:, None], dq_rows - recon, 0.0))
+                add_rows(ef_q, safe_i, torch.where(is_local[:, None], dq_rows - recon, 0.0))
         else:
             gat_dq = spmd.all_gather(dq_rows, mesh, dp, name="dq gather")
         # the indices travel with -1 on the rows left out
@@ -709,9 +694,9 @@ def train_step_shard_map(
             _add_rows(acc_q, gat_idx, spmd.all_gather(g_q * g_q, mesh, dp, name="g_q^2 gather"),
                       keep=gat_keep)
     else:
-        params.q.index_add_(0, safe_i, dq_rows.to(params.q.dtype))
+        add_rows(params.q, safe_i, dq_rows.to(params.q.dtype))
         if adagrad:
-            acc_q.index_add_(0, safe_i, g_q * g_q)
+            add_rows(acc_q, safe_i, g_q * g_q)
 
     # 6. weighted metrics (err and w agree across model ranks, so only the
     # data axes are summed)

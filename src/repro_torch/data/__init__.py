@@ -1,4 +1,11 @@
-"""Rating datasets and the batch loaders of the training path."""
+"""Rating datasets, the batch loaders of the training path, and the
+synthetic click data of the recsys models (``clicks``)."""
+from repro_torch.data.clicks import (  # noqa: F401
+    bst_batch,
+    criteo_batch,
+    fm_batch,
+    sasrec_batch,
+)
 from repro_torch.data.loader import (  # noqa: F401
     PackedRatings,
     epoch_permutation,

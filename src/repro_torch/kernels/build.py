@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_mf_sgd", "pruned_matmul", "pruned_topk")
+SOURCES = ("add_rows", "fused_mf_sgd", "pruned_matmul", "pruned_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +33,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _SIGNATURES = {
+    "add_rows": {
+        # table, ld, n, k, sorted, order, rows, b, dtype, round_each, stream
+        "add_rows_launch": (
+            [_P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int,
+        ),
+    },
     "fused_mf_sgd": {
         # p_rows, q_rows, rating, bias_u, bias_i, weight, t_p, t_q, mu, lr, lam,
         # new_p, new_q, new_bu, new_bi, err, b, k, dtype, stream

@@ -11,8 +11,9 @@ size a second copy of the 51 GB user table does not fit beside the first.
 
 Duplicate row indices follow the reference exactly:
 
-* the parameter update is a scatter-add (``index_add_``), so duplicates
-  accumulate;
+* the parameter update is a scatter-add (``kernels.scatter.add_rows``:
+  ``index_add_`` on the CPU, the batch-order kernel on CUDA), so duplicates
+  accumulate in batch order, as the reference's ``.at[idx].add`` does;
 * adagrad's accumulator also adds every duplicate, while each duplicate's
   delta uses its own ``acc[idx] + g^2`` gathered before the update;
 * momentum, adadelta and adam write their state rows back with the last
@@ -30,6 +31,8 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.kernels.scatter import add_rows
 
 State = Dict[str, torch.Tensor]
 
@@ -87,15 +90,15 @@ class RowOptimizer:
         """Update ``param`` and ``state`` in place; returns them."""
         g = grad_rows.float() * mask
         if self.name == "sgd":
-            param.index_add_(0, idx, (-lr * g).to(param.dtype))
+            add_rows(param, idx, (-lr * g).to(param.dtype))
             return param, state
 
         if self.name == "adagrad":
             acc = state["acc"]
             acc_rows = acc[idx] + g * g
             delta = -lr * g / torch.sqrt(acc_rows + self.eps) * mask
-            param.index_add_(0, idx, delta.to(param.dtype))
-            acc.index_add_(0, idx, g * g)
+            add_rows(param, idx, delta.to(param.dtype))
+            add_rows(acc, idx, g * g)
             return param, state
 
         keep = last_occurrence(idx)
@@ -103,7 +106,7 @@ class RowOptimizer:
             # heavy ball on the masked gradient; an all-zero mask still decays
             # and writes back the row's momentum, as in the reference
             mom_rows = self.mu * state["mom"][idx] + g
-            param.index_add_(0, idx, (-lr * mom_rows * mask).to(param.dtype))
+            add_rows(param, idx, (-lr * mom_rows * mask).to(param.dtype))
             _set_rows(state["mom"], idx, mom_rows, keep)
             return param, state
 
@@ -113,7 +116,7 @@ class RowOptimizer:
             edx2_old = edx2[idx]
             dx = (-torch.sqrt(edx2_old + self.eps) / torch.sqrt(eg2_rows + self.eps) * g) * mask
             edx2_rows = self.rho * edx2_old + (1 - self.rho) * dx * dx
-            param.index_add_(0, idx, dx.to(param.dtype))
+            add_rows(param, idx, dx.to(param.dtype))
             _set_rows(eg2, idx, eg2_rows, keep)
             _set_rows(edx2, idx, edx2_rows, keep)
             return param, state
@@ -127,7 +130,7 @@ class RowOptimizer:
             mhat = m_rows / (1 - torch.pow(one * self.beta1, tf))
             vhat = v_rows / (1 - torch.pow(one * self.beta2, tf))
             delta = -lr * mhat / (torch.sqrt(vhat) + self.eps) * mask
-            param.index_add_(0, idx, delta.to(param.dtype))
+            add_rows(param, idx, delta.to(param.dtype))
             _set_rows(state["m"], idx, m_rows, keep)
             _set_rows(state["v"], idx, v_rows, keep)
             state["t"] = t

@@ -9,10 +9,10 @@ Counterpart of ``repro/workloads``:
   updater unchanged;
 * :mod:`repro_torch.workloads.bpr`: Bayesian Personalized Ranking (Rendle
   2009), a pairwise ``-log sigma(s_ui - s_uj)`` objective whose masked
-  gradients apply the same dynamic pruning per (user, item) pair.
-
-``repro/workloads/sequential.py`` (SASRec session encodings served by the
-engine) is not ported yet: it waits for the model zoo's SASRec (ROADMAP A8).
+  gradients apply the same dynamic pruning per (user, item) pair;
+* :mod:`repro_torch.workloads.sequential`: SASRec session encodings served
+  as user vectors by the unchanged pruned top-k engine (``pruned_topk`` on
+  the card).
 """
 from repro_torch.workloads.bpr import (  # noqa: F401
     BPRSampler,
@@ -27,4 +27,10 @@ from repro_torch.workloads.implicit import (  # noqa: F401
     implicit_event_batch,
     implicit_microbatches,
     strip_ratings,
+)
+from repro_torch.workloads.sequential import (  # noqa: F401
+    encode_sessions,
+    serve_sessions,
+    session_engine,
+    session_params,
 )

@@ -11,7 +11,7 @@ import torch
 from repro_torch.core import mf, trainer
 from repro_torch.core.ranks import effective_ranks
 from repro_torch.data.ratings import synthetic_ratings, train_test_split
-from repro_torch.kernels import fused_mf_sgd, ops, pruned_matmul, pruned_topk, ref
+from repro_torch.kernels import fused_mf_sgd, ops, pruned_matmul, pruned_topk, ref, scatter
 from repro_torch.optim.optimizers import RowOptimizer
 from repro_torch.serving import ServingEngine
 
@@ -947,8 +947,9 @@ def test_sharded_step_on_cuda_matches_single_device_step(cuda, opt_name):
     t = torch.tensor(0.05, device=cuda)
     mf.train_step(params, state, tb, t, t, 0.05, torch.ones(k, device=cuda), opt=opt, lam=0.02)
     for out in got:
-        np.testing.assert_allclose(out["p"], params.p.cpu().numpy(), atol=2e-8, rtol=1e-6)
-        np.testing.assert_allclose(out["q"], params.q.cpu().numpy(), atol=2e-8, rtol=1e-6)
+        # both steps scatter through add_rows: repeats in batch order, bitwise
+        np.testing.assert_array_equal(out["p"], params.p.cpu().numpy())
+        np.testing.assert_array_equal(out["q"], params.q.cpu().numpy())
     # the replicas of the p block (over "model") hold the same bits
     np.testing.assert_array_equal(got[0]["p"], got[1]["p"])
 
@@ -975,3 +976,105 @@ def test_topk_sharded_on_cuda_launches_the_kernel(cuda):
         near = np.abs(scores - (want_s + const)) <= 1e-5 + 1e-5 * np.abs(want_s + const)
         assert near.all()
         assert ((ids == want_i) | near).all() and (ids == want_i).mean() > 0.99
+
+
+# -- the batch-order row scatter ------------------------------------------------
+
+@pytest.mark.parametrize("rows,span,k", [(1, 5, 4), (5000, 3, 33), (1 << 16, 1000, 128),
+                                         (20000, 40, 1), (4099, 100000, 130), (3000, 64, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rows_kernel_equals_cpu_index_add(cuda, rows, span, k, dtype):
+    """The kernel adds repeats in batch order: bitwise the CPU's
+    ``index_add_`` on the same inputs (a power law on the indices, updates
+    over seven decades), one launch, for tables, a bias column (a strided
+    vector) and the ``keep`` filter."""
+    rng = np.random.default_rng(rows + k)
+    table = torch.tensor(rng.normal(size=(span, k)).astype(np.float32)).to(dtype)
+    idx = torch.tensor((span * rng.random(rows) ** 3).astype(np.int64))
+    upd = torch.tensor((rng.normal(size=(rows, k)) * 10.0 ** rng.integers(-3, 4, (rows, 1)))
+                       .astype(np.float32)).to(dtype)
+    want = table.clone().index_add_(0, idx, upd)
+    before = scatter.launches
+    got = scatter.add_rows(table.to(cuda), idx.to(cuda), upd.to(cuda))
+    assert scatter.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    col = table.clone()
+    col_want = table.clone()
+    col_want[:, 0].index_add_(0, idx, upd[:, 0])
+    col_gpu = col.to(cuda)
+    scatter.add_rows(col_gpu[:, 0], idx.to(cuda), upd[:, 0].to(cuda))
+    assert torch.equal(col_gpu.cpu(), col_want)
+    col_gpu = col.to(cuda)
+    scatter.add_rows_in_passes(col_gpu[:, 0], idx.to(cuda), upd[:, 0].to(cuda))
+    assert torch.equal(col_gpu.cpu(), col_want)
+    keep = torch.tensor(rng.random(rows) < 0.5)
+    kept = table.clone().index_add_(0, idx[keep], upd[keep])
+    got = scatter.add_rows(table.to(cuda), idx.to(cuda), upd.to(cuda), keep=keep.to(cuda))
+    assert torch.equal(got.cpu(), kept)
+    passes = scatter.add_rows_in_passes(table.to(cuda), idx.to(cuda), upd.to(cuda))
+    assert torch.equal(passes.cpu(), want)
+
+
+def test_add_rows_raises_on_misuse(cuda):
+    table = torch.zeros(4, 3, device=cuda)
+    idx = torch.zeros(2, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError):
+        scatter.add_rows(table, idx, torch.zeros(2, 3, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        scatter.add_rows(table, idx.cpu(), torch.zeros(2, 3, device=cuda))
+
+
+@pytest.mark.parametrize("opt_name,fused", [("sgd", True), ("adagrad", False)])
+def test_train_step_on_cuda_is_reproducible(cuda, opt_name, fused):
+    """Two steps from one state, with many repeated items, give the same
+    bits: every scatter adds in batch order."""
+    m, n, k, b = 3000, 50, 128, 1 << 15
+    g = torch.Generator().manual_seed(5)
+    base = mf.init_params(g, m, n, k, variant="bias", global_mean=3.0, device="cpu")
+    rng = np.random.default_rng(6)
+    batch = {"user": torch.tensor(rng.integers(0, m, b), device=cuda),
+             "item": torch.tensor((n * rng.random(b) ** 2).astype(np.int64), device=cuda),
+             "rating": torch.tensor(rng.integers(1, 6, b).astype(np.float32), device=cuda)}
+    opt = RowOptimizer(opt_name)
+    out = []
+    for _ in range(2):
+        params = mf.MFParams(*(None if v is None else v.to(cuda) for v in base))
+        state = mf.init_opt_state(params, opt)
+        t = torch.tensor(0.05, device=cuda)
+        mf.train_step(params, state, batch, t, t, 0.05, torch.ones(k, device=cuda), opt=opt,
+                      lam=0.02, use_fused_kernel=fused)
+        out.append(params)
+    for a, c in zip(*out):
+        if a is not None:
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("t_v", [0.0, 0.01])
+def test_recsys_retrievals_launch_pruned_matmul_at_k10_and_k50(cuda, t_v):
+    """``fm_retrieval`` (k = 10) and ``sasrec_retrieval`` (k = 50), widths
+    off a multiple of 4 (the kernel's 4-byte copies), through the kernel
+    against the dense route of rank-masked rows at 1e-5."""
+    from repro_torch.models import recsys
+
+    fm_cfg = recsys.FMConfig(n_fields=6, embed_dim=10, vocab_per_field=3000)
+    params = recsys.init_fm_params(torch.Generator(device=cuda).manual_seed(0), fm_cfg, cuda)
+    params["w"].normal_(0, 0.05)
+    rng = np.random.default_rng(7)
+    users = torch.tensor(rng.integers(0, 3000, (33, 5)), device=cuda)
+    cands = torch.tensor(rng.integers(0, 3000, 5001), device=cuda)
+    before = pruned_matmul.launches
+    got = recsys.fm_retrieval(params, users, cands, fm_cfg, t_v, use_kernel=True)
+    assert pruned_matmul.launches == before + 1
+    want = recsys.fm_retrieval(params, users, cands, fm_cfg, t_v, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    sr_cfg = recsys.SASRecConfig(n_items=4000, embed_dim=50, n_blocks=2, n_heads=1, seq_len=20)
+    params = recsys.init_sasrec_params(torch.Generator(device=cuda).manual_seed(1), sr_cfg, cuda)
+    seq = torch.tensor(rng.integers(0, 4001, (65, 20)), device=cuda)
+    for cand_ids in (None, torch.tensor(rng.integers(0, 4001, 777), device=cuda)):
+        before = pruned_matmul.launches
+        got = recsys.sasrec_retrieval(params, seq, sr_cfg, t_v, use_kernel=True, cand_ids=cand_ids)
+        assert pruned_matmul.launches == before + 1
+        want = recsys.sasrec_retrieval(params, seq, sr_cfg, t_v, use_kernel=False,
+                                       cand_ids=cand_ids)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -217,3 +217,17 @@ def kernel_topk_case(ctx, shape, names, full, t, users, topk):
     want_s, want_i = pruned_topk.pruned_topk_plain(
         pu, params.q, effective_ranks(pu, t), engine.r_i, engine._snap.item_bias_vec, topk)
     return scores, ids, launches, want_s.cpu().numpy(), want_i.cpu().numpy()
+
+
+def session_case(ctx, shape, names, tree, seqs, cfg, t_p, t_q, sessions, topk):
+    """SASRec sessions served through ``serve_sessions(mesh=)`` on this
+    rank's catalog slab, and through the rank's local ``engine.topk``."""
+    from repro_torch.models import recsys
+    from repro_torch.workloads import sequential
+
+    mesh = ctx.mesh(shape, names)
+    params = recsys.recsys_params_from_numpy(tree, ctx.device)
+    engine = sequential.session_engine(params, seqs, cfg, t_p, t_q, device=ctx.device,
+                                       max_batch=8)
+    return (sequential.serve_sessions(engine, sessions, topk, mesh=mesh),
+            sequential.serve_sessions(engine, sessions, topk))
