@@ -2,8 +2,8 @@
 """Chip smoke of the PyTorch/CUDA port: drives its serving, swap, SLO,
 training, ranking-evaluation, implicit and BPR, online freshness,
 out-of-core (ratings store, streamed training, eviction), serving-fleet,
-multi-rank and recsys (FM, DLRM, SASRec with its sessions, BST) paths on
-one card.
+multi-rank and recsys (FM, DLRM, SASRec with its sessions, BST) paths, and
+the cells of the port's config registry, on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -42,7 +42,11 @@ script exits) it:
    0.8) and then ten times that (it relaxes to the floor); per apply the
    solve's and the swap's ms, each applied threshold against the solve on
    float64 statistics, the served top-k after each apply bitwise a fresh
-   engine's, ``pruned_topk`` at both ends (counted under ``slo``);
+   engine's, ``pruned_topk`` at both ends (counted under ``slo``); then
+   dpmf's ``serve_top100`` cell of ``repro_torch.configs`` on the served
+   tables (no second copy): its step once for 1024 users (one
+   ``pruned_topk`` launch, counted under ``cells``, CUDA events), the first
+   256 users against ``pruned_topk_plain``;
 4. frees the serving model, then holds ``fused_mf_sgd`` against its plain
    version at the training step's shape (B = 2^20 rows, k = 128, float32) at
    T = 0 and at rate 0.3, with and without bias and weight columns, plus a
@@ -146,7 +150,8 @@ script exits) it:
    scatter through ``add_rows``), the sharded updater against the single-device one
    (2e-7) and a (2, 2) checkpoint ``elastic_load``-ed onto (1, 4)
    (bitwise); then two sharded steps of 2^20 ratings in each of none, int8
-   and int8_ef, the last timed by part with the bytes of each collective,
+   and int8_ef (none and int8 through dpmf's ``train_1m_sm`` and
+   ``train_1m_smc`` cells), the last timed by part with the bytes of each collective,
    every block's replicas bitwise equal; ``topk_sharded`` (top-100, 256
    users) and ``evaluate_engine(mesh=)`` over 512 users, ``pruned_topk``
    counted on every rank (under ``multirank``), held against rank 0's
@@ -170,7 +175,23 @@ script exits) it:
    (bitwise on 1/8-grid operands; the sessions against ``dense_topk``),
    each model at its widths on a 64-row batch on the card against the CPU
    (1e-4 of the largest value), and the timings;
-22. prints a ``kernels`` JSON line (``launches`` summed over the counted
+22. cells: every other ported cell of ``repro_torch.configs`` built (the
+   device memory checked unchanged, abstract arguments meta) and its
+   ``step_fn`` run once, timed with CUDA events: FM's, SASRec's, BST's and
+   DLRM's ``train_batch`` (65,536 rows; autograd and one SGD step in
+   place), ``serve_p99`` (512), ``serve_bulk`` (262,144) and
+   ``retrieval_cand`` (1M candidates; 2^18 for the rankers BST and DLRM)
+   at their published widths (DLRM's tables cut to 2^23 rows), each arch's
+   steps in one counted run; SASRec's serve cells rank the whole catalog
+   through ``pruned_topk``, FM's and SASRec's retrievals through
+   ``pruned_matmul``; every answer against the same step on the CPU, where
+   the kernels run their plain versions (the train step from the weights
+   before it: its loss and updated weights; a serve's first 256 rows, a
+   retrieval's first and last 4096 candidates; DLRM's tables cut to the
+   rows a batch reads); then dpmf's ``train_1m`` (adagrad, four ``add_rows``) at 20M
+   users x 10M x 128, its touched rows against the step on the CPU;
+   launches counted under ``cells``;
+23. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
 The store, checkpoint and spill files live in one temporary directory,
@@ -185,6 +206,8 @@ card, or outside a checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import gc
 import json
 import math
@@ -201,6 +224,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if not (SRC / "repro_torch").is_dir():
+    print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
+          file=sys.stderr)
+    sys.exit(2)
+sys.path.insert(0, str(SRC))
+from repro_torch import configs  # noqa: E402  (the sizes below are the registry's)
+from repro_torch.configs.base import RECSYS_SHAPES  # noqa: E402
+
+DPMF = configs.get_config("dpmf")
 
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
@@ -210,8 +242,8 @@ RTOL = ATOL = 1e-5
 BF16_TOL = 2e-2
 RECORD_RTOL = 1e-4
 SEED = 0
-N_USERS, N_ITEMS, K = 100_000_000, 10_000_000, 128   # src/repro/configs/dpmf.py
-RATE = 0.3
+N_USERS, N_ITEMS, K = DPMF.num_users, DPMF.num_items, DPMF.k
+RATE = DPMF.pruning_rate
 TOPK = 100
 WIDE_TOPK = 4096   # past the 1024 lists the first kernel could keep
 TOPK_USERS, MATMUL_USERS = 256, 64
@@ -220,7 +252,7 @@ C6_ITEMS, C6_ROWS = 200_000, 1 << 16  # pruned_matmul items, fused_mf_sgd row pa
 PLAIN_BLOCK_N = 65536
 # training main path: dpmf's train_1m batch, lr and lam; sgd + fused kernel
 BATCH, TRAIN_STEPS, EPOCHS = 1 << 20, 8, 3
-LR, LAM = 0.05, 0.02
+LR, LAM = DPMF.lr, DPMF.lam
 # items ~ 1/(i + 10000): item 0 takes ~15 ratings a batch and ~10^5 items
 # collide in every batch.  At an offset of 1000 (~120 ratings of item 0 a
 # batch) the summed updates of popular items at lr 0.05 grow the tables
@@ -283,16 +315,33 @@ def check(ok: bool, what: str) -> None:
         failures.append(what)
 
 
-def time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _clock(dev, fn, reps=1):
+    """The last of ``reps`` calls of ``fn`` and their mean ms: CUDA events on
+    the card, the host clock on the CPU (a rehearsal)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return out, (time.perf_counter() - t0) * 1e3 / reps
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    torch.cuda.synchronize(dev)
+    return out, start.elapsed_time(end) / reps
+
+
+def time_ms(fn, reps, dev=torch.device("cuda")):
+    """The mean ms of ``reps`` calls of ``fn`` after one warm call."""
+    fn()
+    _sync(dev)
+    return _clock(dev, fn, reps)[1]
 
 
 def above(r, k):
@@ -3091,10 +3140,14 @@ def _mr_small(ctx, tmp, sizes):
     return out
 
 
+MR_CELLS = {"none": "train_1m_sm", "int8": "train_1m_smc"}
+
+
 def _mr_train(ctx, mode, steps, m, n, batch_rows):
     """``steps`` sharded steps of ``batch_rows`` ratings in ``mode`` on this
     rank's blocks of (m, n) tables (made on the first call), adagrad at
-    rate 0.3: the last step measured,
+    rate 0.3, through dpmf's owner-compute cell of the mode (none:
+    ``train_1m_sm``, int8: ``train_1m_smc``): the last step measured,
     collectives by name (bytes this rank sent, host ms with the card
     synchronised around each) and the step's host ms."""
     from repro_torch.core import mf
@@ -3113,6 +3166,19 @@ def _mr_train(ctx, mode, steps, m, n, batch_rows):
     if mode == "int8_ef":
         st["state"] = mf.init_error_feedback_state(st["params"], st["state"], mesh)
     n_dp = spmd.axis_size(mesh, sharding.data_axes(mesh))
+    # modes none and int8 are dpmf's owner-compute cells (adagrad, its lr and
+    # lam); int8_ef has no cell
+    cell = MR_CELLS.get(mode)
+    if cell is not None:
+        cell = configs.build_cell("dpmf", cell)
+
+        def step_fn(batch):
+            return cell.step_fn(st["params"], st["state"], batch, *st["t"], mesh=mesh)
+    else:
+        def step_fn(batch):
+            return mf.train_step_shard_map(
+                st["params"], st["state"], batch, *st["t"], lr=LR, lam=LAM, opt_name="adagrad",
+                grad_compression=mode, mesh=mesh)
     log = spmd.CollectiveLog()
     for step in range(steps):
         batch = _mr_batch(np.random.default_rng(SEED + 75 + step), batch_rows, m, n, n_dp)
@@ -3121,9 +3187,7 @@ def _mr_train(ctx, mode, steps, m, n, batch_rows):
         _mr_sync(dev)
         t0 = time.perf_counter()
         with spmd.recording(log if measured else spmd.CollectiveLog()):
-            _, _, metrics = mf.train_step_shard_map(
-                st["params"], st["state"], batch, *st["t"], lr=LR, lam=LAM, opt_name="adagrad",
-                grad_compression=mode, mesh=mesh)
+            _, _, metrics = step_fn(batch)
             abs_err = float(metrics["abs_err"])
         _mr_sync(dev)
         step_ms = (time.perf_counter() - t0) * 1e3
@@ -3467,46 +3531,31 @@ def steps_reproducible(trainer, batch, lr, what):
 # recsys: FM, SASRec (and its sessions through the engine), BST and DLRM
 # ---------------------------------------------------------------------------
 
-# the configs' published sizes, copied by hand from src/repro/configs/
-# fm_arch.py, sasrec_arch.py, bst_arch.py and dlrm_mlperf.py (and the MLPerf
-# vocabularies of src/repro/models/recsys.py), as dpmf's are above
-FM_FIELDS, FM_VOCAB, FM_K, FM_T = 39, 1_048_576, 10, 0.02
-SR_ITEMS, SR_K, SR_BLOCKS, SR_HEADS, SR_SEQ, SR_T = 1_048_575, 50, 2, 1, 50, 0.002
-BST_ITEMS, BST_K, BST_SEQ, BST_BLOCKS, BST_HEADS = 1_048_575, 32, 20, 1, 8
-BST_MLP, BST_PROFILE = (1024, 512, 256), 16
-DLRM_K, DLRM_BOT, DLRM_TOP, DLRM_T = 128, (512, 256, 128), (1024, 1024, 512, 256, 1), 0.002
+# the configs' published sizes, from the port's registry (repro_torch.configs)
+FM_ARCH, SR_ARCH, BST_ARCH, DLRM_ARCH = (configs.get_module(a) for a in (
+    "fm", "sasrec", "bst", "dlrm-mlperf"))
+FM_FIELDS, FM_VOCAB, FM_K = (FM_ARCH.CONFIG.n_fields, FM_ARCH.CONFIG.vocab_per_field,
+                             FM_ARCH.CONFIG.embed_dim)
+FM_T = FM_ARCH.PRUNE_T
+SR_ITEMS, SR_K, SR_SEQ = SR_ARCH.CONFIG.n_items, SR_ARCH.CONFIG.embed_dim, SR_ARCH.CONFIG.seq_len
+SR_T = SR_ARCH.PRUNE_T
+BST_ITEMS, BST_K, BST_SEQ, BST_PROFILE = (BST_ARCH.CONFIG.n_items, BST_ARCH.CONFIG.embed_dim,
+                                          BST_ARCH.CONFIG.seq_len, BST_ARCH.CONFIG.n_profile)
+DLRM_K, DLRM_T = DLRM_ARCH.CONFIG.embed_dim, DLRM_ARCH.PRUNE_T
 DLRM_CAP = 1 << 23  # rows a table keeps on one card: the five larger tables are cut to it
 # configs/base.py: serve_p99 512, train_batch 65536, retrieval_cand 1M candidates;
 # the ranking models (BST, DLRM) score 2^18 candidates, not 1M (PERF.md section 4)
-RS_SERVE, RS_TRAIN, RS_CANDS, RS_RANK_CANDS = 512, 65536, 1_000_000, 1 << 18
+RS_SERVE, RS_TRAIN = RECSYS_SHAPES["serve_p99"]["batch"], RECSYS_SHAPES["train_batch"]["batch"]
+RS_BULK = RECSYS_SHAPES["serve_bulk"]["batch"]
+RS_CANDS = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+RS_RANK_CANDS = 1 << 18
 RS_SESSIONS, RS_SESSION_TOPK, RS_SLICE, RS_CHECK_ROWS, RS_CHECK_VOCAB = 4096, 100, 4096, 64, 2048
 
 
 def dlrm_vocabs(cap=DLRM_CAP):
     """dlrm_mlperf's tables (MLPerf's vocabularies, those of 8192 rows or more
     padded to a multiple of 512), each cut to ``cap`` rows."""
-    from repro_torch.models import recsys
-
-    return tuple(min(v + (-v) % 512 if v >= 8192 else v, cap) for v in recsys.MLPERF_CRITEO_VOCABS)
-
-
-def _timer(dev):
-    """CUDA events on the card; the host clock on the CPU (a rehearsal)."""
-    if dev.type == "cuda":
-        return time_ms
-
-    def host_ms(fn, reps):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    return host_ms
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    return tuple(min(v, cap) for v in DLRM_ARCH.CONFIG.vocab_sizes)
 
 
 def _leaves(tree):
@@ -3568,28 +3617,24 @@ def _card_against_cpu(dev, gen_seed, rs):
     vocab, rows = rs["check_vocab"], rs["check_rows"]
     gen = torch.Generator().manual_seed(gen_seed)
     cases = {}
-    fm_cfg = recsys.FMConfig(n_fields=FM_FIELDS, embed_dim=FM_K, vocab_per_field=vocab)
+    fm_cfg = dataclasses.replace(FM_ARCH.CONFIG, vocab_per_field=vocab)
     fm_b = clicks.fm_batch(rows, n_fields=FM_FIELDS, vocab_per_field=vocab, seed=SEED + 50)
     cases["fm"] = (recsys.init_fm_params(gen, fm_cfg, cpu), fm_b,
                    lambda p, b: recsys.fm_forward(p, b["ids"], fm_cfg, FM_T),
                    lambda p, b: recsys.fm_loss(p, b, fm_cfg, FM_T))
-    sr_cfg = recsys.SASRecConfig(n_items=vocab, embed_dim=SR_K, n_blocks=SR_BLOCKS,
-                                 n_heads=SR_HEADS, seq_len=SR_SEQ)
+    sr_cfg = dataclasses.replace(SR_ARCH.CONFIG, n_items=vocab)
     sr_b = clicks.sasrec_batch(rows, seq_len=SR_SEQ, n_items=vocab, seed=SEED + 51)
     cases["sasrec"] = (recsys.init_sasrec_params(gen, sr_cfg, cpu), sr_b,
                        lambda p, b: recsys.sasrec_encode(p, b["seq"], sr_cfg),
                        lambda p, b: recsys.sasrec_loss(p, b, sr_cfg))
-    bst_cfg = recsys.BSTConfig(n_items=vocab, embed_dim=BST_K, seq_len=BST_SEQ,
-                               n_blocks=BST_BLOCKS, n_heads=BST_HEADS, mlp_dims=BST_MLP,
-                               n_profile=BST_PROFILE)
+    bst_cfg = dataclasses.replace(BST_ARCH.CONFIG, n_items=vocab)
     bst_b = clicks.bst_batch(rows, seq_len=BST_SEQ, n_items=vocab, n_profile=BST_PROFILE,
                              seed=SEED + 52)
     cases["bst"] = (recsys.init_bst_params(gen, bst_cfg, cpu), bst_b,
                     lambda p, b: recsys.bst_forward(p, b["hist"], b["target"], b["profile"],
                                                     bst_cfg),
                     lambda p, b: recsys.bst_loss(p, b, bst_cfg))
-    dlrm_cfg = recsys.DLRMConfig(embed_dim=DLRM_K, vocab_sizes=dlrm_vocabs(vocab),
-                                 bot_mlp=DLRM_BOT, top_mlp=DLRM_TOP)
+    dlrm_cfg = dataclasses.replace(DLRM_ARCH.CONFIG, vocab_sizes=dlrm_vocabs(vocab))
     dlrm_b = clicks.criteo_batch(rows, n_dense=dlrm_cfg.n_dense, vocab_sizes=dlrm_cfg.vocab_sizes,
                                  seed=SEED + 53)
     cases["dlrm"] = (recsys.init_dlrm_params(gen, dlrm_cfg, cpu), dlrm_b,
@@ -3639,7 +3684,7 @@ def recsys_phase(dev, sizes=None):
               sessions=RS_SESSIONS, topk=RS_SESSION_TOPK, slice=RS_SLICE,
               check_rows=RS_CHECK_ROWS, check_vocab=RS_CHECK_VOCAB, max_batch=256)
     rs.update(sizes or {})
-    ms_of = _timer(dev)
+    ms_of = functools.partial(time_ms, dev=dev)
     vocabs = dlrm_vocabs(rs["dlrm_cap"])
     full_vocabs = dlrm_vocabs(1 << 62)
     dlrm_bytes = 4.0 * DLRM_K * sum(vocabs)
@@ -3654,15 +3699,13 @@ def recsys_phase(dev, sizes=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 40)
     rng = np.random.default_rng(SEED + 41)
-    fm_cfg = recsys.FMConfig(name="fm", n_fields=FM_FIELDS, embed_dim=FM_K,
-                             vocab_per_field=rs["fm_vocab"])
+    fm_cfg = dataclasses.replace(FM_ARCH.CONFIG, vocab_per_field=rs["fm_vocab"])
     fm = recsys.init_fm_params(gen, fm_cfg, dev)
     fm_ids = torch.as_tensor(clicks.fm_batch(rs["serve"], n_fields=FM_FIELDS,
                                              vocab_per_field=rs["fm_vocab"], seed=SEED)["ids"]).to(dev)
     fm_ctx = fm_ids[:, :FM_FIELDS - 1]
     fm_cands = torch.as_tensor(rng.integers(0, rs["fm_vocab"], rs["cands"])).to(dev)
-    sr_cfg = recsys.SASRecConfig(name="sasrec", n_items=rs["sr_items"], embed_dim=SR_K,
-                                 n_blocks=SR_BLOCKS, n_heads=SR_HEADS, seq_len=SR_SEQ)
+    sr_cfg = dataclasses.replace(SR_ARCH.CONFIG, n_items=rs["sr_items"])
     sr = recsys.init_sasrec_params(gen, sr_cfg, dev)
     sr_seq = torch.as_tensor(clicks.sasrec_batch(rs["serve"], seq_len=SR_SEQ,
                                                  n_items=rs["sr_items"], seed=SEED + 1)["seq"]).to(dev)
@@ -3671,16 +3714,13 @@ def recsys_phase(dev, sizes=None):
                                    seed=SEED + 2)["seq"]
     sr_train = {key: torch.as_tensor(v).to(dev) for key, v in clicks.sasrec_batch(
         rs["train"], seq_len=SR_SEQ, n_items=rs["sr_items"], seed=SEED + 3).items()}
-    bst_cfg = recsys.BSTConfig(name="bst", n_items=rs["bst_items"], embed_dim=BST_K,
-                               seq_len=BST_SEQ, n_blocks=BST_BLOCKS, n_heads=BST_HEADS,
-                               mlp_dims=BST_MLP, n_profile=BST_PROFILE)
+    bst_cfg = dataclasses.replace(BST_ARCH.CONFIG, n_items=rs["bst_items"])
     bst = recsys.init_bst_params(gen, bst_cfg, dev)
     bst_train = {key: torch.as_tensor(v).to(dev) for key, v in clicks.bst_batch(
         rs["train"], seq_len=BST_SEQ, n_items=rs["bst_items"], n_profile=BST_PROFILE,
         seed=SEED + 4).items()}
     bst_cands = torch.as_tensor(rng.integers(1, rs["bst_items"] + 1, rs["rank_cands"])).to(dev)
-    dlrm_cfg = recsys.DLRMConfig(name="dlrm-mlperf", embed_dim=DLRM_K, vocab_sizes=vocabs,
-                                 bot_mlp=DLRM_BOT, top_mlp=DLRM_TOP)
+    dlrm_cfg = dataclasses.replace(DLRM_ARCH.CONFIG, vocab_sizes=vocabs)
     dlrm = recsys.init_dlrm_params(gen, dlrm_cfg, dev)
     dlrm_train = {key: torch.as_tensor(v).to(dev) for key, v in clicks.criteo_batch(
         rs["train"], n_dense=dlrm_cfg.n_dense, vocab_sizes=vocabs, seed=SEED + 5).items()}
@@ -3930,6 +3970,410 @@ def recsys_phase(dev, sizes=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# cells: every ported cell of repro_torch.configs, its step once at its widths
+# ---------------------------------------------------------------------------
+
+# train_1m's users: adagrad's tables and state are 112.6 GB at 100M users
+CELL_TRAIN_USERS = 20_000_000
+CELL_CHECK_ROWS = 256  # rows of a serve cell's answer held against the plain version
+RECSYS_INIT = {"fm": "init_fm_params", "sasrec": "init_sasrec_params", "bst": "init_bst_params",
+               "dlrm-mlperf": "init_dlrm_params"}
+
+
+def _cell_counts():
+    from repro_torch.kernels import pruned_matmul, pruned_topk, scatter
+
+    return {"pruned_topk": pruned_topk.launches, "pruned_matmul": pruned_matmul.launches,
+            "add_rows": scatter.launches}
+
+
+def _count_cells(launches):
+    """Add one counted run's launches to the ``cells`` path."""
+    total = PATH_LAUNCHES.setdefault("cells", {})
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _build_cell(dev, arch, shape_id):
+    """The registry's cell; building it must allocate no device memory and
+    give meta abstract arguments."""
+    from repro_torch import tree
+
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    cell = configs.build_cell(arch, shape_id)
+    grown = (torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0) - before
+    check(grown == 0 and all(t.is_meta for t in tree.leaves(cell.abstract_args)),
+          f"cells: building {cell.cell_id} allocated no device memory ({grown} bytes) and its "
+          "abstract arguments are meta tensors")
+    return cell
+
+
+def dpmf_serve_cell(dev, params, t_p, t_q):
+    """cells: dpmf's ``serve_top100`` step once on serve-dpmf's tables (100M x
+    10M x 128, rate 0.3; no second copy) for the cell's 1024 users, counted
+    under ``cells``, timed with CUDA events; the first 256 users' top-100
+    against ``pruned_topk_plain``."""
+    from repro_torch.core.ranks import effective_ranks
+    from repro_torch.kernels import pruned_topk
+
+    cell = _build_cell(dev, "dpmf", "serve_top100")
+    a_users = cell.abstract_args[1]
+    users = torch.as_tensor(np.random.default_rng(SEED + 60).integers(
+        0, params.p.shape[0], a_users.shape[0]), dtype=a_users.dtype).to(dev)
+    log(f"## cells: {cell.cell_id} on serve-dpmf's tables, {len(users)} users")
+    reset_launch_counts()
+    (got_s, got_i), ms = _clock(dev, lambda: cell.step_fn(params, users, t_p, t_q))
+    launches = _cell_counts()
+    _count_cells(launches)
+    if dev.type == "cuda":
+        check(launches["pruned_topk"] == 1,
+              f"cells: {cell.cell_id} launched pruned_topk once ({launches['pruned_topk']})")
+    check(got_s.shape == (len(users), configs.get_module("dpmf").SERVE_TOPK)
+          and bool(torch.isfinite(got_s).all()),
+          f"cells: {cell.cell_id} finite scores of shape {tuple(got_s.shape)}")
+    rows = min(CELL_CHECK_ROWS, len(users))
+    h = params.p[users[:rows].long()].contiguous()
+    want_s, want_i = pruned_topk.pruned_topk_plain(
+        h, params.q, effective_ranks(h, t_p), effective_ranks(params.q, t_q),
+        torch.zeros(params.q.shape[0], device=dev), got_s.shape[1],
+        block_n=min(PLAIN_BLOCK_N, params.q.shape[0]))
+    err = compare_topk(got_s[:rows], got_i[:rows], want_s, want_i,
+                       f"cells: {cell.cell_id} (first {rows} users) vs pruned_topk_plain")
+    _, warm = _clock(dev, lambda: cell.step_fn(params, users, t_p, t_q))
+    log(f"  {cell.cell_id}: {ms:.3f} ms counted run, {warm:.3f} ms warm (CUDA events), "
+        f"launches {launches}")
+    return {"ms": ms, "warm_ms": warm, "launches": launches, "max_abs_err": err}
+
+
+def _configs_at(widths):
+    """Set each arch module's ``CONFIG`` to ``widths[arch]``; returns a
+    function that puts the registry's back (a rehearsal's small sizes)."""
+    saved = {arch: configs.get_module(arch).CONFIG for arch in widths}
+    for arch, cfg in widths.items():
+        configs.get_module(arch).CONFIG = cfg
+
+    def restore():
+        for arch, cfg in saved.items():
+            configs.get_module(arch).CONFIG = cfg
+    return restore
+
+
+def _cell_batch(dev, arch, cfg, cell, rows, cands, seed):
+    """A batch with the keys, dtypes and trailing dims of ``cell``'s abstract
+    batch: ``rows`` rows (1 for a retrieval's context) and ``cands``
+    candidates; click data made with numpy from ``seed``."""
+    from repro_torch.data import clicks
+
+    rng = np.random.default_rng(seed)
+    if arch == "fm":
+        full = clicks.fm_batch(rows, n_fields=cfg.n_fields, vocab_per_field=cfg.vocab_per_field,
+                               seed=seed)
+        lo, hi = 0, cfg.vocab_per_field
+    elif arch == "sasrec":
+        full = clicks.sasrec_batch(rows, seq_len=cfg.seq_len, n_items=cfg.n_items, seed=seed)
+        lo, hi = 1, cfg.n_items + 1
+    elif arch == "bst":
+        full = clicks.bst_batch(rows, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                                n_profile=cfg.n_profile, seed=seed)
+        lo, hi = 1, cfg.n_items + 1
+    else:
+        full = clicks.criteo_batch(rows, n_dense=cfg.n_dense, vocab_sizes=cfg.vocab_sizes,
+                                   seed=seed)
+        lo, hi = 0, cfg.vocab_sizes[0]
+    out = {}
+    for key, spec in cell.abstract_args[1].items():
+        if key == "cand_ids":
+            value = rng.integers(lo, hi, cands)
+        elif key == "user_ids":
+            value = full["ids"][:1, :spec.shape[1]]
+        else:
+            value = full[key][:1] if spec.shape[0] == 1 else full[key]
+        value = torch.as_tensor(value).to(spec.dtype)
+        if value.shape[1:] != spec.shape[1:]:
+            raise ValueError(f"{cell.cell_id}: batch {key} {tuple(value.shape)} against "
+                             f"{tuple(spec.shape)}")
+        out[key] = value.to(dev)
+    return out
+
+
+def _rows_read(arch, batch):
+    """DLRM: for each table, the sorted ids ``batch`` reads (table 0 also its
+    candidates); None for the other archs, whose weights are copied whole."""
+    if arch != "dlrm-mlperf":
+        return None
+    sparse = batch["sparse"].long()
+    out = []
+    for i in range(sparse.shape[1]):
+        ids = sparse[:, i]
+        if i == 0 and "cand_ids" in batch:
+            ids = torch.cat([ids, batch["cand_ids"].long()])
+        out.append(torch.unique(ids))
+    return out
+
+
+def _cpu_copy(params, read):
+    """A copy of ``params`` on the CPU; with ``read`` (:func:`_rows_read`),
+    each of DLRM's tables keeps only the rows read."""
+    from repro_torch import tree
+
+    def copy(t):
+        return t.detach().to("cpu", copy=True)
+    if read is None:
+        return tree.map_leaves(copy, params)
+    return {key: [copy(t[r]) for t, r in zip(value, read)] if key == "tables"
+            else tree.map_leaves(copy, value) for key, value in params.items()}
+
+
+def _cpu_batch(batch, read):
+    """A copy of ``batch`` on the CPU, its ids renumbered into
+    :func:`_cpu_copy`'s tables when ``read`` is given."""
+    out = {key: value.detach().to("cpu", copy=True) for key, value in batch.items()}
+    if read is not None:
+        read = [r.cpu() for r in read]
+        sparse = out["sparse"].long()
+        for i, r in enumerate(read):
+            sparse[:, i] = torch.searchsorted(r, sparse[:, i].contiguous())
+        out["sparse"] = sparse.to(batch["sparse"].dtype)
+        if "cand_ids" in out:
+            out["cand_ids"] = torch.searchsorted(read[0], out["cand_ids"].long()).to(
+                batch["cand_ids"].dtype)
+    return out
+
+
+def _recsys_cells(dev, arch, cfg, sz, seed):
+    """The four cells of ``arch`` on weights of ``cfg``: built (no device
+    memory), their batches made, then one counted run of the train, serve
+    and retrieval steps, each timed; then each answer against the same step
+    on the CPU, where the kernels run their plain versions (the train step
+    from the weights before it, a serve's first rows, a retrieval's first
+    and last candidates; DLRM's tables cut to the rows a batch reads)."""
+    from repro_torch import tree
+    from repro_torch.configs import base
+    from repro_torch.models import recsys
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cells = {sid: _build_cell(dev, arch, sid) for sid in configs.shape_ids(arch)}
+    params = getattr(recsys, RECSYS_INIT[arch])(gen, cfg, dev)
+    rows = {"train_batch": sz["train"], "serve_p99": sz["serve"], "serve_bulk": sz["bulk"],
+            "retrieval_cand": 1}
+    cands = sz["cands"] if arch in ("fm", "sasrec") else sz["rank_cands"]
+    batches = {sid: _cell_batch(dev, arch, cfg, cell, rows[sid], cands, seed + i)
+               for i, (sid, cell) in enumerate(cells.items())}
+    # the train step's inputs on the CPU, before the counted run updates the
+    # weights in place
+    read = _rows_read(arch, batches["train_batch"])
+    cpu_params, cpu_batch = _cpu_copy(params, read), _cpu_batch(batches["train_batch"], read)
+    _sync(dev)
+    small = min(tree.leaves(params), key=lambda t: t.numel())
+    small_before = small.clone()
+    reset_launch_counts()
+    outs, ms = {}, {}
+    # the train step first: it updates the weights in place, which the
+    # later steps and the checks read
+    for sid in ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"):
+        outs[sid], ms[sid] = _clock(dev, lambda: cells[sid].step_fn(params, batches[sid]))
+    launches = _cell_counts()
+    _count_cells(launches)
+    want_topk = 2 if arch == "sasrec" else 0
+    want_matmul = 1 if arch in ("fm", "sasrec") else 0
+    if dev.type == "cuda":
+        check(launches["pruned_topk"] == want_topk and launches["pruned_matmul"] == want_matmul,
+              f"cells: {arch}'s steps launched pruned_topk {launches['pruned_topk']} times "
+              f"(want {want_topk}) and pruned_matmul {launches['pruned_matmul']} (want "
+              f"{want_matmul})")
+    # the train step: in place, and its loss and every updated weight (DLRM:
+    # the rows its batch read) against the same step on the CPU
+    new_params, loss = outs["train_batch"]
+    finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(t).all())
+                                                for t in tree.leaves(new_params))
+    check(new_params is params and finite and not torch.equal(small, small_before),
+          f"cells: {arch}::train_batch loss {float(loss):.6f} finite, parameters updated in "
+          "place and finite")
+    _, want_loss = cells["train_batch"].step_fn(cpu_params, cpu_batch)
+    got = _cpu_copy(params, read)
+    errs = {"train_batch": max(float((g - w).abs().max()) for g, w in zip(
+        tree.leaves(got), tree.leaves(cpu_params)))}
+    loss_err = abs(float(loss) - float(want_loss))
+    check(loss_err <= ATOL + RTOL * abs(float(want_loss))
+          and all(bool(torch.allclose(g, w, rtol=RTOL, atol=ATOL))
+                  for g, w in zip(tree.leaves(got), tree.leaves(cpu_params))),
+          f"cells: {arch}::train_batch loss and updated weights within rtol/atol {RTOL} of the "
+          f"same step on the CPU (loss err {loss_err:.3e}, max abs err "
+          f"{errs['train_batch']:.3e})")
+    whole = None if read is not None else got  # the updated weights, on the CPU
+    del cpu_params, cpu_batch
+
+    def on_cpu(sid, batch):
+        read = _rows_read(arch, batch)
+        weights = whole if read is None else _cpu_copy(params, read)
+        return cells[sid].step_fn(weights, _cpu_batch(batch, read))
+
+    # each serve's first rows against the same step on the CPU
+    n = min(CELL_CHECK_ROWS, sz["serve"])
+    for sid in ("serve_p99", "serve_bulk"):
+        out = outs[sid]
+        want = on_cpu(sid, {key: value[:n] for key, value in batches[sid].items()})
+        what = f"cells: {arch}::{sid} (first {n} rows) vs the same step on the CPU"
+        if arch == "sasrec":
+            got_s, got_i = out
+            errs[sid] = compare_topk(got_s[:n].cpu(), got_i[:n].cpu(), *want, what)
+            out = got_s
+        else:
+            errs[sid] = float((out[:n].cpu() - want).abs().max())
+            check(bool(torch.allclose(out[:n].cpu(), want, rtol=RTOL, atol=ATOL)),
+                  f"{what} within rtol/atol {RTOL} (max abs err {errs[sid]:.3e})")
+        check(out.shape[0] == rows[sid] and bool(torch.isfinite(out).all()),
+              f"cells: {arch}::{sid} finite, of shape {tuple(out.shape)}")
+    # the retrieval's first and last candidates against the same step on the
+    # CPU
+    out = outs["retrieval_cand"]
+    check(bool(torch.isfinite(out).all()) and out.shape[-1] == cands,
+          f"cells: {arch}::retrieval_cand finite over {cands} candidates")
+    b = batches["retrieval_cand"]
+    width = min(sz["slice"], cands)
+    errs["retrieval_cand"] = 0.0
+    for sl in (slice(0, width), slice(cands - width, cands)):
+        want = on_cpu("retrieval_cand", dict(b, cand_ids=b["cand_ids"][sl]))
+        err = float((out[..., sl].cpu() - want).abs().max())
+        errs["retrieval_cand"] = max(errs["retrieval_cand"], err)
+        check(bool(torch.allclose(out[..., sl].cpu(), want, rtol=RTOL, atol=ATOL)),
+              f"cells: {arch}::retrieval_cand candidates {sl.start}:{sl.stop} within rtol/atol "
+              f"{RTOL} of the same step on the CPU (max abs err {err:.3e})")
+    del whole, got
+    # each step once more, warm (the counted run's first calls pay the
+    # allocator's growth); not counted
+    warm = {sid: _clock(dev, lambda: cells[sid].step_fn(params, batches[sid]))[1] for sid in ms}
+    log(f"  {arch}: step ms (CUDA events; counted run / warm) " + ", ".join(
+        f"{k} {v:.3f} / {warm[k]:.3f}" for k, v in ms.items()) + f"; launches {launches}")
+    out = {"ms": ms, "warm_ms": warm, "launches": launches, "max_abs_err": errs,
+           "loss": float(loss)}
+    if arch == "sasrec":
+        # serve_bulk's pruned_topk alone: 262,144 sessions x the catalog at
+        # T = 0 (every rank full), against its bound
+        with torch.no_grad():
+            h = recsys.sasrec_encode(params, batches["serve_bulk"]["seq"], cfg)[:, -1].contiguous()
+        table = params["item_embed"]
+        rows_scored = max(table.shape[0] // 65536, 1) * 65536
+        k_ms = time_ms(lambda: base.streaming_topk_scores(h, table, k=100), 1, dev)
+        flops = 2.0 * h.shape[0] * rows_scored * h.shape[1]
+        nbytes = 4.0 * (h.numel() + rows_scored * h.shape[1]) + 8.0 * h.shape[0] * 100
+        b_ms, b_by = bound(flops, nbytes)
+        out["bulk_topk"] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by, users=h.shape[0],
+                                items=rows_scored, k=h.shape[1])
+        log(f"  sasrec::serve_bulk's pruned_topk: {h.shape[0]} x {rows_scored} x {h.shape[1]} at "
+            f"T = 0, top-100: {k_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: {flops / 1e12:.3f} "
+            f"TFLOP)")
+    return out
+
+
+def _dpmf_train_cell(dev, sz):
+    """dpmf's ``train_1m`` step once at (users cut to 20M) x 10M x 128 with
+    adagrad, counted and timed; the touched rows of p, q and their
+    accumulators against the same step on the CPU over those rows."""
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.optim.optimizers import RowOptimizer
+
+    cell = _build_cell(dev, "dpmf", "train_1m")
+    a_batch = cell.abstract_args[2]
+    m, n, rows = sz["dpmf_users"], sz["dpmf_items"], min(sz["dpmf_batch"], a_batch["user"].shape[0])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 64)
+    params = mf.MFParams(decaying_factors(gen, m, dev), decaying_factors(gen, n, dev), None, None,
+                         None, None)
+    opt = RowOptimizer(name=DPMF.optimizer)
+    state = mf.init_opt_state(params, opt)
+    sample = decaying_factors(gen, min(1 << 20, m), dev)
+    t_p, t_q = (torch.as_tensor(t, device=dev) for t in thresholds_from_matrices(sample, sample,
+                                                                                 RATE))
+    del sample
+    ds = dpmf_ratings(np.random.default_rng(SEED + 65), rows, num_users=m, num_items=n)
+    batch = {"user": torch.as_tensor(ds.user).to(dev), "item": torch.as_tensor(ds.item).to(dev),
+             "rating": torch.as_tensor(ds.rating).to(dev)}
+    check(all(batch[key].dtype == a_batch[key].dtype for key in a_batch),
+          f"cells: {cell.cell_id} batch dtypes are the cell's (int32 ids, float32 ratings)")
+    users, user_pos = torch.unique(batch["user"], return_inverse=True)
+    items, item_pos = torch.unique(batch["item"], return_inverse=True)
+    users, items = users.long(), items.long()
+    p_before, q_before = params.p[users].cpu(), params.q[items].cpu()
+    log(f"## cells: {cell.cell_id} at {m} x {n} x {K} ({DPMF.optimizer}), batch {rows}")
+    _sync(dev)
+    reset_launch_counts()
+    (_, _, metrics), ms = _clock(dev, lambda: cell.step_fn(params, state, batch, t_p, t_q))
+    launches = _cell_counts()
+    _count_cells(launches)
+    if dev.type == "cuda":
+        check(launches["add_rows"] == 4, f"cells: {cell.cell_id} scattered through add_rows 4 "
+                                         f"times (p, q and their accumulators: {launches['add_rows']})")
+    cpu = mf.MFParams(p_before, q_before, None, None, None, None)
+    cpu_state = mf.init_opt_state(cpu, opt)
+    mf.train_step(cpu, cpu_state, {"user": user_pos.cpu(), "item": item_pos.cpu(),
+                                   "rating": batch["rating"].cpu()},
+                  t_p.cpu(), t_q.cpu(), DPMF.lr, torch.ones(K), opt=opt, lam=DPMF.lam)
+    err = 0.0
+    for name, got, want in (("p", params.p[users].cpu(), cpu.p), ("q", params.q[items].cpu(), cpu.q),
+                            ("p acc", state.p["acc"][users].cpu(), cpu_state.p["acc"]),
+                            ("q acc", state.q["acc"][items].cpu(), cpu_state.q["acc"])):
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+              f"cells: {cell.cell_id}: {len(want)} updated {name} rows within rtol/atol {RTOL} of "
+              f"the step on the CPU (max abs err {e:.3e})")
+    abs_err = float(metrics["abs_err"])
+    check(math.isfinite(abs_err), f"cells: {cell.cell_id} abs_err {abs_err:.4f} finite")
+    _, warm = _clock(dev, lambda: cell.step_fn(params, state, batch, t_p, t_q))
+    log(f"  {cell.cell_id}: {ms:.3f} ms counted run, {warm:.3f} ms warm (CUDA events), "
+        f"launches {launches}")
+    return {"ms": ms, "warm_ms": warm, "launches": launches, "max_abs_err": err,
+            "abs_err": abs_err, "users": m}
+
+
+def cells_phase(dev, sizes=None):
+    """cells: each ported cell of ``repro_torch.configs`` built (no device
+    memory) and its ``step_fn`` run once: the 16 recsys cells at their
+    published widths (DLRM's tables cut to 2^23 rows, BST and DLRM ranking
+    2^18 candidates) and dpmf's ``train_1m`` with its users cut to 20M, each
+    arch's steps in one counted run (``pruned_topk`` by SASRec's serve cells,
+    ``pruned_matmul`` by FM's and SASRec's retrievals, ``add_rows`` by
+    ``train_1m``; counted under ``cells``), timed with CUDA events, and held
+    against the same steps on the CPU, where the kernels run their plain
+    versions, on slices (``compare_topk`` for the top-k).
+    ``serve_top100`` runs in :func:`dpmf_serve_cell`, the owner-compute
+    cells in the multirank phase.  ``sizes`` overrides the sizes (a
+    rehearsal on the CPU passes tiny ones, with the configs set to them)."""
+    import dataclasses
+
+    sz = dict(fm_vocab=FM_VOCAB, sr_items=SR_ITEMS, bst_items=BST_ITEMS, dlrm_cap=DLRM_CAP,
+              train=RS_TRAIN, serve=RS_SERVE, bulk=RS_BULK, cands=RS_CANDS,
+              rank_cands=RS_RANK_CANDS, slice=RS_SLICE, dpmf_users=CELL_TRAIN_USERS,
+              dpmf_items=N_ITEMS, dpmf_batch=BATCH)
+    sz.update(sizes or {})
+    widths = {"fm": dataclasses.replace(FM_ARCH.CONFIG, vocab_per_field=sz["fm_vocab"]),
+              "sasrec": dataclasses.replace(SR_ARCH.CONFIG, n_items=sz["sr_items"]),
+              "bst": dataclasses.replace(BST_ARCH.CONFIG, n_items=sz["bst_items"]),
+              "dlrm-mlperf": dataclasses.replace(DLRM_ARCH.CONFIG,
+                                                 vocab_sizes=dlrm_vocabs(sz["dlrm_cap"]))}
+    log(f"## cells: {len(configs.all_cells())} cells of {', '.join(configs.PORTED_ARCHS)}; "
+        f"recsys at their widths, batches {sz['serve']} / {sz['bulk']} / {sz['train']}, "
+        f"{sz['cands']} candidates ({sz['rank_cands']} for the rankers)")
+    restore = _configs_at(widths) if sizes else (lambda: None)
+    out = {}
+    try:
+        for i, (arch, cfg) in enumerate(widths.items()):
+            out[arch] = _recsys_cells(dev, arch, cfg, sz, SEED + 100 + 10 * i)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["dpmf"] = _dpmf_train_cell(dev, sz)
+    finally:
+        restore()
+    launches = PATH_LAUNCHES.get("cells", {})
+    log(f"  launches on the cells path so far: {launches}")
+    return out
+
+
 def mf_grid_view(view):
     """A copy of an MF view with each table scaled to unit spread and rounded
     to the 1/8 grid in [-2, 2]: every product and sum of the scoring exact."""
@@ -3943,11 +4387,6 @@ def mf_grid_view(view):
 
 
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch here)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3987,6 +4426,7 @@ def main() -> int:
 
     rows, served = phase("serving", serving_path, dev)
     slo = phase("slo-dpmf", slo_path, dev, *served)
+    serve_cell = phase("cells: dpmf serve_top100", dpmf_serve_cell, dev, *served)
     del served
     gc.collect()
     torch.cuda.empty_cache()
@@ -4011,6 +4451,7 @@ def main() -> int:
         multirank = phase("multirank-dpmf", multirank_phase, dev, tmp)
         fleet_launchers = phase("fleet and SLO launchers", fleet_launchers_phase, tmp)
         recsys_stats = phase("recsys", recsys_phase, dev)
+        cells = phase("cells", cells_phase, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4047,6 +4488,7 @@ def main() -> int:
     rows[0]["ranking_eval_ms"] = train["ranking_eval_ms"]
     rows[2]["implicit_step_ms"] = implicit["step_ms"]
     rows[0]["recsys_k50"] = recsys_stats["kernels"]["pruned_topk k=50"]
+    rows[0]["cells_sasrec_serve_bulk"] = cells["sasrec"]["bulk_topk"]
     rows[1]["recsys"] = {name: recsys_stats["kernels"][name] for name in ("k=10 (fm)",
                                                                            "k=50 (sasrec)")}
     workloads = {
@@ -4066,6 +4508,8 @@ def main() -> int:
         "fleet_launchers": fleet_launchers,
         "multirank": {k: v for k, v in multirank.items() if k != "small"},
         "recsys": {k: v for k, v in recsys_stats.items() if k not in ("launches", "kernels")},
+        "cells": {"dpmf::serve_top100": serve_cell, **cells,
+                  "multirank": {mode: multirank["train"][mode]["step_ms"] for mode in ("none", "int8")}},
     }
     log("# workloads " + json.dumps(workloads))
     log(f"# total {time.perf_counter() - t_start:.1f} s")

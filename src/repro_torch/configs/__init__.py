@@ -1,0 +1,79 @@
+"""Architecture registry: the reference's 10 assigned archs and the paper's
+own (dpmf), of which the port has the cells of dpmf, fm, sasrec, bst and
+dlrm-mlperf.
+
+Counterpart of ``repro/configs/__init__.py``.  ``build_cell(arch, shape)``
+makes a :class:`~repro_torch.configs.base.CellSpec` (step function, meta
+abstract arguments, layouts); :func:`all_cells` lists the ported cells.  The
+transformer archs (ROADMAP A8d) and gat-cora (A8e) are named, so that
+``ALL_ARCHS`` is the reference's, but :func:`get_module` of one of them
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List, Tuple
+
+_ARCH_MODULES = {
+    "gemma-7b": None,
+    "qwen1.5-4b": None,
+    "qwen3-4b": None,
+    "deepseek-v2-lite-16b": None,
+    "granite-moe-1b-a400m": None,
+    "gat-cora": None,
+    "fm": "repro_torch.configs.fm_arch",
+    "sasrec": "repro_torch.configs.sasrec_arch",
+    "bst": "repro_torch.configs.bst_arch",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
+    "dpmf": "repro_torch.configs.dpmf",
+}
+# the ROADMAP item that ports each arch not yet here
+_WAITING = {
+    "gemma-7b": "A8d (the transformer zoo)",
+    "qwen1.5-4b": "A8d (the transformer zoo)",
+    "qwen3-4b": "A8d (the transformer zoo)",
+    "deepseek-v2-lite-16b": "A8d (the transformer zoo)",
+    "granite-moe-1b-a400m": "A8d (the transformer zoo)",
+    "gat-cora": "A8e (the GNN)",
+}
+
+ASSIGNED_ARCHS: Tuple[str, ...] = tuple(a for a in _ARCH_MODULES if a != "dpmf")
+ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
+PORTED_ARCHS: Tuple[str, ...] = tuple(a for a, m in _ARCH_MODULES.items() if m is not None)
+
+
+def get_module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    if _ARCH_MODULES[arch] is None:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet: ROADMAP item {_WAITING[arch]}")
+    return importlib.import_module(_ARCH_MODULES[arch])
+
+
+def get_config(arch: str):
+    return get_module(arch).CONFIG
+
+
+def get_smoke_config(arch: str):
+    return get_module(arch).smoke_config()
+
+
+def shape_ids(arch: str) -> List[str]:
+    return list(get_module(arch).cells().keys())
+
+
+def build_cell(arch: str, shape_id: str):
+    builders = get_module(arch).cells()
+    if shape_id not in builders:
+        raise KeyError(
+            f"unknown shape {shape_id!r} for {arch!r}; known: {sorted(builders)}"
+        )
+    return builders[shape_id]()
+
+
+def all_cells(include_dpmf: bool = True) -> List[Tuple[str, str]]:
+    """Every (arch, shape) cell of the ported archs only (``PORTED_ARCHS``;
+    the reference's list also holds the LM and GNN cells)."""
+    archs = PORTED_ARCHS if include_dpmf else tuple(a for a in PORTED_ARCHS if a != "dpmf")
+    return [(arch, sid) for arch in archs for sid in shape_ids(arch)]

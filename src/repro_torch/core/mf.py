@@ -59,9 +59,10 @@ def init_params(
 
     The draws differ from ``jax.random``'s for the same seed; tests that hold
     the port to the reference carry factors across with
-    :func:`params_from_numpy` instead.
+    :func:`params_from_numpy` instead.  ``device="meta"`` gives the tables'
+    shapes and dtypes without allocating them.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta_ok=True)
 
     if init_method not in ("normal", "uniform", "libmf"):
         raise ValueError(f"unknown init {init_method!r}")

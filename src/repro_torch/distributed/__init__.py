@@ -1,7 +1,9 @@
 """Training and serving across ranks: meshes and named-axis collectives on
-``torch.distributed`` (``spmd``), the MF layouts (``sharding``), int8
-gradient compression and the fleet's lossless codec (``compression``), and
-the training launcher's fault tolerance."""
+``torch.distributed`` (``spmd``), the MF and recsys layouts (``sharding``),
+int8 gradient compression and the fleet's lossless codec
+(``compression``), microbatched gradients (``collectives``), and the
+training launcher's fault tolerance."""
+from repro_torch.distributed.collectives import microbatch_grads  # noqa: F401
 from repro_torch.distributed.compression import (  # noqa: F401
     CompressedArray,
     compress_array,
@@ -16,5 +18,7 @@ from repro_torch.distributed.sharding import (  # noqa: F401
     data_axes,
     mf_batch_shardings,
     mf_spec_fn,
+    recsys_batch_shardings,
+    recsys_spec_fn,
     route_batch_to_owner_shards,
 )

@@ -1,6 +1,7 @@
-"""How the MF tables, batches and serving operands map onto a mesh.
+"""How the MF tables, batches and serving operands, and the recsys models'
+parameters and batches, map onto a mesh.
 
-Counterpart of the MF parts of ``repro/distributed/sharding.py``.  Axes:
+Counterpart of the MF and recsys parts of ``repro/distributed/sharding.py``.  Axes:
 ``"data"`` (and ``"pod"`` when present) carry the user rows and the batch,
 ``"model"`` carries the item rows: a rating batch sharded over the data
 axes meets its item rows across ``"model"``, the MF analogue of DP x TP.
@@ -13,7 +14,14 @@ reference hands a global array and a ``PartitionSpec`` to ``device_put`` or
 a rank's block out of a full table (numpy or torch), :func:`assemble`
 all-gathers the blocks back into the full table on every rank, and
 :func:`shard_tree` / :func:`assemble_tree` do both over a whole state tree
-with :func:`mf_spec_fn`'s layout.
+with :func:`mf_spec_fn`'s layout or a given tree of layouts (such as
+:func:`recsys_spec_fn`'s, through :func:`tree_shardings`).
+
+Where the reference returns a ``NamedSharding`` (:func:`ns`,
+:func:`replicated`, :func:`tree_shardings`), the port returns the bare
+``Spec``: a mesh is needed only to read its axis names and extents, through
+``spmd.axis_names`` and ``spmd.axis_size``, so the layout functions take a
+``DeviceMesh`` or any object with ``mesh_dim_names`` and ``size(dim)``.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import spmd
+from repro_torch.tree import map_leaves as tree_map_leaves
+from repro_torch.tree import map_with_path as _map_tree
 
 Spec = Tuple[Optional[Tuple[str, ...]], ...]
 
@@ -42,6 +52,50 @@ def data_axes(mesh) -> Tuple[str, ...]:
     """The mesh's data-parallel axes, ``("pod", "data")`` where present."""
     names = spmd.axis_names(mesh)
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def all_axes(mesh) -> Tuple[str, ...]:
+    """Every axis of the mesh, in ``("pod", "data", "model")`` order."""
+    names = spmd.axis_names(mesh)
+    return tuple(a for a in ("pod", "data", "model") if a in names)
+
+
+def ns(mesh, *spec) -> Spec:
+    """The layout ``P(*spec)`` (the reference's ``NamedSharding``; the port
+    keeps no mesh beside a layout)."""
+    del mesh
+    return P(*spec)
+
+
+def replicated(mesh) -> Spec:
+    """The layout of a tensor whole on every rank, ``P()``."""
+    del mesh
+    return P()
+
+
+def tree_shardings(params: Any, spec_fn: Callable, mesh) -> Any:
+    """``spec_fn(path_parts, leaf)`` over every leaf of a tree."""
+    del mesh
+    return _map_tree(params, spec_fn)
+
+
+def sanitize_shardings(shardings: Any, avals: Any, mesh) -> Any:
+    """Each layout of ``shardings`` with every sharded dim whose size does
+    not divide over its mesh extent turned replicated, as the reference's
+    (published dims owe the mesh no divisibility).  ``avals`` is the tree of
+    tensors (meta tensors serve) the layouts are for; the spec is padded with
+    None to the tensor's rank, and entries past it are dropped."""
+
+    def fix(aval, spec):
+        shape = tuple(getattr(aval, "shape", ()))
+        spec = tuple(spec) + (None,) * max(len(shape) - len(spec), 0)
+        out = []
+        for dim, entry in zip(shape, spec):
+            extent = spmd.axis_size(mesh, entry)
+            out.append(entry if extent == 1 or dim % extent == 0 else None)
+        return P(*out)
+
+    return tree_map_leaves(fix, avals, shardings)
 
 
 def _span(mesh, axes, rows: int) -> Tuple[int, int]:
@@ -125,53 +179,84 @@ def mf_spec_fn(mesh) -> Callable:
     return spec_fn
 
 
-def _map_tree(tree: Any, fn: Callable, path: Tuple[str, ...] = ()) -> Any:
-    """``fn(path_parts, leaf)`` over a tree of dicts, NamedTuples, lists and
-    leaves; None stays None."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {key: _map_tree(value, fn, path + (str(key),)) for key, value in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_tree(value, fn, path + (name,))
-                            for name, value in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tree(value, fn, path + (str(i),)) for i, value in enumerate(tree))
-    return fn(list(path), tree)
+# ---------------------------------------------------------------------------
+# RecSys
+# ---------------------------------------------------------------------------
+
+_REPLICATE_BELOW_ROWS = 8192  # small tables are cheaper replicated
 
 
-def shard_tree(tree: Any, mesh, *, device=None, spec_fn: Optional[Callable] = None) -> Any:
+def recsys_spec_fn(mesh) -> Callable:
+    """``spec_fn(parts, leaf)`` of the recsys models: embedding tables
+    (``tables/*``, ``item_embed``, FM's ``v``) of 8192 rows or more split
+    their rows over every axis of the mesh, smaller ones replicated; FM's
+    1-D linear ``w`` over the same rows as ``v``; everything else (MLPs,
+    norms, blocks, 2-D ``w``s) replicated.  The reference's rules, quirks
+    included."""
+    flat = all_axes(mesh)
+
+    def spec_fn(parts, leaf) -> Spec:
+        ndim = len(getattr(leaf, "shape", ()))
+        if "tables" in parts or parts[-1] in ("item_embed", "v"):
+            if leaf.shape[0] >= _REPLICATE_BELOW_ROWS:
+                return P(flat, None) if ndim == 2 else P(flat)
+            return P(*(None,) * ndim)
+        if parts[-1] == "w" and ndim == 1 and leaf.shape[0] >= _REPLICATE_BELOW_ROWS:
+            return P(flat)  # FM linear term over the same rows as `v`
+        return P(*(None,) * ndim)
+
+    return spec_fn
+
+
+def recsys_batch_shardings(mesh, batch: Dict[str, Any]) -> Dict[str, Spec]:
+    """Layouts of a recsys batch: every column's rows over the data axes,
+    scalars replicated."""
+    dp = data_axes(mesh)
+
+    def spec(arr) -> Spec:
+        nd = len(getattr(arr, "shape", ()))
+        return P() if nd == 0 else P(dp, *([None] * (nd - 1)))
+
+    return {name: spec(arr) for name, arr in batch.items()}
+
+
+def shard_tree(tree: Any, mesh, *, device=None, layouts: Any = None) -> Any:
     """This rank's blocks of every leaf of ``tree`` (full tables, numpy or
-    torch) under ``spec_fn`` (default :func:`mf_spec_fn`), as new torch
-    tensors on ``device`` (default: the leaf's own device; numpy on the
-    CPU).  The port's counterpart of ``device_put`` with the
-    ``mf_spec_fn`` shardings."""
-    spec_fn = spec_fn or mf_spec_fn(mesh)
+    torch) under ``layouts`` (a tree of specs shaped like ``tree``, such as
+    a cell's ``in_shardings(mesh)``; default :func:`mf_spec_fn`'s), as new
+    torch tensors on ``device`` (default: the leaf's own device; numpy on
+    the CPU).  The port's counterpart of ``device_put`` with those
+    shardings."""
+    if layouts is None:
+        layouts = tree_shardings(tree, mf_spec_fn(mesh), mesh)
 
-    def one(parts, leaf):
+    def one(leaf, spec):
         if not hasattr(leaf, "shape"):
             return leaf
         if not isinstance(leaf, torch.Tensor):
             leaf = np.asarray(leaf)
-        blk = block(leaf, spec_fn(parts, leaf), mesh)
+        blk = block(leaf, spec, mesh)
         if isinstance(blk, np.ndarray):
             blk = torch.from_numpy(np.array(blk))
         return blk.to(device if device is not None else blk.device, copy=True).contiguous()
 
-    return _map_tree(tree, one)
+    return tree_map_leaves(one, tree, layouts)
 
 
-def assemble_tree(tree: Any, mesh, *, spec_fn: Optional[Callable] = None) -> Any:
+def assemble_tree(tree: Any, mesh, *, layouts: Any = None) -> Any:
     """The full tables of every leaf of a tree of blocks (the inverse of
-    :func:`shard_tree`; every rank gets them)."""
-    spec_fn = spec_fn or mf_spec_fn(mesh)
+    :func:`shard_tree`; every rank gets them).  Pass the ``layouts`` the
+    blocks were cut with (default :func:`mf_spec_fn`'s, which reads no
+    sizes): layouts computed from the blocks would see a block's rows."""
+    if layouts is None:
+        layouts = tree_shardings(tree, mf_spec_fn(mesh), mesh)
 
-    def one(parts, leaf):
+    def one(leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return assemble(leaf, spec_fn(parts, leaf), mesh)
+        return assemble(leaf, spec, mesh)
 
-    return _map_tree(tree, one)
+    return tree_map_leaves(one, tree, layouts)
 
 
 def serving_row_multiple(mesh) -> int:

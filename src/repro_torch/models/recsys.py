@@ -12,7 +12,9 @@ Parameters are plain dicts (and lists) of tensors with the reference's keys;
 :func:`recsys_params_from_numpy` carries a reference tree across, so both
 packages compute the same thing from the same weights.  The ``init_*``
 functions draw from one explicit ``torch.Generator`` in a fixed order; the
-draws differ from ``jax.random``'s for the same seed.
+draws differ from ``jax.random``'s for the same seed.  With ``device="meta"``
+they allocate nothing and give the tree's shapes and dtypes (the cells'
+abstract arguments).
 
 The losses are differentiated by autograd.  None runs a kernel (the
 reference takes ``jax.grad`` through the rank mask and its ``einsum``s), and
@@ -166,7 +168,7 @@ class FMConfig:
 
 def init_fm_params(generator: torch.Generator, cfg: FMConfig,
                    device: DeviceLike = None) -> Params:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta_ok=True)
     return {
         "w0": torch.zeros((), dtype=cfg.dtype, device=dev),
         "w": torch.zeros((cfg.total_vocab,), dtype=cfg.dtype, device=dev),
@@ -270,7 +272,7 @@ class DLRMConfig:
 
 def init_dlrm_params(generator: torch.Generator, cfg: DLRMConfig,
                      device: DeviceLike = None) -> Params:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta_ok=True)
     tables = [_draw(generator, (vocab, cfg.embed_dim), vocab ** -0.5, cfg.dtype, dev)
               for vocab in cfg.vocab_sizes]
     top_in = cfg.bot_mlp[-1] + cfg.n_interact
@@ -364,7 +366,7 @@ def _init_blocks(generator, n_blocks: int, d: int, d_ffn: int, dtype, dev) -> li
 
 def init_sasrec_params(generator: torch.Generator, cfg: SASRecConfig,
                        device: DeviceLike = None) -> Params:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta_ok=True)
     d = cfg.embed_dim
     return {
         # row 0 is the padding item
@@ -469,7 +471,7 @@ class BSTConfig:
 
 def init_bst_params(generator: torch.Generator, cfg: BSTConfig,
                     device: DeviceLike = None) -> Params:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta_ok=True)
     d = cfg.embed_dim
     total_seq = cfg.seq_len + 1
     mlp_in = total_seq * d + cfg.n_profile

@@ -1,6 +1,8 @@
-"""Row optimizers for the factor tables (the MF training path).
+"""Optimizers: row optimizers for the factor tables (the MF training path)
+and the dense ``Adam`` and ``Sgd`` over whole parameter trees (the recsys
+models' cells).
 
-Counterpart of the row half of ``repro/optim/optimizers.py``.  State lives
+Counterpart of ``repro/optim/optimizers.py``.  For the row optimizers, state lives
 beside the (rows, k) table; an update touches only the gathered rows.  Every
 optimizer takes the paper's pruning ``mask``, so Algorithm 3's truncated
 update composes with any of them (SGD, momentum, Adagrad, AdaDelta, Adam).
@@ -22,19 +24,25 @@ Duplicate row indices follow the reference exactly:
   each index is picked explicitly;
 * adam keeps one step count ``t`` shared by all rows.
 
-The dense ``Adam``/``Sgd`` of the reference (for the model zoo) are not
-ported here.
+The dense optimizers take trees of tensors (``repro_torch.tree``: the
+recsys models' dicts and lists), keep their state in float32 and follow
+the reference's arithmetic op for op.  They too update in place, under
+``torch.no_grad()``: where the reference's cell donates its parameters
+(``donate_argnums``), the port writes the new values into the same
+tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels.scatter import add_rows
 
 State = Dict[str, torch.Tensor]
+Tree = Any
 
 
 def last_occurrence(idx: torch.Tensor) -> torch.Tensor:
@@ -136,3 +144,85 @@ class RowOptimizer:
             state["t"] = t
             return param, state
         raise ValueError(f"unknown row optimizer {self.name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Dense optimizers (whole parameter trees)
+# ---------------------------------------------------------------------------
+
+
+def _zeros_f32(tree: Tree) -> Tree:
+    return tree_lib.map_leaves(lambda p: torch.zeros_like(p, dtype=torch.float32), tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """Adam as the reference's: ``p - (lr * lr_scale * (m / b1c) /
+    (sqrt(v / b2c) + eps) + lr * lr_scale * weight_decay * p)`` in float32,
+    cast back to ``p.dtype``; ``m``, ``v`` float32 and one step count ``t``."""
+
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+    def init(self, params: Tree) -> Dict[str, Any]:
+        device = next(iter(tree_lib.leaves(params)), torch.empty(0)).device
+        return {"m": _zeros_f32(params), "v": _zeros_f32(params),
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+    @torch.no_grad()
+    def apply(self, params: Tree, state: Dict[str, Any], grads: Tree, lr_scale=1.0):
+        """Update ``params`` and ``state`` in place; returns them."""
+        t = state["t"] + 1
+        tf = t.float()
+        one = torch.ones((), dtype=torch.float32, device=tf.device)
+        b1c = 1 - torch.pow(one * self.beta1, tf)
+        b2c = 1 - torch.pow(one * self.beta2, tf)
+
+        def upd(p, g, m, v):
+            g = g.float()
+            m.copy_(self.beta1 * m + (1 - self.beta1) * g)
+            v.copy_(self.beta2 * v + (1 - self.beta2) * g * g)
+            step = self.lr * lr_scale * (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+            if self.weight_decay:
+                step = step + self.lr * lr_scale * self.weight_decay * p.float()
+            p.copy_((p.float() - step).to(p.dtype))
+
+        tree_lib.map_leaves(upd, params, grads, state["m"], state["v"])
+        state["t"] = t
+        return params, state
+
+
+@dataclasses.dataclass(frozen=True)
+class Sgd:
+    """Plain SGD (``momentum`` 0: no state, the step in ``p``'s dtype) or
+    heavy ball (a float32 momentum per leaf)."""
+
+    lr: float = 1e-2
+    momentum: float = 0.0
+
+    def init(self, params: Tree) -> Dict[str, Any]:
+        if self.momentum == 0.0:
+            return {}
+        return {"mom": _zeros_f32(params)}
+
+    @torch.no_grad()
+    def apply(self, params: Tree, state: Dict[str, Any], grads: Tree, lr_scale=1.0):
+        """Update ``params`` (and the momentum) in place; returns them.
+        Without momentum ``state`` comes back untouched."""
+        if self.momentum == 0.0:
+            def plain(p, g):
+                # the scale in p's dtype: jax casts a Python scalar to the array's
+                scale = torch.as_tensor(self.lr * lr_scale, dtype=p.dtype, device=p.device)
+                p.sub_(scale * g.to(p.dtype))
+            tree_lib.map_leaves(plain, params, grads)
+            return params, state
+
+        def upd(p, g, m):
+            m.copy_(self.momentum * m + g.float())
+            p.copy_((p.float() - self.lr * lr_scale * m).to(p.dtype))
+
+        tree_lib.map_leaves(upd, params, grads, state["mom"])
+        return params, state

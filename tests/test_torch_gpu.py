@@ -1078,3 +1078,85 @@ def test_recsys_retrievals_launch_pruned_matmul_at_k10_and_k50(cuda, t_v):
         want = recsys.sasrec_retrieval(params, seq, sr_cfg, t_v, use_kernel=False,
                                        cand_ids=cand_ids)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_streaming_topk_scores_launches_pruned_topk(cuda, grid):
+    """``configs.base.streaming_topk_scores`` on CUDA: one ``pruned_topk``
+    launch over the first ``max(V // chunk, 1) * chunk`` rows, held against
+    its plain version (the reference's chunked loop) on the same card;
+    1/8-grid operands exactly."""
+    from repro_torch.configs import base
+
+    rng = np.random.default_rng(21)
+    make = _grid if grid else _normal
+    h, table = make(rng, (300, 50), cuda), make(rng, (3 * 65536 + 77, 50), cuda)
+    before = pruned_topk.launches
+    got_s, got_i = base.streaming_topk_scores(h, table, k=100)
+    torch.cuda.synchronize()
+    assert pruned_topk.launches == before + 1
+    want_s, want_i = base.streaming_topk_plain(h, table[:3 * 65536], k=100, chunk=65536)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32
+    assert int(got_i.max()) < 3 * 65536
+    if grid:
+        assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+    else:
+        torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
+        near = (got_s - want_s).abs() <= 1e-5 + 1e-5 * want_s.abs()
+        assert bool(((got_i == want_i) | near).all())
+
+
+def test_dpmf_serve_cell_launches_pruned_topk(cuda):
+    """dpmf's ``serve_top100`` step on CUDA: one ``pruned_topk`` launch,
+    held against ``pruned_topk_plain`` on the same tables."""
+    from repro_torch import configs
+
+    rng = np.random.default_rng(22)
+    params = mf.MFParams(_normal(rng, (2000, 128), cuda), _normal(rng, (50000, 128), cuda),
+                         None, None, None, None)
+    users = torch.tensor(rng.integers(0, 2000, 1024).astype(np.int32), device=cuda)
+    t = torch.tensor(0.05, device=cuda)
+    cell = configs.build_cell("dpmf", "serve_top100")
+    before = pruned_topk.launches
+    got_s, got_i = cell.step_fn(params, users, t, t)
+    torch.cuda.synchronize()
+    assert pruned_topk.launches == before + 1
+    h = params.p[users.long()]
+    want_s, want_i = pruned_topk.pruned_topk_plain(
+        h, params.q, effective_ranks(h, t), effective_ranks(params.q, t),
+        torch.zeros(50000, device=cuda), 100, block_n=4096)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
+    near = (got_s - want_s).abs() <= 1e-5 + 1e-5 * want_s.abs()
+    assert bool(((got_i == want_i) | near).all())
+
+
+def test_fm_retrieval_cell_launches_pruned_matmul(cuda):
+    """FM's ``retrieval_cand`` step on CUDA (a small catalog at FM's width):
+    one ``pruned_matmul`` launch, held against the same step on the CPU
+    (the kernel's plain version) from the same weights."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import recsys
+
+    fm = configs.get_module("fm")
+    small = dataclasses.replace(fm.CONFIG, vocab_per_field=4096)
+    saved, fm.CONFIG = fm.CONFIG, small
+    try:
+        cell = configs.build_cell("fm", "retrieval_cand")
+    finally:
+        fm.CONFIG = saved
+    rng = np.random.default_rng(23)
+    gen = torch.Generator().manual_seed(23)
+    cpu_params = recsys.init_fm_params(gen, small, "cpu")
+    cpu_params["v"].mul_(30.0)  # ranks spread over the 10 dims at PRUNE_T 0.02
+    batch = {"user_ids": torch.tensor(rng.integers(0, 4096, (1, 38)).astype(np.int32)),
+             "cand_ids": torch.tensor(rng.integers(0, 4096, 100_000).astype(np.int32))}
+    want = cell.step_fn(cpu_params, batch)
+    params = {key: value.to(cuda) for key, value in cpu_params.items()}
+    before = pruned_matmul.launches
+    got = cell.step_fn(params, {key: value.to(cuda) for key, value in batch.items()})
+    torch.cuda.synchronize()
+    assert pruned_matmul.launches == before + 1
+    assert got.shape == (1, 100_000)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

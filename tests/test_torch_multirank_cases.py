@@ -231,3 +231,29 @@ def session_case(ctx, shape, names, tree, seqs, cfg, t_p, t_q, sessions, topk):
                                        max_batch=8)
     return (sequential.serve_sessions(engine, sessions, topk, mesh=mesh),
             sequential.serve_sessions(engine, sessions, topk))
+
+
+def recsys_blocks_case(ctx, shape, names, tree):
+    """This rank's blocks of a recsys parameter tree under
+    ``recsys_spec_fn``'s layout of the full tree, and the tree assembled
+    back from them."""
+    mesh = ctx.mesh(shape, names)
+    layouts = sharding.sanitize_shardings(
+        sharding.tree_shardings(tree, sharding.recsys_spec_fn(mesh), mesh), tree, mesh)
+    blocks = sharding.shard_tree(tree, mesh, layouts=layouts)
+    whole = sharding.assemble_tree(blocks, mesh, layouts=layouts)
+    return _np_tree(blocks), _np_tree(whole), layouts
+
+
+def dpmf_cell_step_case(ctx, shape, names, full, batch, t, shape_id):
+    """One step of the dpmf owner-compute cell ``shape_id`` (its adagrad,
+    lr and lam) on this rank's blocks, the mesh passed by keyword; the
+    assembled result."""
+    from repro_torch import configs
+
+    mesh = ctx.mesh(shape, names)
+    cell = configs.build_cell("dpmf", shape_id)
+    params, state = _blocks(ctx, mesh, full, "adagrad", "none")
+    batch = {key: torch.as_tensor(value) for key, value in batch.items()}
+    params, state, metrics = cell.step_fn(params, state, batch, t, t, mesh=mesh)
+    return _result(mesh, params, state, metrics)

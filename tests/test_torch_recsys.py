@@ -430,3 +430,45 @@ def test_chip_smoke_recsys_phase_rehearses_on_the_cpu():
     assert sum(chip_smoke.dlrm_vocabs(1 << 62)) == 187_770_572
     assert set(out["card_vs_cpu"]) == {"fm", "sasrec", "bst", "dlrm"}
     assert all(np.isfinite(v) for v in out["losses"].values())
+
+
+def test_chip_smoke_cells_phase_rehearses_on_the_cpu():
+    """``chip_smoke.py``'s cells phase (every ported cell's step once, held
+    against the same step on the CPU on slices) and its dpmf serve cell end to end
+    on the CPU at tiny sizes, with the configs set to them for the phase
+    only: every check holds (the launch counts are checked on the card
+    only, and none is made here)."""
+    import os
+    import sys
+
+    from repro_torch import configs
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    chip_smoke.failures.clear()
+    chip_smoke.PATH_LAUNCHES.pop("cells", None)
+    before = {arch: configs.get_config(arch) for arch in configs.PORTED_ARCHS}
+    out = chip_smoke.cells_phase(torch.device("cpu"), dict(
+        fm_vocab=64, sr_items=65535, bst_items=300, dlrm_cap=256, train=32, serve=8, bulk=16,
+        cands=500, rank_cands=64, slice=64, dpmf_users=4096, dpmf_items=2048, dpmf_batch=1024))
+    gen = torch.Generator().manual_seed(0)
+    cpu = torch.device("cpu")
+    p, q = chip_smoke.decaying_factors(gen, 3000, cpu), chip_smoke.decaying_factors(gen, 2000, cpu)
+    served = chip_smoke.dpmf_serve_cell(cpu, mf.MFParams(p, q, None, None, None, None),
+                                        *thresholds_from_matrices(p, q, 0.3))
+    assert chip_smoke.failures == []
+    assert {arch: configs.get_config(arch) for arch in configs.PORTED_ARCHS} == before
+    assert set(out) == {"fm", "sasrec", "bst", "dlrm-mlperf", "dpmf"}
+    for arch in ("fm", "sasrec", "bst", "dlrm-mlperf"):
+        assert set(out[arch]["ms"]) == set(configs.shape_ids(arch))
+        assert np.isfinite(out[arch]["loss"])
+    assert out["sasrec"]["max_abs_err"]["serve_bulk"] <= 1e-5
+    assert out["dpmf"]["max_abs_err"] <= 1e-5 and served["max_abs_err"] <= 1e-5
+    assert chip_smoke.PATH_LAUNCHES["cells"] == {"pruned_topk": 0, "pruned_matmul": 0,
+                                                 "add_rows": 0}
