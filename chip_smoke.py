@@ -3,7 +3,7 @@
 training, ranking-evaluation, implicit and BPR, online freshness,
 out-of-core (ratings store, streamed training, eviction), serving-fleet,
 multi-rank and recsys (FM, DLRM, SASRec with its sessions, BST) paths, and
-the cells of the port's config registry, on one card.
+the cells of the port's config registry (the GAT's included), on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -190,6 +190,15 @@ script exits) it:
    retrieval's first and last 4096 candidates; DLRM's tables cut to the
    rows a batch reads); then dpmf's ``train_1m`` (adagrad, four ``add_rows``) at 20M
    users x 10M x 128, its touched rows against the step on the CPU;
+   then gat-cora's four cells at their published widths and counts
+   (``full_graph_sm`` 3,072 nodes, ``minibatch_lg`` 169,984 sampled from a
+   Reddit-shaped graph of 114.6M edges, ``ogb_products`` 2,449,408 nodes and
+   61,859,328 edges, ``molecule`` 128 graphs), batches from the port's
+   ``data/graphs.py``: each GAT step (autograd, one Adam step in place; 12
+   ``add_rows`` launches) once, against the same step on the CPU (for
+   ``ogb_products`` the first 4096 nodes' logits against the CPU forward over
+   their 2-hop in-neighbourhood), then twice more from the same state,
+   bitwise, and node 0's run (its padded edges) timed alone;
    launches counted under ``cells``;
 23. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
@@ -3674,7 +3683,7 @@ def recsys_phase(dev, sizes=None):
     from repro_torch.core.ranks import effective_ranks
     from repro_torch.data import clicks
     from repro_torch.eval import ranking
-    from repro_torch.kernels import ops, pruned_matmul, pruned_topk
+    from repro_torch.kernels import ops, pruned_matmul, pruned_topk, scatter
     from repro_torch.models import recsys
     from repro_torch.serving import ServingEngine
     from repro_torch.workloads import sequential
@@ -3770,7 +3779,8 @@ def recsys_phase(dev, sizes=None):
     with torch.no_grad():
         dlrm_ranked = run("dlrm ranking", lambda: recsys.dlrm_retrieval(
             dlrm, dlrm_train["dense"][:1], dlrm_train["sparse"][:1], dlrm_cands, dlrm_cfg, DLRM_T))
-    launches = {"pruned_matmul": pruned_matmul.launches, "pruned_topk": pruned_topk.launches}
+    launches = {"pruned_matmul": pruned_matmul.launches, "pruned_topk": pruned_topk.launches,
+                "add_rows": scatter.launches}
     PATH_LAUNCHES["recsys"] = launches
     out["launches"] = launches
     out["wall_ms"] = wall
@@ -3783,6 +3793,9 @@ def recsys_phase(dev, sizes=None):
     check(launches["pruned_topk"] == chunks,
           f"pruned_topk launched once per {rs['max_batch']}-session chunk by serve_sessions "
           f"({launches['pruned_topk']} of {chunks})")
+    check(launches["add_rows"] == 4,
+          f"add_rows launched 4 times on the recsys path, by gather_rows' gradients: SASRec's "
+          f"seq, pos and neg, BST's seq ({launches['add_rows']})")
 
     # -- what came out -------------------------------------------------------------
     finite = {name: bool(torch.isfinite(v).all()) for name, v in (
@@ -3923,6 +3936,11 @@ def recsys_phase(dev, sizes=None):
                      ("dlrm loss + backward", lambda: _backward(recsys.dlrm_loss, dlrm, dlrm_train,
                                                                  dlrm_cfg, DLRM_T))):
         ms[name] = ms_of(fn, 2)
+    # G14: SASRec's loss and backward with its item gathers through a plain
+    # index (PyTorch's IndexBackward), beside the model's gather_rows above
+    ms["sasrec loss + backward (IndexBackward)"] = ms_of(lambda: _backward(
+        functools.partial(recsys.sasrec_loss, gather=lambda table, ids: table[ids.long()]),
+        sr, sr_train, sr_cfg), 2)
     for params in (sr, bst, dlrm):
         _release(params)
     log("  " + "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
@@ -4178,11 +4196,13 @@ def _recsys_cells(dev, arch, cfg, sz, seed):
     _count_cells(launches)
     want_topk = 2 if arch == "sasrec" else 0
     want_matmul = 1 if arch in ("fm", "sasrec") else 0
+    want_rows = {"sasrec": 3, "bst": 1}.get(arch, 0)  # gather_rows' gradients in the train step
     if dev.type == "cuda":
-        check(launches["pruned_topk"] == want_topk and launches["pruned_matmul"] == want_matmul,
+        check(launches["pruned_topk"] == want_topk and launches["pruned_matmul"] == want_matmul
+              and launches["add_rows"] == want_rows,
               f"cells: {arch}'s steps launched pruned_topk {launches['pruned_topk']} times "
-              f"(want {want_topk}) and pruned_matmul {launches['pruned_matmul']} (want "
-              f"{want_matmul})")
+              f"(want {want_topk}), pruned_matmul {launches['pruned_matmul']} (want "
+              f"{want_matmul}) and add_rows {launches['add_rows']} (want {want_rows})")
     # the train step: in place, and its loss and every updated weight (DLRM:
     # the rows its batch read) against the same step on the CPU
     new_params, loss = outs["train_batch"]
@@ -4374,6 +4394,325 @@ def cells_phase(dev, sizes=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# cells: gat-cora's four cells at their published widths
+# ---------------------------------------------------------------------------
+
+# each graph's own node and edge counts, self-loops included in the edges;
+# gnn_train_cell pads both to multiples of 512
+GNN_GRAPHS = {"full_graph_sm": (2708, 10556), "ogb_products": (2_449_029, 61_859_140)}
+# minibatch_lg: 1,024 seeds sampled at fanout (15, 10) from a Reddit-shaped
+# graph (232,965 nodes, 114,615,892 edges)
+REDDIT_GRAPH, GNN_SEEDS, GNN_FANOUTS = (232_965, 114_615_892), 1024, (15, 10)
+# molecule: 128 graphs of 30 nodes and 64 edges (34 drawn, 30 self-loops)
+MOLECULES, MOLECULE_NODES, MOLECULE_EDGES = 128, 30, 64
+GNN_CHECK_NODES = 4096  # ogb_products: the first nodes' logits against the CPU
+GNN_PAD = 512           # gnn_train_cell's pad_multiple
+GNN_LR = 5e-3           # gnn_train_cell's Adam lr (its other settings Adam's defaults)
+
+
+def _padded(count):
+    return count + (-count) % GNN_PAD
+
+
+def _gat_config(cell):
+    """The cell's ``GATConfig``, read off its abstract parameters and batch."""
+    from repro_torch.models import gnn
+
+    layers = cell.abstract_args[0]["layers"]
+    heads, d_hidden = layers[0]["a_src"].shape
+    return gnn.GATConfig(name=cell.arch, d_feat=cell.abstract_args[2]["features"].shape[1],
+                         n_classes=layers[-1]["bias"].shape[0], n_layers=len(layers),
+                         d_hidden=d_hidden, n_heads=heads)
+
+
+def _pad_graph(batch, num_nodes, num_edges):
+    """A numpy graph batch padded to ``num_nodes`` and ``num_edges``: nodes
+    with zero features and label -1, edges (0, 0) with mask 0 (the layout
+    ``data/graphs.py`` pads with); a batch without ``edge_mask`` has every
+    edge real."""
+    n, e = len(batch["labels"]), len(batch["edges"])
+    feats = np.zeros((num_nodes, batch["features"].shape[1]), np.float32)
+    feats[:n] = batch["features"]
+    labels = np.full(num_nodes, -1, np.int32)
+    labels[:n] = batch["labels"]
+    edges = np.zeros((num_edges, 2), np.int32)
+    edges[:e] = batch["edges"]
+    mask = np.zeros(num_edges, np.float32)
+    mask[:e] = batch.get("edge_mask", 1.0)
+    return {"features": feats, "edges": edges, "edge_mask": mask, "labels": labels}
+
+
+def gnn_batch(sid, cfg, sz, seed):
+    """``sid``'s batch (numpy) from the port's ``data/graphs.py``:
+    ``synthetic_graph`` at the graph's own counts for the full-graph cells;
+    ``to_csr``, ``neighbor_sample`` and ``pad_subgraph`` on a Reddit-shaped
+    graph for ``minibatch_lg``; ``batch_molecules`` for ``molecule``; each
+    padded as ``gnn_train_cell`` pads its shapes."""
+    from repro_torch.data import graphs
+
+    if sid == "minibatch_lg":
+        n, e = sz["reddit"]
+        g = graphs.synthetic_graph(n, e - n, cfg.d_feat, cfg.n_classes, seed=seed)
+        indptr, indices = graphs.to_csr(g.edges, n)
+        seeds = np.random.default_rng(seed + 1).choice(n, sz["seeds"], replace=False)
+        nodes, edges_local, _ = graphs.neighbor_sample(indptr, indices, seeds, sz["fanouts"],
+                                                        seed=seed + 2)
+        del indptr, indices
+        most = sz["seeds"] * sum(int(np.prod(sz["fanouts"][:i])) for i in range(len(sz["fanouts"]) + 1))
+        batch = graphs.pad_subgraph(g, nodes, edges_local, _padded(most))
+        return _pad_graph(batch, _padded(most), _padded(len(edges_local)))
+    if sid == "molecule":
+        n, e = sz["mol_nodes"], sz["mol_edges"]
+        mols = [graphs.synthetic_graph(n, e - n, cfg.d_feat, cfg.n_classes, seed=seed + i)
+                for i in range(sz["molecules"])]
+        batch = graphs.batch_molecules(mols, n, e)
+        return _pad_graph(batch, _padded(n * len(mols)), _padded(e * len(mols)))
+    n, e = sz[sid]
+    g = graphs.synthetic_graph(n, e - n, cfg.d_feat, cfg.n_classes, seed=seed)
+    return _pad_graph({"features": g.features, "edges": g.edges, "labels": g.labels},
+                      _padded(n), _padded(e))
+
+
+def _in_neighbourhood(batch, count, hops):
+    """The subgraph that decides the first ``count`` nodes' outputs after
+    ``hops`` layers: every edge into a node within ``hops - 1`` in-hops of
+    them, in edge order, over the nodes those edges touch, numbered in id
+    order (the first ``count`` keep their ids)."""
+    src, dst = batch["edges"][:, 0], batch["edges"][:, 1]
+    n = len(batch["labels"])
+    reach = np.zeros(n, bool)
+    reach[:count] = True
+    for _ in range(hops - 1):
+        reach[src[reach[dst]]] = True
+    keep = reach[dst]
+    touched = reach.copy()
+    touched[src[keep]] = True
+    ids = np.flatnonzero(touched)
+    new_id = np.full(n, -1, np.int64)
+    new_id[ids] = np.arange(len(ids))
+    return {"features": batch["features"][ids], "edges": new_id[batch["edges"][keep]].astype(np.int32),
+            "edge_mask": batch["edge_mask"][keep], "labels": batch["labels"][ids]}
+
+
+def _node0_run(dev, batch, width, seed, label):
+    """Node 0's run of the layer-1 segment sum (its edges: its own and every
+    padded one): its length, and the ms of the sum over all edges and of the
+    run alone (one warp of ``add_rows`` adds it row after row), at the
+    layer's message width; CUDA events.  The sum over all edges is held
+    bitwise against ``index_add_`` on the CPU (batch order both)."""
+    from repro_torch.kernels import scatter
+
+    dst = batch["edges"][:, 1].long()
+    n = batch["labels"].shape[0]
+    on_zero = dst == 0
+    run = int(on_zero.sum())
+    padded = int((on_zero & (batch["edge_mask"] == 0)).sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = torch.randn((dst.shape[0], width), generator=gen, device=dev)
+    whole = time_ms(lambda: scatter.segment_sum(rows, dst, n), 3, dev)
+    got = scatter.segment_sum(rows, dst, n).cpu()
+    want = torch.zeros((n, width)).index_add_(0, dst.cpu(), rows.cpu())
+    check(torch.equal(got, want), f"cells: {label}: the segment sum over all {len(dst)} edges "
+                                  f"(width {width}) bitwise index_add_'s on the CPU")
+    del got, want
+    alone_rows, alone_idx = rows[on_zero], torch.zeros(run, dtype=torch.long, device=dev)
+    del rows
+    alone = time_ms(lambda: scatter.segment_sum(alone_rows, alone_idx, 1), 3, dev)
+    return {"node0_run": run, "node0_padded": padded, "segment_sum_ms": whole,
+            "node0_run_ms": alone}
+
+
+def _release_cached(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def adam_first_step(start, got, want, lr, tol=RTOL):
+    """A first Adam step (t = 1 from zero moments) held against another run
+    of the same step, on the CPU.  ``start``, ``got`` and ``want`` are
+    ``(params, {"m", "v", ...})`` trees.  At t = 1, ``m / (1 - beta1)`` and
+    ``sqrt(v / (1 - beta2))`` are the gradient ``g`` and ``|g|``: each is held
+    within ``tau = tol * max |g|`` of the leaf's.  The weights are held within
+    rtol/atol ``tol`` of Adam's step from ``got``'s own moments, and of
+    ``want``'s weights plus what ``tau`` allows through ``g / (|g| + eps)``:
+    ``lr * eps * tau / (max(|g| - tau, 0) + eps)^2``, at most ``2 lr`` (a
+    gradient within ``tau`` of 0 may flip its step's sign).  Returns
+    ``(ok, errors)``: the gradients' largest error over their leaf's largest
+    value, the weights' largest errors, and how many weights that slack let
+    past ``tol``."""
+    from repro_torch import tree
+    from repro_torch.optim.optimizers import Adam
+
+    adam = Adam(lr=lr)
+    b1c, b2c = 1 - torch.tensor(adam.beta1), 1 - torch.tensor(adam.beta2)
+    ok, errs = True, {"grad_rel": 0.0, "weights_own": 0.0, "weights": 0.0, "loose": 0}
+    rows = []  # each leaf's tensors, matched by their path in got's weights
+    tree.map_leaves(lambda *leaf: rows.append(leaf), got[0], start[0], got[1]["m"], got[1]["v"],
+                    want[0], want[1]["m"], want[1]["v"])
+    for p1, p0, m1, v1, p2, m2, v2 in rows:
+        p0 = p0.cpu()
+        g = m2 / b1c
+        top = float(g.abs().max())
+        tau = tol * top
+        for a, b in ((m1 / b1c, g), (torch.sqrt(v1 / b2c), torch.sqrt(v2 / b2c))):
+            err = float((a - b).abs().max())
+            errs["grad_rel"] = max(errs["grad_rel"], err / top if top else err)
+            ok = ok and err <= tau
+        own = p0 - adam.lr * (m1 / b1c) / (torch.sqrt(v1 / b2c) + adam.eps)
+        errs["weights_own"] = max(errs["weights_own"], float((p1 - own).abs().max()))
+        ok = ok and bool(torch.allclose(p1, own, rtol=tol, atol=tol))
+        diff, near = (p1 - p2).abs(), tol + tol * p2.abs()
+        slack = adam.lr * torch.clamp(
+            adam.eps * tau / ((g.abs() - tau).clamp(min=0) + adam.eps) ** 2, max=2.0)
+        errs["weights"] = max(errs["weights"], float(diff.max()))
+        errs["loose"] += int((diff > near).sum())
+        ok = ok and bool((diff <= near + slack).all())
+    return ok, errs
+
+
+def _gnn_cell(dev, cell, cfg, batch_np, seed, exact, check_nodes):
+    """One gat-cora cell: its step once from fresh weights and Adam state,
+    counted under ``cells`` and timed; held against the same step on the CPU
+    (``ogb_products``: the first ``check_nodes`` nodes' logits against the
+    CPU forward over their in-neighbourhood); the step again from the same
+    state, warm, bitwise equal; node 0's run timed."""
+    from repro_torch import tree
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import Adam
+
+    a_params, a_opt, a_batch = cell.abstract_args
+    shapes_ok = set(batch_np) == set(a_batch) and all(
+        (batch_np[key].shape == tuple(spec.shape) if exact
+         else batch_np[key].shape[1:] == tuple(spec.shape[1:]))
+        and torch.as_tensor(batch_np[key][:0]).dtype == spec.dtype for key, spec in a_batch.items())
+    check(shapes_ok, f"cells: {cell.cell_id} batch keys, dtypes and "
+                     f"{'shapes' if exact else 'widths'} are the cell's abstract batch's")
+    batch = {key: torch.as_tensor(value).to(dev) for key, value in batch_np.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = gnn.init_params(gen, cfg, dev)
+    opt = Adam().init(params)
+    check([tuple(t.shape) for t in tree.leaves((params, opt))]
+          == [tuple(t.shape) for t in tree.leaves((a_params, a_opt))],
+          f"cells: {cell.cell_id} weights and Adam state have the abstract arguments' shapes")
+    start = tree.map_leaves(lambda t: t.clone(), (params, opt))
+    n, e = batch["labels"].shape[0], batch["edges"].shape[0]
+    masked = int((batch["edge_mask"] == 0).sum())
+    log(f"## cells: {cell.cell_id}: {n} nodes, {e} edges ({masked} masked), {cfg.d_feat} "
+        f"features, {cfg.n_classes} classes")
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    (new_p, new_o, loss), ms = _clock(dev, lambda: cell.step_fn(params, opt, batch))
+    launches = _cell_counts()
+    _count_cells(launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    want = 6 * cfg.n_layers  # a layer: 2 segment sums, 4 gathers' gradients
+    if dev.type == "cuda":
+        check(launches == {"pruned_topk": 0, "pruned_matmul": 0, "add_rows": want},
+              f"cells: {cell.cell_id} launched add_rows {want} times and nothing else "
+              f"({launches})")
+    finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(t).all())
+                                                for t in tree.leaves((params, opt)))
+    check(new_p is params and new_o is opt and int(opt["t"]) == 1 and finite
+          and not torch.equal(params["layers"][0]["w"], start[0]["layers"][0]["w"]),
+          f"cells: {cell.cell_id} loss {float(loss):.6f} finite, weights and Adam state updated "
+          "in place and finite")
+    _release_cached(dev)  # ogb_products' step takes most of the card
+    # the step twice more from the same state, each bitwise the first; the
+    # last one timed warm (the second pays the allocator's cudaMalloc again)
+    same = True
+    for _ in range(2):
+        again = tree.map_leaves(lambda t: t.clone(), start)
+        (_, _, loss2), warm = _clock(dev, lambda: cell.step_fn(*again, batch))
+        same = same and torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(
+            tree.leaves((params, opt)), tree.leaves(again)))
+        del again
+    check(same, f"cells: {cell.cell_id}: three steps from one state give the same bits (loss, "
+                "weights, Adam state)")
+    _release_cached(dev)
+    cpu = torch.device("cpu")
+    on_cpu = tree.map_leaves(lambda t: t.to(cpu, copy=True), start)
+    if cell.shape_id == "ogb_products":
+        # the full graph's step does not fit the host's time: the first nodes'
+        # logits against the CPU forward over the subgraph that decides them
+        with torch.no_grad():
+            got = gnn.forward(start[0], batch["features"], batch["edges"], cfg,
+                              batch["edge_mask"])[:check_nodes].cpu()
+            sub = _in_neighbourhood(batch_np, check_nodes, cfg.n_layers)
+            want_l = gnn.forward(on_cpu[0], *(torch.as_tensor(sub[key]) for key in (
+                "features", "edges")), cfg, torch.as_tensor(sub["edge_mask"]))[:check_nodes]
+        err = float((got - want_l).abs().max())
+        out_err = {"logits": err}
+        check(bool(torch.allclose(got, want_l, rtol=RTOL, atol=ATOL)),
+              f"cells: {cell.cell_id}: the first {check_nodes} nodes' logits within rtol/atol "
+              f"{RTOL} of the CPU forward over their {cfg.n_layers}-hop in-neighbourhood "
+              f"({len(sub['labels'])} nodes, {len(sub['edges'])} edges; max abs err {err:.3e})")
+        del got, want_l, sub
+    else:
+        cpu_batch = {key: torch.as_tensor(value) for key, value in batch_np.items()}
+        _, _, want_loss = cell.step_fn(*on_cpu, cpu_batch)
+        loss_err = abs(float(loss) - float(want_loss))
+        check(loss_err <= ATOL + RTOL * abs(float(want_loss)),
+              f"cells: {cell.cell_id} loss within rtol/atol {RTOL} of the same step on the CPU "
+              f"(err {loss_err:.3e})")
+        ok, out_err = adam_first_step(start, tree.map_leaves(lambda t: t.cpu(), (params, opt)),
+                                      on_cpu, GNN_LR)
+        check(ok, f"cells: {cell.cell_id} Adam's first step against the same step on the CPU: "
+                  f"the gradients (m / (1 - beta1), sqrt(v / (1 - beta2))) within {RTOL} of each "
+                  f"leaf's largest (max err {out_err['grad_rel']:.3e} of it); the weights within "
+                  f"rtol/atol {RTOL} of Adam's step from the card's moments (max abs err "
+                  f"{out_err['weights_own']:.3e}) and of the CPU step's weights, plus what the "
+                  f"gradients' tolerance allows through g / (|g| + eps) (max abs err "
+                  f"{out_err['weights']:.3e}; {out_err['loose']} weights past {RTOL})")
+        del cpu_batch
+    del on_cpu, start, params, opt
+    _release_cached(dev)
+    width = cfg.layer_dims()[0][1] * cfg.layer_dims()[0][2]
+    run = _node0_run(dev, batch, width, seed + 1, cell.cell_id)
+    log(f"  {cell.cell_id}: {ms:.3f} ms counted run, {warm:.3f} ms warm (CUDA events); peak "
+        f"{peak:.2f} GB; launches {launches}; node 0's run {run['node0_run']} edges "
+        f"({run['node0_padded']} padded): alone {run['node0_run_ms']:.3f} ms, the layer-1 "
+        f"segment sum over all {e} edges at width {width} {run['segment_sum_ms']:.3f} ms")
+    return {"ms": ms, "warm_ms": warm, "peak_gb": peak, "launches": launches,
+            "loss": float(loss), "max_abs_err": out_err, "nodes": n, "edges": e,
+            "masked_edges": masked, **run}
+
+
+def gnn_cells_phase(dev, sizes=None):
+    """cells: gat-cora's four cells (``full_graph_sm``, ``minibatch_lg``,
+    ``ogb_products``, ``molecule``) built (no device memory) and each step
+    run once at its published widths and counts on a batch from the port's
+    ``data/graphs.py``, counted under ``cells`` (``add_rows`` only: the
+    GAT's gathers' gradients and segment sums), timed with CUDA events;
+    held against the CPU (the step, or ``ogb_products``' first nodes'
+    logits) and against two more steps from the same state, bitwise.
+    ``sizes`` overrides the graphs' counts (a rehearsal on the CPU passes
+    tiny ones; the feature and class widths stay the cells')."""
+    sz = dict(GNN_GRAPHS, reddit=REDDIT_GRAPH, seeds=GNN_SEEDS, fanouts=GNN_FANOUTS,
+              molecules=MOLECULES, mol_nodes=MOLECULE_NODES, mol_edges=MOLECULE_EDGES,
+              check_nodes=GNN_CHECK_NODES)
+    sz.update(sizes or {})
+    out = {}
+    for i, sid in enumerate(configs.shape_ids("gat-cora")):
+        cell = _build_cell(dev, "gat-cora", sid)
+        cfg = _gat_config(cell)
+        t0 = time.perf_counter()
+        batch = gnn_batch(sid, cfg, sz, SEED + 200 + 10 * i)
+        data_s = time.perf_counter() - t0
+        log(f"  {cell.cell_id}: batch made by data/graphs.py in {data_s:.1f} s")
+        out[sid] = dict(_gnn_cell(dev, cell, cfg, batch, SEED + 205 + 10 * i, sizes is None,
+                                  sz["check_nodes"]), data_s=data_s)
+        del batch
+        _release_cached(dev)
+    log(f"  launches on the cells path so far: {PATH_LAUNCHES.get('cells', {})}")
+    return out
+
+
 def mf_grid_view(view):
     """A copy of an MF view with each table scaled to unit spread and rounded
     to the 1/8 grid in [-2, 2]: every product and sum of the scoring exact."""
@@ -4452,6 +4791,7 @@ def main() -> int:
         fleet_launchers = phase("fleet and SLO launchers", fleet_launchers_phase, tmp)
         recsys_stats = phase("recsys", recsys_phase, dev)
         cells = phase("cells", cells_phase, dev)
+        gnn_cells = phase("cells: gat-cora", gnn_cells_phase, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4508,7 +4848,7 @@ def main() -> int:
         "fleet_launchers": fleet_launchers,
         "multirank": {k: v for k, v in multirank.items() if k != "small"},
         "recsys": {k: v for k, v in recsys_stats.items() if k not in ("launches", "kernels")},
-        "cells": {"dpmf::serve_top100": serve_cell, **cells,
+        "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells,
                   "multirank": {mode: multirank["train"][mode]["step_ms"] for mode in ("none", "int8")}},
     }
     log("# workloads " + json.dumps(workloads))

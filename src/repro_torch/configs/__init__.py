@@ -1,13 +1,13 @@
 """Architecture registry: the reference's 10 assigned archs and the paper's
-own (dpmf), of which the port has the cells of dpmf, fm, sasrec, bst and
-dlrm-mlperf.
+own (dpmf), of which the port has the cells of gat-cora, fm, sasrec, bst,
+dlrm-mlperf and dpmf.
 
 Counterpart of ``repro/configs/__init__.py``.  ``build_cell(arch, shape)``
 makes a :class:`~repro_torch.configs.base.CellSpec` (step function, meta
 abstract arguments, layouts); :func:`all_cells` lists the ported cells.  The
-transformer archs (ROADMAP A8d) and gat-cora (A8e) are named, so that
-``ALL_ARCHS`` is the reference's, but :func:`get_module` of one of them
-raises ``NotImplementedError``.
+transformer archs (ROADMAP A8d) are named, so that ``ALL_ARCHS`` is the
+reference's, but :func:`get_module` of one of them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ _ARCH_MODULES = {
     "qwen3-4b": None,
     "deepseek-v2-lite-16b": None,
     "granite-moe-1b-a400m": None,
-    "gat-cora": None,
+    "gat-cora": "repro_torch.configs.gat_cora",
     "fm": "repro_torch.configs.fm_arch",
     "sasrec": "repro_torch.configs.sasrec_arch",
     "bst": "repro_torch.configs.bst_arch",
@@ -34,7 +34,6 @@ _WAITING = {
     "qwen3-4b": "A8d (the transformer zoo)",
     "deepseek-v2-lite-16b": "A8d (the transformer zoo)",
     "granite-moe-1b-a400m": "A8d (the transformer zoo)",
-    "gat-cora": "A8e (the GNN)",
 }
 
 ASSIGNED_ARCHS: Tuple[str, ...] = tuple(a for a in _ARCH_MODULES if a != "dpmf")
@@ -74,6 +73,6 @@ def build_cell(arch: str, shape_id: str):
 
 def all_cells(include_dpmf: bool = True) -> List[Tuple[str, str]]:
     """Every (arch, shape) cell of the ported archs only (``PORTED_ARCHS``;
-    the reference's list also holds the LM and GNN cells)."""
+    the reference's list also holds the LM cells)."""
     archs = PORTED_ARCHS if include_dpmf else tuple(a for a in PORTED_ARCHS if a != "dpmf")
     return [(arch, sid) for arch in archs for sid in shape_ids(arch)]

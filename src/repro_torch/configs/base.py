@@ -1,8 +1,8 @@
 """Cell machinery: an (architecture x input shape) cell bundles the step
 function, its abstract arguments and the layout of each argument on a mesh.
 
-Counterpart of ``repro/configs/base.py`` for the dpmf and recsys cells (the
-LM and GNN cells are not ported yet).  Three choices differ from the
+Counterpart of ``repro/configs/base.py`` for the dpmf, recsys and GNN cells
+(the LM cells are not ported yet).  Three choices differ from the
 reference, each forced by PyTorch:
 
 * **Abstract arguments are meta tensors.**  The reference's
@@ -31,7 +31,8 @@ import torch
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import value_and_grad
 from repro_torch.kernels import ops as kops
-from repro_torch.optim.optimizers import Sgd
+from repro_torch.models import gnn as gnn_lib
+from repro_torch.optim.optimizers import Adam, Sgd
 
 Tree = Any
 
@@ -70,6 +71,71 @@ LM_SHAPES = {
     "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
     "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
 }
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+
+def gnn_train_cell(
+    arch: str,
+    shape_id: str,
+    cfg: gnn_lib.GATConfig,
+    *,
+    num_nodes: int,
+    num_edges: int,
+    with_edge_mask: bool = False,
+    lr: float = 5e-3,
+    note: str = "",
+    pad_multiple: int = 512,
+) -> CellSpec:
+    """``step(params, opt_state, batch) -> (params, opt_state, loss)``: the
+    GAT's masked cross entropy and its gradient by autograd, then one Adam
+    step written into ``params`` and ``opt_state`` in place.  Node and edge
+    counts are padded to a multiple of ``pad_multiple`` so both stay
+    shardable; padding forces ``edge_mask`` (padded nodes carry label -1,
+    padded edges mask 0: the layout ``data/graphs.py`` makes)."""
+    if num_nodes % pad_multiple or num_edges % pad_multiple:
+        num_nodes += (-num_nodes) % pad_multiple
+        num_edges += (-num_edges) % pad_multiple
+        with_edge_mask = True
+    optimizer = Adam(lr=lr)
+
+    def loss_fn(params, batch):
+        return gnn_lib.loss_fn(params, batch, cfg)
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state = optimizer.apply(params, opt_state, grads)
+        return params, opt_state, loss
+
+    a_params = abstract_like(gnn_lib.init_params, torch.Generator(), cfg)
+    a_opt = optimizer.init(a_params)
+    a_batch = {
+        "features": abstract((num_nodes, cfg.d_feat), torch.float32),
+        "edges": abstract((num_edges, 2), torch.int32),
+        "labels": abstract((num_nodes,), torch.int32),
+    }
+    if with_edge_mask:
+        a_batch["edge_mask"] = abstract((num_edges,), torch.float32)
+
+    def in_shardings(mesh):
+        p_sh = shd.tree_shardings(a_params, shd.gnn_spec_fn(mesh), mesh)
+        o_sh = {"m": p_sh, "v": p_sh, "t": shd.replicated(mesh)}
+        b_all = shd.gnn_batch_shardings(mesh)
+        return (p_sh, o_sh, {key: b_all[key] for key in a_batch})
+
+    return CellSpec(
+        arch=arch,
+        shape_id=shape_id,
+        kind="train",
+        step_fn=step,
+        abstract_args=(a_params, a_opt, a_batch),
+        in_shardings=in_shardings,
+        donate_argnums=(0, 1),
+        note=note,
+    )
+
 
 # ---------------------------------------------------------------------------
 # RecSys cells (shared step builders)

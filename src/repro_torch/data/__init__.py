@@ -1,10 +1,19 @@
-"""Rating datasets, the batch loaders of the training path, and the
-synthetic click data of the recsys models (``clicks``)."""
+"""Rating datasets, the batch loaders of the training path, the synthetic
+click data of the recsys models (``clicks``) and the GNN's graphs, their
+sampler and batching (``graphs``)."""
 from repro_torch.data.clicks import (  # noqa: F401
     bst_batch,
     criteo_batch,
     fm_batch,
     sasrec_batch,
+)
+from repro_torch.data.graphs import (  # noqa: F401
+    Graph,
+    batch_molecules,
+    neighbor_sample,
+    pad_subgraph,
+    synthetic_graph,
+    to_csr,
 )
 from repro_torch.data.loader import (  # noqa: F401
     PackedRatings,

@@ -1,10 +1,11 @@
 """How the MF tables, batches and serving operands, and the recsys models'
-parameters and batches, map onto a mesh.
+and the GAT's parameters and batches, map onto a mesh.
 
-Counterpart of the MF and recsys parts of ``repro/distributed/sharding.py``.  Axes:
-``"data"`` (and ``"pod"`` when present) carry the user rows and the batch,
-``"model"`` carries the item rows: a rating batch sharded over the data
-axes meets its item rows across ``"model"``, the MF analogue of DP x TP.
+Counterpart of the MF, recsys and GNN parts of
+``repro/distributed/sharding.py``.  Axes: ``"data"`` (and ``"pod"`` when
+present) carry the user rows and the batch, ``"model"`` carries the item
+rows: a rating batch sharded over the data axes meets its item rows across
+``"model"``, the MF analogue of DP x TP.
 
 A layout is a :func:`P` spec as in jax, one entry a dim: ``None``
 (replicated) or a tuple of axis names whose ranks split that dim into
@@ -218,6 +219,35 @@ def recsys_batch_shardings(mesh, batch: Dict[str, Any]) -> Dict[str, Spec]:
         return P() if nd == 0 else P(dp, *([None] * (nd - 1)))
 
     return {name: spec(arr) for name, arr in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
+
+
+def gnn_spec_fn(mesh) -> Callable:
+    """``spec_fn(parts, leaf)`` of the GAT: every weight replicated (they are
+    tiny)."""
+    del mesh
+
+    def spec_fn(parts, leaf) -> Spec:
+        return P(*(None,) * len(getattr(leaf, "shape", ())))
+
+    return spec_fn
+
+
+def gnn_batch_shardings(mesh) -> Dict[str, Spec]:
+    """Layouts of a graph batch: nodes (features, labels) over the data axes,
+    edges and their mask over every axis of the mesh."""
+    flat = all_axes(mesh)
+    dp = data_axes(mesh)
+    return {
+        "features": ns(mesh, dp, None),
+        "edges": ns(mesh, flat, None),
+        "edge_mask": ns(mesh, flat),
+        "labels": ns(mesh, dp),
+    }
 
 
 def shard_tree(tree: Any, mesh, *, device=None, layouts: Any = None) -> Any:

@@ -22,6 +22,11 @@ any device: pass ``j`` adds the ``j``-th row of every run, one
 ``index_add_`` over distinct indices a pass (a host sync, and a launch a
 pass).  It is the kernel's order written out, and the plain version the card
 times the kernel against.
+
+Two autograd functions put it under the models' gathers and segment sums:
+:func:`gather_rows` (``table[idx]``, its gradient added into a zero table by
+``add_rows``) and :func:`segment_sum` (``add_rows`` into zeros, its gradient
+a gather).  Their launches count as ``add_rows``'.
 """
 from __future__ import annotations
 
@@ -115,3 +120,55 @@ def add_rows_in_passes(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tenso
         table.index_add_(0, idx[sel], rows[sel])
         lo += count
     return table
+
+
+def _flat_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a vector or an ``(n, k)`` table with unit column stride, the
+    two forms :func:`add_rows` takes: trailing dims folded into ``k``."""
+    return t if t.dim() <= 1 else t.reshape(t.shape[0], -1)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros(ctx.table_shape)
+        flat = idx.reshape(-1)
+        add_rows(_flat_rows(out), flat, _flat_rows(grad.reshape((flat.shape[0],) + out.shape[1:])))
+        return out, None
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, seg, num_segments):
+        ctx.save_for_backward(seg)
+        out = rows.new_zeros((num_segments,) + tuple(rows.shape[1:]))
+        add_rows(_flat_rows(out), seg, _flat_rows(rows))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg,) = ctx.saved_tensors
+        return grad[seg], None, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (``idx`` of any shape) whose gradient is added into a
+    zero table by :func:`add_rows`: the repeats of an index in batch order,
+    one stable sort and one launch on CUDA, where PyTorch's own backward of
+    an index (``index_put_`` with accumulate) adds them with atomics."""
+    return _GatherRows.apply(table, idx.long())
+
+
+def segment_sum(rows: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: ``out[s] = sum of rows[j] with seg[j] == s``
+    over ``(E,)``, ``(E, H)`` or ``(E, H, d)`` rows, added in batch order by
+    :func:`add_rows`; an empty segment is 0.  Its gradient is the gather
+    ``grad[seg]``."""
+    return _SegmentSum.apply(rows, seg.long(), num_segments)

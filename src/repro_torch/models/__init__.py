@@ -4,12 +4,15 @@
   use (``dense``, ``layer_norm``, ``mlp``, ``embed_lookup``, ``init_dense``);
 * :mod:`repro_torch.models.recsys`: FM, DLRM (MLPerf config), SASRec and
   BST, with ``embedding_bag``; FM's and SASRec's retrieval score through the
-  ``pruned_matmul`` kernel.
+  ``pruned_matmul`` kernel;
+* :mod:`repro_torch.models.gnn`: the GAT of gat-cora, its edge gathers and
+  segment sums in batch order (``kernels.scatter``).
 
 Still to port from ``repro/models``: ``attention``, ``moe`` and
 ``transformer`` (with ``layers``' ``rms_norm``, ``rms_norm_lean``,
-``gated_mlp``, ``rope_frequencies`` and ``apply_rope``), and ``gnn``.
+``gated_mlp``, ``rope_frequencies`` and ``apply_rope``).
 """
+from repro_torch.models import gnn  # noqa: F401
 from repro_torch.models.layers import (  # noqa: F401
     dense,
     embed_lookup,

@@ -16,9 +16,12 @@ draws differ from ``jax.random``'s for the same seed.  With ``device="meta"``
 they allocate nothing and give the tree's shapes and dtypes (the cells'
 abstract arguments).
 
-The losses are differentiated by autograd.  None runs a kernel (the
-reference takes ``jax.grad`` through the rank mask and its ``einsum``s), and
-attention is plain ``matmul`` and ``softmax`` with the reference's float32
+The losses are differentiated by autograd.  SASRec's and BST's item
+embeddings are read through ``kernels.scatter.gather_rows``, whose gradient
+adds an item's repeats in batch order (one ``add_rows`` launch on the
+card), and ``embedding_bag`` sums through ``segment_sum``.  Nothing else
+runs a kernel (the reference takes ``jax.grad`` through the rank mask and
+its ``einsum``s), and attention is plain ``matmul`` and ``softmax`` with the reference's float32
 ``-1e30`` mask, so the masking and the arithmetic stay the reference's.
 """
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from repro_torch.core.ranks import effective_ranks, rank_mask
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.scatter import add_rows
+from repro_torch.kernels.scatter import gather_rows, segment_sum
 from repro_torch.models.layers import dense
 
 Params = Dict[str, Any]
@@ -64,22 +67,6 @@ def recsys_params_to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-class _BagSum(torch.autograd.Function):
-    """Segment sum in batch order (``add_rows`` into zeros); its gradient is
-    the gather of the bags' gradients."""
-
-    @staticmethod
-    def forward(ctx, rows, segment_ids, num_bags):
-        ctx.save_for_backward(segment_ids)
-        out = rows.new_zeros((num_bags,) + tuple(rows.shape[1:]))
-        return add_rows(out, segment_ids, rows.contiguous())
-
-    @staticmethod
-    def backward(ctx, grad):
-        (segment_ids,) = ctx.saved_tensors
-        return grad[segment_ids], None, None
-
-
 def embedding_bag(
     table: torch.Tensor,        # (V, d)
     values: torch.Tensor,       # (nnz,) flat ids
@@ -99,7 +86,7 @@ def embedding_bag(
         rows = rows * weights[:, None]
     segment_ids = segment_ids.long()
     if combiner in ("sum", "mean"):
-        sums = _BagSum.apply(rows, segment_ids, num_bags)
+        sums = segment_sum(rows, segment_ids, num_bags)
         if combiner == "sum":
             return sums
         counts = torch.bincount(segment_ids, minlength=num_bags).float()
@@ -402,11 +389,14 @@ def _block(x: torch.Tensor, blk: Params, attn_mask: torch.Tensor, n_heads: int) 
     return x + dense(f, blk["ffn_w2"], blk["ffn_b2"])
 
 
-def sasrec_encode(params: Params, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
-    """``seq`` (B, S) item ids (0 = pad) -> hidden states (B, S, d)."""
+def sasrec_encode(params: Params, seq: torch.Tensor, cfg: SASRecConfig, *,
+                  gather=gather_rows) -> torch.Tensor:
+    """``seq`` (B, S) item ids (0 = pad) -> hidden states (B, S, d).
+    ``gather(table, ids)`` reads the item embeddings (``gather_rows``; the
+    smoke times a plain index against it)."""
     seq = seq.long()
     s = seq.shape[1]
-    x = params["item_embed"][seq] * (cfg.embed_dim ** 0.5)
+    x = gather(params["item_embed"], seq) * (cfg.embed_dim ** 0.5)
     x = x + params["pos_embed"][None, :s]
     pad = seq == 0
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=seq.device))
@@ -417,11 +407,13 @@ def sasrec_encode(params: Params, seq: torch.Tensor, cfg: SASRecConfig) -> torch
     return x * (~pad)[..., None]
 
 
-def sasrec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: SASRecConfig):
-    """BCE over (positive, sampled negative) next items, as in the paper."""
-    h = sasrec_encode(params, batch["seq"], cfg)  # (B, S, d)
-    pos = params["item_embed"][batch["pos"].long()]
-    neg = params["item_embed"][batch["neg"].long()]
+def sasrec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: SASRecConfig, *,
+                gather=gather_rows):
+    """BCE over (positive, sampled negative) next items, as in the paper;
+    ``gather`` as in :func:`sasrec_encode`."""
+    h = sasrec_encode(params, batch["seq"], cfg, gather=gather)  # (B, S, d)
+    pos = gather(params["item_embed"], batch["pos"])
+    neg = gather(params["item_embed"], batch["neg"])
     pos_logit = torch.sum(h * pos, dim=-1)
     neg_logit = torch.sum(h * neg, dim=-1)
     mask = (batch["pos"] > 0).float()
@@ -493,7 +485,7 @@ def bst_forward(
     b = hist.shape[0]
     seq = torch.cat([hist.long(), target.long()[:, None]], dim=1)  # (B, S+1)
     s = seq.shape[1]
-    x = params["item_embed"][seq] + params["pos_embed"][None, :s]
+    x = gather_rows(params["item_embed"], seq) + params["pos_embed"][None, :s]
     pad = seq == 0
     attn_mask = (~pad[:, None, :]).expand(b, s, s)  # bidirectional over (hist, target)
     for blk in params["blocks"]:

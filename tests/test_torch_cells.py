@@ -16,6 +16,13 @@ bitwise on 1/8-grid inputs.  FM's and SASRec's retrievals take the port's
 kernel route (``pruned_matmul``'s plain version here) against the
 reference's ``use_kernel=False``.
 
+gat-cora: ``full_graph_sm`` and ``molecule`` at their published widths and
+counts, one Adam step: the loss within 1e-5 of the reference's; the
+gradients (from Adam's moments) within 1e-5 of each leaf's largest; the
+weights within 1e-5 of the reference's, plus the slack that tolerance
+allows near g = 0, and of Adam's step from their own moments
+(``chip_smoke.adam_first_step``).
+
 dpmf: ``train_1m`` and ``serve_top100`` at the smoke size; one
 ``train_1m_sm`` and one ``train_1m_smc`` step on 4 gloo ranks (a (2, 2)
 mesh) against the reference's jitted step on 4 of 8 forced host devices,
@@ -124,6 +131,17 @@ def _leaves_by_path(t, port):
     return {tuple(jsharding._path_parts(path)): np.asarray(leaf) for path, leaf in flat}
 
 
+def _chip_smoke():
+    """The repo root's ``chip_smoke.py`` as a module (its checks' helpers)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    return chip_smoke
+
+
 def _close(got, want, tol=TOL, what=""):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), rtol=tol, atol=tol, err_msg=what)
@@ -182,6 +200,66 @@ def test_streaming_topk_scores_is_the_reference_bitwise_on_the_grid():
     np.testing.assert_array_equal(order, np.broadcast_to(np.arange(50), order.shape))
     with pytest.raises(ValueError, match="fewer than one"):
         base.streaming_topk_scores(torch.as_tensor(h), torch.as_tensor(table[:4000]), chunk=4096)
+
+
+# ---------------------------------------------------------------------------
+# gat-cora
+# ---------------------------------------------------------------------------
+
+
+def _graph_cell_batch(sid, a_batch, seed):
+    """``sid``'s batch at the cell's own counts (Cora: 2,708 nodes and 10,556
+    edges; 128 molecules of 30 nodes and 64 edges), padded to the cell's
+    shapes: nodes with label -1, edges (0, 0) with mask 0."""
+    from repro_torch.data import graphs
+
+    d_feat = a_batch["features"].shape[1]
+    if sid == "molecule":
+        mols = [graphs.synthetic_graph(30, 34, d_feat, 8, seed=seed + i) for i in range(128)]
+        real = graphs.batch_molecules(mols, 30, 64)
+    else:
+        g = graphs.synthetic_graph(2708, 10556 - 2708, d_feat, 7, seed=seed)
+        real = {"features": g.features, "edges": g.edges, "labels": g.labels,
+                "edge_mask": np.ones(len(g.edges), np.float32)}
+    n, e = len(real["labels"]), len(real["edges"])
+    out = {key: np.zeros(tuple(spec.shape), np.dtype(str(spec.dtype)[6:]))
+           for key, spec in a_batch.items()}
+    out["labels"][:] = -1
+    for key in out:
+        out[key][:n if key in ("features", "labels") else e] = real[key]
+    return out
+
+
+@pytest.mark.parametrize("sid", ["full_graph_sm", "molecule"])
+def test_gat_cora_cell_step_matches_reference_at_its_counts(sid):
+    """The cell at its published widths and counts (Cora's 1,433 features on
+    3,072 padded nodes; 128 molecules): one step from the same numpy weights
+    and zero Adam state against the reference's jitted ``step_fn``."""
+    jcell, cell = jconfigs.build_cell("gat-cora", sid), configs.build_cell("gat-cora", sid)
+    a_params, a_opt, a_batch = cell.abstract_args
+    rng = np.random.default_rng(7)
+    weights = jax.tree_util.tree_map(
+        lambda a: rng.normal(0, 0.05, a.shape).astype(np.float32), jcell.abstract_args[0])
+    batch = _graph_cell_batch(sid, a_batch, 40)
+    assert batch["labels"][-1] == -1 and (batch["labels"] >= 0).any()
+    jstate = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), jcell.abstract_args[1])
+    want_p, want_s, want_loss = jax.jit(jcell.step_fn)(
+        jax.tree_util.tree_map(jnp.asarray, weights), jstate,
+        {key: jnp.asarray(v) for key, v in batch.items()})
+    params = tree.map_leaves(lambda t: torch.as_tensor(np.array(t)), weights)
+    state = tree.map_leaves(lambda t: torch.zeros(t.shape, dtype=t.dtype), a_opt)
+    got_p, got_s, loss = cell.step_fn(params, state, {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert got_p is params and got_s is state
+    _close(loss, want_loss, what="loss")
+    assert int(state["t"]) == int(want_s["t"]) == 1
+    # the gradients through Adam's moments (m = 0.1 g, v = 0.001 g^2), and
+    # the weights against the reference's and against the moments' own step
+    ok, errs = _chip_smoke().adam_first_step(
+        tree.map_leaves(lambda _, w: torch.as_tensor(w), (params, state), (weights, state)),
+        (params, state),
+        tree.map_leaves(lambda _, w: torch.as_tensor(np.array(w)), (params, state), (want_p, want_s)),
+        5e-3, TOL)
+    assert ok, errs
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ and microbatched gradients held against the JAX reference on the CPU.
   meta tensors equal ``jax.eval_shape``'s leaves in path, shape and dtype.
 * Layouts: ``in_shardings`` after ``sanitize_shardings`` spec for spec the
   reference's on ``jax.sharding.AbstractMesh`` shapes (2, 2), (2, 2, 2),
-  (16, 16) and (2, 16, 16); the port reads a layout-only stand-in mesh.
+  (16, 16) and (2, 16, 16), the GAT's layout helpers too; the port reads a
+  layout-only stand-in mesh.
 * ``Adam`` (with and without weight decay) and ``Sgd`` (momentum 0 and 0.9)
   over 3 steps in float32 and bfloat16: within 1e-6 relative (the
   reference called op by op, each op rounded as the port's).
@@ -34,7 +35,7 @@ from repro_torch.distributed import collectives, sharding
 from repro_torch.models import recsys
 from repro_torch.optim import optimizers
 
-PORTED = ("fm", "sasrec", "bst", "dlrm-mlperf", "dpmf")
+PORTED = ("gat-cora", "fm", "sasrec", "bst", "dlrm-mlperf", "dpmf")
 MESHES = [((2, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model")),
           ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
 CELLS = [(arch, sid) for arch in PORTED for sid in jconfigs.shape_ids(arch)]
@@ -104,7 +105,7 @@ def test_ported_archs_have_the_reference_cells(arch):
 
 @pytest.mark.parametrize("arch,item", [
     ("gemma-7b", "A8d"), ("qwen1.5-4b", "A8d"), ("qwen3-4b", "A8d"),
-    ("deepseek-v2-lite-16b", "A8d"), ("granite-moe-1b-a400m", "A8d"), ("gat-cora", "A8e")])
+    ("deepseek-v2-lite-16b", "A8d"), ("granite-moe-1b-a400m", "A8d")])
 def test_unported_archs_raise_naming_their_item(arch, item):
     assert arch in jconfigs.ALL_ARCHS
     with pytest.raises(NotImplementedError, match=item):
@@ -185,6 +186,22 @@ def test_layout_helpers_are_the_reference(shape, names):
                        (["w0"], ())):
         leaf = np.zeros(shp, np.float32)
         assert spec_fn(parts, leaf) == sharding.P(*want_fn(parts, leaf)), parts
+
+
+@pytest.mark.parametrize("shape,names", MESHES)
+def test_gnn_layout_helpers_are_the_reference(shape, names):
+    amesh = jax.sharding.AbstractMesh(shape, names)
+    stand_in = LayoutMesh(shape, names)
+    want = jsharding.gnn_batch_shardings(amesh)
+    got = sharding.gnn_batch_shardings(stand_in)
+    assert list(got) == list(want)
+    for key, sh in want.items():
+        assert got[key] == sharding.P(*sh.spec), key
+    spec_fn, want_fn = sharding.gnn_spec_fn(stand_in), jsharding.gnn_spec_fn(amesh)
+    for parts, shp in ((["layers", "0", "w"], (1433, 64)), (["layers", "1", "a_src"], (1, 7)),
+                       (["layers", "0", "bias"], (64,))):
+        leaf = np.zeros(shp, np.float32)
+        assert spec_fn(parts, leaf) == sharding.P(*want_fn(parts, leaf)) == (None,) * len(shp)
 
 
 # ---------------------------------------------------------------------------

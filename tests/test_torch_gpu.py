@@ -1160,3 +1160,86 @@ def test_fm_retrieval_cell_launches_pruned_matmul(cuda):
     assert pruned_matmul.launches == before + 1
     assert got.shape == (1, 100_000)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(5000,), (5000, 8), (3000, 8, 8), (257, 47)])
+def test_gather_rows_and_segment_sum_on_cuda_equal_the_cpu(cuda, shape):
+    """``gather_rows``' gradient and ``segment_sum`` on the card (one
+    ``add_rows`` launch each) bitwise the CPU's ``index_add_`` order, on
+    power-law indices with a run of 4000 into row 0 (the GAT's padding)."""
+    rng = np.random.default_rng(len(shape))
+    n, e = shape[0], 60_000
+    idx = np.concatenate([(n * rng.random(e) ** 3).astype(np.int64), np.zeros(4000, np.int64)])
+    idx = torch.as_tensor(rng.permutation(idx))
+    table = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+    grad = torch.as_tensor(rng.normal(size=(len(idx),) + shape[1:]).astype(np.float32))
+    results = {}
+    for dev in (torch.device("cpu"), cuda):
+        leaf = table.to(dev, copy=True).requires_grad_(True)
+        out = scatter.gather_rows(leaf, idx.to(dev))
+        before = scatter.launches
+        (g,) = torch.autograd.grad(out, leaf, grad.to(dev))
+        rows = grad.to(dev, copy=True).requires_grad_(True)
+        sums = scatter.segment_sum(rows, idx.to(dev), n)
+        (back,) = torch.autograd.grad(sums, rows, table.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert scatter.launches == before + 2
+        results[dev] = [t.detach().cpu() for t in (out, g, sums, back)]
+    for got, want in zip(results[cuda], results[torch.device("cpu")]):
+        assert torch.equal(got, want)
+
+
+def _chip_smoke():
+    """The repo root's ``chip_smoke.py`` as a module (its checks' helpers)."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    return chip_smoke
+
+
+def test_gat_cell_step_on_cuda_is_reproducible_and_the_cpu_step(cuda):
+    """A gat-cora cell step (smoke widths, a padded 2,000-node graph) on the
+    card: 12 ``add_rows`` launches, two steps from one state bitwise equal,
+    the loss within 1e-5 of the same step on the CPU, and Adam's first step
+    held against the CPU's by ``chip_smoke.adam_first_step``: the gradients
+    within 1e-5 of each leaf's largest, the weights within 1e-5 of the CPU's
+    (plus the slack the gradients' tolerance allows near g = 0) and of
+    Adam's step from the card's moments."""
+    from repro_torch import tree
+    from repro_torch.configs import base, gat_cora
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import Adam
+
+    cfg = gat_cora.smoke_config()
+    cell = base.gnn_train_cell("gat-cora", "smoke", cfg, num_nodes=2000, num_edges=16000)
+    g = graphs.synthetic_graph(2000, 14000, cfg.d_feat, cfg.n_classes, seed=5)
+    n, e = 2048, 16384
+    batch = {"features": np.zeros((n, cfg.d_feat), np.float32), "edges": np.zeros((e, 2), np.int32),
+             "labels": np.full(n, -1, np.int32), "edge_mask": np.zeros(e, np.float32)}
+    batch["features"][:2000], batch["labels"][:2000] = g.features, g.labels
+    batch["edges"][:16000], batch["edge_mask"][:16000] = g.edges, 1.0
+    params = gnn.init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    start = (params, Adam().init(params))
+    runs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        state = tree.map_leaves(lambda t: t.to(dev, copy=True), start)
+        before = scatter.launches
+        _, _, loss = cell.step_fn(*state, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert scatter.launches == before + 12
+        runs.append((tree.map_leaves(lambda t: t.cpu(), state), loss.cpu()))
+    (card, card_loss), (again, again_loss), (cpu, cpu_loss) = runs
+    assert torch.equal(card_loss, again_loss)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(card), tree.leaves(again)))
+    torch.testing.assert_close(card_loss, cpu_loss, rtol=1e-5, atol=1e-5)
+    ok, errs = _chip_smoke().adam_first_step(start, card, cpu, 5e-3, 1e-5)
+    assert ok, errs

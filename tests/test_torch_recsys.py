@@ -403,7 +403,7 @@ def test_losses_fall_after_one_sgd_step(fm, sasrec):
 
 def test_chip_smoke_recsys_phase_rehearses_on_the_cpu():
     """``chip_smoke.py``'s recsys phase end to end on the CPU at a tiny size:
-    every check holds except the two card-only launch counts (the CPU path
+    every check holds except the three card-only launch counts (the CPU path
     launches no kernel)."""
     import os
     import sys
@@ -421,9 +421,12 @@ def test_chip_smoke_recsys_phase_rehearses_on_the_cpu():
         max_batch=16))
     assert chip_smoke.failures == [
         "pruned_matmul launched twice on the recsys path, by fm_retrieval and sasrec_retrieval (0)",
-        "pruned_topk launched once per 16-session chunk by serve_sessions (0 of 3)"]
+        "pruned_topk launched once per 16-session chunk by serve_sessions (0 of 3)",
+        "add_rows launched 4 times on the recsys path, by gather_rows' gradients: SASRec's seq, "
+        "pos and neg, BST's seq (0)"]
     chip_smoke.failures.clear()
-    assert chip_smoke.PATH_LAUNCHES["recsys"] == {"pruned_matmul": 0, "pruned_topk": 0}
+    assert chip_smoke.PATH_LAUNCHES["recsys"] == {"pruned_matmul": 0, "pruned_topk": 0,
+                                                  "add_rows": 0}
     assert out["dlrm_rows"] == sum(chip_smoke.dlrm_vocabs(256))
     # the card's cut: the five tables above 2^23 rows cut to it (PERF.md section 4)
     assert sum(chip_smoke.dlrm_vocabs()) == 46_009_036
