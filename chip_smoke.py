@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives its serving, swap, SLO,
-training, ranking-evaluation, implicit and BPR, online freshness,
-out-of-core (ratings store, streamed training, eviction), serving-fleet,
-multi-rank and recsys (FM, DLRM, SASRec with its sessions, BST) paths, and
-the cells of the port's config registry (the GAT's included), on one card.
+training (FunkSVD, BiasSVD, SVD++), ranking-evaluation, implicit and BPR,
+online freshness, out-of-core (ratings store, streamed training, eviction),
+serving-fleet, multi-rank and recsys (FM, DLRM, SASRec with its sessions,
+BST) paths, and the cells of the port's config registry (the GAT's and the
+dense transformers' included), on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
 
@@ -72,7 +73,13 @@ script exits) it:
    then one more full-size step is held against the plain masked step
    recomputed on the CPU over the touched rows only, two steps from one
    state must give the same bits, and the stages of the step are timed one
-   by one (the scatter both as ``add_rows`` and as ``index_add_``);
+   by one (the scatter both as ``add_rows`` and as ``index_add_``); then
+   bias-dpmf and svdpp-dpmf (ROADMAP C9) at 100M x 10M x 128, rate 0.3:
+   three BiasSVD steps of 2^20 (sgd through ``fused_mf_sgd``, 4
+   ``add_rows`` a step) and three SVD++ steps of 2^18 with 8-item
+   histories (the masked route, 5 ``add_rows`` a step), counted under
+   ``variants``, then one more step of each against the plain step on the
+   CPU over the rows it touches;
 7. ranking evaluation: ``evaluate_engine`` (the ``pruned_topk`` kernel)
    against ``evaluate_oracle`` (``pruned_matmul`` and a stable sort of the
    (B, n) scores) at T = 0 on 1/8-grid factors, 100k users x 1M items x
@@ -199,6 +206,17 @@ script exits) it:
    ``ogb_products`` the first 4096 nodes' logits against the CPU forward over
    their 2-hop in-neighbourhood), then twice more from the same state,
    bitwise, and node 0's run (its padded edges) timed alone;
+   then "cells: transformer": gemma-7b's, qwen1.5-4b's and qwen3-4b's four
+   LM cells built (0 device bytes) and run in bfloat16 at their published
+   widths, sequence and cache lengths with random weights and drawn tokens,
+   depth and batch cut by ``LM_CUTS`` (listed in PERF.md section 4): each
+   step counted (1 ``add_rows`` a train step, none in prefill and decode)
+   and warm, its peak memory, prefill's tokens/s against the bf16 dense
+   peak and decode against its bytes bound; then a float32 copy of each arch
+   cut to 2 layers (TF32 off) against the CPU: the train step (loss,
+   gradients and weights through ``adam_first_step``; three steps from one
+   state bitwise), prefill's logits, four decode steps (logits and caches),
+   and 32 decode steps against ``forward`` on the card within 2e-3;
    launches counted under ``cells``;
 23. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
@@ -1125,6 +1143,140 @@ def step_against_cpu(trainer, batch, lr, what):
               f"{what}: {len(want)} updated {name} rows within rtol/atol {RTOL} of the CPU "
               f"(max abs err {err:.3e}, max |value| {float(want.abs().max()):.4f})")
     return step_ms
+
+
+# bias-dpmf, svdpp-dpmf (ROADMAP C9): the two other variants at train-dpmf's shape
+VARIANT_STEPS = 3           # counted steps of each variant
+SVDPP_BATCH, SVDPP_HIST = 1 << 18, 8  # SVD++'s masked step builds (B, H, k) float32 temporaries
+GLOBAL_MEAN = 3.0
+
+
+def _variant_batch(rng, rows, hist_len, dev, m, n):
+    """A dpmf rating batch of ``m`` users and ``n`` items on the card; with
+    ``hist_len``, each user's implicit history: 1 to ``hist_len`` items drawn
+    as the ratings' items, padded with ``n`` (the zero row of ``implicit``)."""
+    ds = dpmf_ratings(rng, rows, num_users=m, num_items=n)
+    batch = {"user": ds.user, "item": ds.item, "rating": ds.rating}
+    if hist_len:
+        hist = dpmf_ratings(rng, rows * hist_len, num_users=m, num_items=n).item.reshape(
+            rows, hist_len)
+        hist[np.arange(hist_len)[None, :] >= rng.integers(1, hist_len + 1, (rows, 1))] = n
+        batch["hist"] = hist.astype(np.int32)
+    return {key: torch.as_tensor(value).to(dev) for key, value in batch.items()}
+
+
+def _variant_step_against_cpu(params, state, batch, t_p, t_q, opt, fused, what):
+    """One full-size step of a BiasSVD or SVD++ model on the card, held
+    against the plain masked step on the CPU over the rows it touches: the
+    batch's users and items (factors and biases) and, for SVD++, its
+    history's implicit rows (ids renumbered into the compact tables, the
+    padding row last).  Returns the step's ms (CUDA events) and the largest
+    error."""
+    from repro_torch.core import mf
+
+    users, user_pos = torch.unique(batch["user"], return_inverse=True)
+    items, item_pos = torch.unique(batch["item"], return_inverse=True)
+    users, items = users.long(), items.long()
+    cpu_batch = {"user": user_pos.cpu(), "item": item_pos.cpu(), "rating": batch["rating"].cpu()}
+    implicit = hist_items = None
+    if params.implicit is not None:
+        hist_items, hist_pos = torch.unique(batch["hist"], return_inverse=True)
+        hist_items = hist_items.long()
+        real = hist_items < params.implicit.shape[0] - 1  # the padding id sorts last
+        implicit = torch.cat([params.implicit[hist_items[real]].cpu(),
+                              torch.zeros((1, K))])
+        cpu_batch["hist"] = hist_pos.cpu()
+    cpu = mf.MFParams(p=params.p[users].cpu(), q=params.q[items].cpu(),
+                      user_bias=params.user_bias[users].cpu(),
+                      item_bias=params.item_bias[items].cpu(),
+                      global_mean=params.global_mean.cpu(), implicit=implicit)
+    dim_mask = torch.ones((K,), device=params.p.device)
+    _, ms = _clock(params.p.device, lambda: mf.train_step(
+        params, state, batch, t_p, t_q, LR, dim_mask, opt=opt, lam=LAM, use_fused_kernel=fused))
+    mf.train_step(cpu, mf.init_opt_state(cpu, opt), cpu_batch, t_p.cpu(), t_q.cpu(), LR,
+                  dim_mask.cpu(), opt=opt, lam=LAM, use_fused_kernel=False)
+    pairs = [("p", params.p[users], cpu.p), ("q", params.q[items], cpu.q),
+             ("user_bias", params.user_bias[users], cpu.user_bias),
+             ("item_bias", params.item_bias[items], cpu.item_bias)]
+    if implicit is not None:
+        pairs.append(("implicit", params.implicit[hist_items[real]], cpu.implicit[:-1]))
+    err = 0.0
+    for name, got, want in pairs:
+        got = got.cpu()
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+              f"{what}: {len(want)} updated {name} rows within rtol/atol {RTOL} of the plain "
+              f"step on the CPU (max abs err {e:.3e})")
+    return ms, err
+
+
+def variants_phase(dev, sizes=None):
+    """bias-dpmf and svdpp-dpmf (ROADMAP C9): BiasSVD (sgd through
+    ``fused_mf_sgd``, four ``add_rows`` a step: p, q and both biases) and
+    SVD++ (sgd, the masked route the reference also takes, five ``add_rows``:
+    p, q, the biases and the implicit rows) at train-dpmf's 100M x 10M x 128,
+    rate 0.3, random factors from the seed; ``VARIANT_STEPS`` steps each,
+    counted under ``variants`` and timed, then one more step held against
+    the plain step on the CPU over the rows it touches.  SVD++'s batch is cut
+    to 2^18 rows of 8-item histories (its (B, H, k) float32 temporaries).
+    ``sizes`` overrides (users, items, batch, svdpp batch) for a rehearsal."""
+    from repro_torch.core import mf
+    from repro_torch.core.threshold import thresholds_from_matrices
+    from repro_torch.kernels import fused_mf_sgd
+    from repro_torch.optim.optimizers import RowOptimizer
+
+    m, n, rows, svdpp_rows = sizes or (N_USERS, N_ITEMS, BATCH, SVDPP_BATCH)
+    opt = RowOptimizer(name="sgd")
+    out, total = {}, {"fused_mf_sgd": 0, "add_rows": 0}
+    for i, (variant, fused, batch_rows, hist_len, want_rows) in enumerate((
+            ("bias", True, rows, 0, 4), ("svdpp", False, svdpp_rows, SVDPP_HIST, 5))):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 70 + i)
+        params = mf.init_params(gen, m, n, K, variant=variant, global_mean=GLOBAL_MEAN,
+                                device=dev)
+        state = mf.init_opt_state(params, opt)
+        sample = params.p[:min(1 << 20, m)]
+        t_p, t_q = (torch.as_tensor(t, device=dev) for t in thresholds_from_matrices(
+            sample, params.q[:min(1 << 20, n)], RATE))
+        rng = np.random.default_rng(SEED + 75 + i)
+        batches = [_variant_batch(rng, batch_rows, hist_len, dev, m, n)
+                   for _ in range(VARIANT_STEPS + 1)]
+        what = f"{variant}-dpmf"
+        log(f"## {what}: {m} x {n} x {K}, sgd{' + fused_mf_sgd' if fused else ' (masked)'}, "
+            f"lr {LR}, rate {RATE}, batch {batch_rows}"
+            + (f", histories of 1-{hist_len} items" if hist_len else ""))
+        dim_mask = torch.ones((K,), device=dev)
+        _sync(dev)
+        reset_launch_counts()
+        metrics, ms = [], []
+        for batch in batches[:VARIANT_STEPS]:
+            (_, _, met), step_ms = _clock(dev, lambda: mf.train_step(
+                params, state, batch, t_p, t_q, LR, dim_mask, opt=opt, lam=LAM,
+                use_fused_kernel=fused))
+            metrics.append(float(met["abs_err"]))
+            ms.append(step_ms)
+        launches = {"fused_mf_sgd": fused_mf_sgd.launches, "add_rows": scatter_launches()}
+        for key in total:
+            total[key] += launches[key]
+        if dev.type == "cuda":
+            check(launches == {"fused_mf_sgd": VARIANT_STEPS if fused else 0,
+                               "add_rows": want_rows * VARIANT_STEPS},
+                  f"{what}: {VARIANT_STEPS} steps launched fused_mf_sgd "
+                  f"{VARIANT_STEPS if fused else 0} times and add_rows {want_rows} a step "
+                  f"({launches})")
+        check(all(math.isfinite(v) for v in metrics),
+              f"{what}: abs_err finite every step ({', '.join(f'{v:.4f}' for v in metrics)})")
+        held_ms, err = _variant_step_against_cpu(params, state, batches[-1], t_p, t_q, opt, fused,
+                                                 what)
+        log(f"  {what}: step ms (CUDA events) {', '.join(f'{v:.3f}' for v in ms)}; the held "
+            f"step {held_ms:.3f}; launches {launches}")
+        out[variant] = {"step_ms": ms, "held_step_ms": held_ms, "max_abs_err": err,
+                        "abs_err": metrics, "launches": launches, "batch": batch_rows}
+        del params, state, batches, sample
+        _release_cached(dev)
+    PATH_LAUNCHES["variants"] = total
+    return out
 
 
 def training_main_path(dev):
@@ -4525,15 +4677,17 @@ def _node0_run(dev, batch, width, seed, label):
 
 
 def _release_cached(dev):
-    gc.collect()
     if dev.type == "cuda":
+        gc.collect()
         torch.cuda.empty_cache()
 
 
 def adam_first_step(start, got, want, lr, tol=RTOL):
     """A first Adam step (t = 1 from zero moments) held against another run
-    of the same step, on the CPU.  ``start``, ``got`` and ``want`` are
-    ``(params, {"m", "v", ...})`` trees.  At t = 1, ``m / (1 - beta1)`` and
+    of the same step, computed leaf by leaf on the device of ``got``'s leaf
+    (``start``'s and ``want``'s copied there).  ``start``, ``got`` and
+    ``want`` are ``(params, {"m", "v", ...})`` trees (``start``'s second
+    item unused).  At t = 1, ``m / (1 - beta1)`` and
     ``sqrt(v / (1 - beta2))`` are the gradient ``g`` and ``|g|``: each is held
     within ``tau = tol * max |g|`` of the leaf's.  The weights are held within
     rtol/atol ``tol`` of Adam's step from ``got``'s own moments, and of
@@ -4553,7 +4707,8 @@ def adam_first_step(start, got, want, lr, tol=RTOL):
     tree.map_leaves(lambda *leaf: rows.append(leaf), got[0], start[0], got[1]["m"], got[1]["v"],
                     want[0], want[1]["m"], want[1]["v"])
     for p1, p0, m1, v1, p2, m2, v2 in rows:
-        p0 = p0.cpu()
+        # on the device of got's leaf (the card's: the CPU's copied over)
+        p0, p2, m2, v2 = (t.to(p1.device) for t in (p0, p2, m2, v2))
         g = m2 / b1c
         top = float(g.abs().max())
         tau = tol * top
@@ -4713,6 +4868,333 @@ def gnn_cells_phase(dev, sizes=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# cells: the dense transformers' LM cells at their published widths
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b")
+# (layers, batch) of each LM cell on one card; every width, sequence and cache
+# length as published.  Cut by memory (train: weights, gradients and Adam's
+# float32 moments at 12 bytes a parameter, plus the (B, S, V) logit chain;
+# decode: the KV cache; long_500k: one layer's cache is 8.6 / 5.4 / 2.1 GB)
+# to leave about 10 GB of the card free, and prefill's depth by time (its
+# attention is plain tensor ops over the full 32,768 x 32,768 scores).
+LM_CUTS = {
+    "gemma-7b": {"train_4k": (12, 1), "prefill_32k": (8, 1), "decode_32k": (28, 3),
+                 "long_500k": (7, 1)},
+    "qwen1.5-4b": {"train_4k": (40, 2), "prefill_32k": (8, 1), "decode_32k": (40, 4),
+                   "long_500k": (12, 1)},
+    "qwen3-4b": {"train_4k": (36, 2), "prefill_32k": (6, 1), "decode_32k": (36, 12),
+                 "long_500k": (29, 1)},
+}
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
+LM_LR = 3e-4              # lm_train_cell's Adam lr (its other settings Adam's defaults)
+# the CPU checks: a float32 copy at the published widths cut to 2 layers, one
+# sequence of 256 tokens in four attention chunks, 4 decode steps; decoding
+# step by step against forward over the first 32 tokens
+LM_CHECK = dict(layers=2, tokens=256, chunk=64, decode_steps=4, consistency_tokens=32)
+# float32 on the card against the CPU: sums over up to 24,576 terms in
+# another order; held within 1e-4 of each tensor's largest value
+LM_TOL = 1e-4
+LM_CONSISTENCY_TOL = 2e-3  # the reference's own bound (tests/test_smoke_archs.py)
+
+
+def _lm_forward_flops(cfg, b, s, last_only=False):
+    """Floating-point operations of ``cfg``'s forward on (b, s) tokens as the
+    port executes it: the dense products, the head (on the last position
+    only for prefill), and the attention's two products over all s x s
+    scores (the plain chunks compute the masked half too)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
+             + 3 * d * cfg.d_ff)
+    dense = 2.0 * b * s * layer * cfg.n_layers
+    head = 2.0 * b * (1 if last_only else s) * d * cfg.vocab_size
+    attn = 4.0 * b * cfg.n_heads * s * s * hd * cfg.n_layers
+    return dense + head + attn
+
+
+def _lm_tokens(gen, cfg, b, s, dev):
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def _lm_labels(tokens):
+    """The next token; the last position and the first eighth of each row
+    masked (-1)."""
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    labels[:, :max(tokens.shape[1] // 8, 1)] = -1
+    return labels
+
+
+def _all_finite(tree_):
+    from repro_torch import tree
+
+    return all(bool(torch.isfinite(t).all()) for t in tree.leaves(tree_)
+               if t.is_floating_point())
+
+
+def _lm_cell(dev, cell, cfg, batch, seq, seed):
+    """One LM cell at ``cfg`` (the published widths, ``cfg.n_layers`` layers)
+    on ``batch`` sequences of ``seq`` tokens (a decode cell: a cache of
+    ``seq`` positions holding ``seq - 1``, filled with normal draws), random
+    weights from ``seed``: the step once counted (``add_rows`` under
+    ``cells``) and once warm, CUDA events; the peak memory of the counted
+    run; throughput against the bf16 dense peak (train, prefill) or the
+    bytes bound (decode)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.optimizers import Adam
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = tfm.init_params(gen, cfg, dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    if cell.kind == "train":
+        tokens = _lm_tokens(gen, cfg, batch, seq, dev)
+        args = (params, Adam().init(params), {"tokens": tokens, "labels": _lm_labels(tokens)})
+    elif cell.kind == "prefill":
+        args = (params, _lm_tokens(gen, cfg, batch, seq, dev))
+    else:
+        state = tfm.init_decode_state(cfg, batch, seq, length=seq - 1, device=dev)
+        for t in (state.caches.k, state.caches.v):
+            t.normal_(generator=gen)
+        args = (params, state, _lm_tokens(gen, cfg, batch, 1, dev))
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out, ms = _clock(dev, lambda: cell.step_fn(*args))
+    launches = _cell_counts()
+    _count_cells(launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    want_rows = 1 if cell.kind == "train" else 0  # the embedding gather's gradient
+    if dev.type == "cuda":
+        check(launches == {"pruned_topk": 0, "pruned_matmul": 0, "add_rows": want_rows},
+              f"cells: {cell.cell_id} launched add_rows {want_rows} times and nothing else "
+              f"({launches})")
+    res = {"layers": cfg.n_layers, "batch": batch, "seq": seq, "params": n_params,
+           "launches": launches, "peak_gb": peak}
+    if cell.kind == "train":
+        new_p, new_o, loss = out
+        check(new_p is params and new_o is args[1] and int(new_o["t"]) == 1
+              and math.isfinite(float(loss)) and _all_finite((new_p, new_o)),
+              f"cells: {cell.cell_id} loss {float(loss):.4f} finite, weights and Adam state "
+              "updated in place and finite")
+        res["loss"] = float(loss)
+        flops = 4.0 * _lm_forward_flops(cfg, batch, seq)  # forward, recomputed, backward 2x
+    elif cell.kind == "prefill":
+        check(tuple(out.shape) == (batch, cfg.vocab_size) and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()),
+              f"cells: {cell.cell_id} last-position logits finite, float32, of shape "
+              f"{tuple(out.shape)}")
+        flops = _lm_forward_flops(cfg, batch, seq, last_only=True)
+    else:
+        logits, new_state = out
+        check(tuple(logits.shape) == (batch, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+              and new_state.caches.k is args[1].caches.k and int(new_state.caches.length) == seq,
+              f"cells: {cell.cell_id} logits finite of shape {tuple(logits.shape)}, the cache "
+              f"written in place, length {int(new_state.caches.length)}")
+        cache_bytes = sum(t.numel() * t.element_size() for t in (new_state.caches.k,
+                                                                  new_state.caches.v))
+        res["cache_gb"] = cache_bytes / 1e9
+        flops = _lm_forward_flops(cfg, batch, 1, last_only=True)
+    del out
+    _, warm = _clock(dev, lambda: cell.step_fn(*args))
+    res.update(ms=ms, warm_ms=warm)
+    if cell.kind == "decode":
+        bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES * 1e3
+        res.update(bound_ms=bound_ms, bound_by="bytes", of_bound=bound_ms / warm)
+        what = (f"bytes bound {bound_ms:.3f} ms (weights {param_bytes / 1e9:.2f} GB + cache "
+                f"{cache_bytes / 1e9:.2f} GB at {PEAK_BYTES / 1e12:.2f} TB/s), "
+                f"{bound_ms / warm:.1%} of it")
+    else:
+        tflops = flops / (warm / 1e3) / 1e12
+        res.update(tflop=flops / 1e12, tflops=tflops, of_peak=tflops * 1e12 / PEAK_BF16_FLOPS,
+                   tokens_per_s=batch * seq / (warm / 1e3))
+        what = (f"{res['tokens_per_s']:.0f} tokens/s, {tflops:.1f} TFLOP/s executed "
+                f"({flops / 1e12:.1f} TFLOP), {res['of_peak']:.1%} of the bf16 dense peak")
+    log(f"  {cell.cell_id} at {cfg.n_layers} layers, batch {batch}, {seq} positions: {ms:.3f} ms "
+        f"counted, {warm:.3f} ms warm (CUDA events); peak {peak:.2f} GB; {what}; launches "
+        f"{launches}")
+    del args, params
+    return res
+
+
+def _max_rel(got, want):
+    """The largest error over the largest value of ``want``."""
+    top = float(want.abs().max())
+    return float((got - want).abs().max()) / (top if top else 1.0)
+
+
+def _lm_against_cpu(dev, arch, full, seed, check_sz):
+    """A float32 copy of ``full`` cut to ``check_sz["layers"]`` layers (every
+    width kept), TF32 off, ``attn_chunk`` ``check_sz["chunk"]``, one sequence of
+    ``check_sz["tokens"]`` tokens: the cells' train step three times from one
+    state on the card (bitwise equal) and once on the CPU (the loss, and
+    Adam's first step by :func:`adam_first_step` within ``LM_TOL``); prefill's
+    logits and four decode steps from a random cache (logits and caches)
+    against the CPU; then decoding step by step on the card against
+    ``forward``'s last-position logits (``LM_CONSISTENCY_TOL``)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import init_kv_cache
+    from repro_torch.optim.optimizers import Adam
+
+    cfg = dataclasses.replace(full, n_layers=check_sz["layers"], dtype=torch.float32,
+                              attn_chunk=check_sz["chunk"])
+    restore = _configs_at({arch: cfg})
+    try:
+        cells = {sid: configs.build_cell(arch, sid) for sid in ("train_4k", "prefill_32k",
+                                                                "decode_32k")}
+    finally:
+        restore()
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    start = tfm.init_params(gen, cfg, dev)
+    # the zero-initialised norms and biases drawn, so that they count
+    for t in (start["final_norm"], start["layers"]["norm1"], start["layers"]["norm2"], *(
+            start["layers"]["attn"][key] for key in ("bq", "bk", "bv", "q_norm", "k_norm")
+            if key in start["layers"]["attn"])):
+        t.normal_(0.0, 0.1, generator=gen)
+    t_len = check_sz["tokens"]
+    tokens = _lm_tokens(gen, cfg, 1, t_len, dev)
+    batch = {"tokens": tokens, "labels": _lm_labels(tokens)}
+    on_cpu = lambda t: t.to(cpu, copy=True)  # noqa: E731
+    out = {}
+    # the train step once on the CPU, then three times from one state on the
+    # card
+    start_cpu = tree.map_leaves(on_cpu, start)
+    cpu_params = tree.map_leaves(lambda t: t.clone(), start_cpu)
+    cpu_state = (cpu_params, Adam().init(cpu_params))
+    _, _, cpu_loss = cells["train_4k"].step_fn(*cpu_state, {key: on_cpu(value)
+                                                            for key, value in batch.items()})
+    runs = []
+    for _ in range(3):
+        params = tree.map_leaves(lambda t: t.clone(), start)
+        state = Adam().init(params)
+        _, _, loss = cells["train_4k"].step_fn(params, state, batch)
+        if runs:
+            same = torch.equal(loss, runs[0][2]) and all(torch.equal(a, b) for a, b in zip(
+                tree.leaves((params, state)), tree.leaves(runs[0][:2])))
+            runs.append(same)
+            del params, state
+        else:
+            runs.append((params, state, loss))
+    check(all(runs[1:]), f"cells: {arch}'s float32 copy ({cfg.n_layers} layers): three train "
+                         "steps from one state give the same bits (loss, weights, Adam state)")
+    card_loss = float(runs[0][2])
+    loss_err = abs(card_loss - float(cpu_loss))
+    ok, errs = adam_first_step((start, None), runs[0][:2], cpu_state, LM_LR, LM_TOL)
+    check(loss_err <= LM_TOL * abs(float(cpu_loss)) and ok,
+          f"cells: {arch}'s float32 copy: the train step's loss within {LM_TOL} relative of the "
+          f"CPU's (err {loss_err:.3e}); every gradient (m / (1 - beta1), sqrt(v / (1 - beta2))) "
+          f"within {LM_TOL} of its leaf's largest (max {errs['grad_rel']:.3e} of it); the "
+          f"weights within {LM_TOL} of Adam's step from the card's moments (max abs err "
+          f"{errs['weights_own']:.3e}) and of the CPU's, plus what the gradients' tolerance "
+          f"allows near g = 0 (max abs err {errs['weights']:.3e}; {errs['loose']} past {LM_TOL})")
+    out["train"] = {"loss": card_loss, "loss_err": loss_err, **errs}
+    del runs, cpu_state, cpu_params
+    _release_cached(dev)
+    # prefill's logits
+    got = cells["prefill_32k"].step_fn(start, tokens).cpu()
+    want = cells["prefill_32k"].step_fn(start_cpu, on_cpu(tokens))
+    out["prefill"] = _max_rel(got, want)
+    check(out["prefill"] <= LM_TOL, f"cells: {arch}'s float32 copy: prefill's logits within "
+                                    f"{LM_TOL} of their largest of the CPU's "
+                                    f"({out['prefill']:.3e} of it)")
+    # four decode steps from a cache of t_len + 4 positions holding t_len
+    steps = check_sz["decode_steps"]
+    state = tfm.init_decode_state(cfg, 1, t_len + steps, length=t_len, device=dev)
+    for t in (state.caches.k, state.caches.v):
+        t.normal_(generator=gen)
+    cpu_dec = tfm.DecodeState(
+        caches=tfm.KVCache(*(init_kv_cache(tuple(t.shape[1:]), cfg.dtype, cpu,
+                                           lead=(cfg.n_layers,)).copy_(t.cpu())
+                             for t in (state.caches.k, state.caches.v)),
+                           state.caches.length.cpu()), first_caches=())
+    step_tokens = _lm_tokens(gen, cfg, 1, steps, dev)
+    errs = []
+    for i in range(steps):
+        logits, state = cells["decode_32k"].step_fn(start, state, step_tokens[:, i:i + 1])
+        want, cpu_dec = cells["decode_32k"].step_fn(start_cpu, cpu_dec,
+                                                    on_cpu(step_tokens[:, i:i + 1]))
+        errs.append(_max_rel(logits.cpu(), want))
+    cache_err = max(_max_rel(state.caches.k.cpu(), cpu_dec.caches.k),
+                    _max_rel(state.caches.v.cpu(), cpu_dec.caches.v))
+    out["decode"] = {"logits": max(errs), "caches": cache_err}
+    check(max(errs) <= LM_TOL and cache_err <= LM_TOL
+          and int(state.caches.length) == int(cpu_dec.caches.length) == t_len + steps,
+          f"cells: {arch}'s float32 copy: {steps} decode steps' logits and the caches within "
+          f"{LM_TOL} of their largest of the CPU's ({max(errs):.3e}, {cache_err:.3e} of it)")
+    del state, cpu_dec
+    # decoding step by step against forward, on the card
+    n = check_sz["consistency_tokens"]
+    state = tfm.init_decode_state(cfg, 1, n, device=dev)
+    for i in range(n):
+        logits, state = tfm.decode_step(start, tokens[:, i:i + 1], state, cfg)
+    with torch.no_grad():
+        full_logits, _ = tfm.forward(start, tokens[:, :n], cfg)
+    diff = float((logits - full_logits[:, -1]).abs().max())
+    out["decode_vs_forward"] = diff
+    check(bool(torch.allclose(logits, full_logits[:, -1], rtol=LM_CONSISTENCY_TOL,
+                              atol=LM_CONSISTENCY_TOL)),
+          f"cells: {arch}'s float32 copy on the card: {n} decode steps' last logits within "
+          f"rtol/atol {LM_CONSISTENCY_TOL} of forward's last position (max abs err {diff:.3e})")
+    log(f"  {arch}'s float32 copy ({cfg.n_layers} layers, {t_len} tokens, chunk "
+        f"{cfg.attn_chunk}) against the CPU: {out}")
+    return out
+
+
+def lm_cells_phase(dev, sizes=None):
+    """cells: the LM cells of gemma-7b, qwen1.5-4b and qwen3-4b: each arch's
+    four cells built through the registry at the published config (no device
+    memory), then each run at the published widths, sequence and cache
+    lengths in bfloat16 with random weights and drawn tokens (labels masked
+    where -1), its depth and batch cut by ``LM_CUTS`` (:func:`_lm_cell`);
+    then a float32 copy of each arch held against the CPU
+    (:func:`_lm_against_cpu`).  ``sizes`` overrides the cuts, the sequence
+    lengths, the widths and the checks (a rehearsal on the CPU)."""
+    sz = {"cuts": LM_CUTS, "seq": {}, "widths": {}, "check": LM_CHECK}
+    sz.update(sizes or {})
+    restore = _configs_at(sz["widths"])
+    out = {}
+    try:
+        for i, arch in enumerate(LM_ARCHS):
+            t0 = time.perf_counter()
+            full = configs.get_config(arch)
+            built = {sid: _build_cell(dev, arch, sid) for sid in configs.shape_ids(arch)}
+            log(f"## cells: {arch} ({full.param_count() / 1e9:.2f}B parameters at "
+                f"{full.n_layers} layers, d {full.d_model}, {full.n_heads} heads of "
+                f"{full.head_dim} ({full.n_kv_heads} KV), d_ff {full.d_ff}, vocab "
+                f"{full.vocab_size}), bfloat16")
+            res = {}
+            for j, (sid, cell) in enumerate(built.items()):
+                layers, batch = sz["cuts"][arch][sid]
+                a = cell.abstract_args
+                seq = sz["seq"].get(sid) or (a[2]["tokens"].shape[1] if cell.kind == "train"
+                                             else a[1].shape[1] if cell.kind == "prefill"
+                                             else a[1].caches.k.shape[2])
+                cfg = dataclasses.replace(full, n_layers=layers)
+                cut = _configs_at({arch: cfg})
+                try:
+                    run = configs.build_cell(arch, sid)
+                finally:
+                    cut()
+                res[sid] = _lm_cell(dev, run, cfg, batch, seq, SEED + 300 + 10 * i + j)
+                _release_cached(dev)
+            res["check"] = _lm_against_cpu(dev, arch, full, SEED + 350 + i, sz["check"])
+            res["seconds"] = time.perf_counter() - t0
+            out[arch] = res
+            _release_cached(dev)
+    finally:
+        restore()
+    log(f"  launches on the cells path so far: {PATH_LAUNCHES.get('cells', {})}")
+    return out
+
+
 def mf_grid_view(view):
     """A copy of an MF view with each table scaled to unit spread and rounded
     to the 1/8 grid in [-2, 2]: every product and sum of the scoring exact."""
@@ -4773,6 +5255,7 @@ def main() -> int:
     scatter_stats = phase("add_rows kernel", add_rows_phase, dev)
     phase("small trainer", small_trainer_phase)
     train = phase("training main path", training_main_path, dev)
+    variants = phase("bias-dpmf, svdpp-dpmf", variants_phase, dev)
     phase("ranking evaluation", ranking_eval_phase, dev)
     repairs = phase("repairs (C5, C6)", repairs_phase, dev)
     implicit = phase("implicit-dpmf", implicit_phase, dev)
@@ -4792,6 +5275,7 @@ def main() -> int:
         recsys_stats = phase("recsys", recsys_phase, dev)
         cells = phase("cells", cells_phase, dev)
         gnn_cells = phase("cells: gat-cora", gnn_cells_phase, dev)
+        lm_cells = phase("cells: transformer", lm_cells_phase, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4832,6 +5316,7 @@ def main() -> int:
     rows[1]["recsys"] = {name: recsys_stats["kernels"][name] for name in ("k=10 (fm)",
                                                                            "k=50 (sasrec)")}
     workloads = {
+        "variants": variants,
         "implicit": {k: v for k, v in implicit.items() if k != "launches"},
         "bpr": {k: v for k, v in bpr_stats.items() if k != "launches"},
         "online": {k: v for k, v in online.items() if k not in ("launches", "swaps")},
@@ -4848,7 +5333,7 @@ def main() -> int:
         "fleet_launchers": fleet_launchers,
         "multirank": {k: v for k, v in multirank.items() if k != "small"},
         "recsys": {k: v for k, v in recsys_stats.items() if k not in ("launches", "kernels")},
-        "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells,
+        "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells, **lm_cells,
                   "multirank": {mode: multirank["train"][mode]["step_ms"] for mode in ("none", "int8")}},
     }
     log("# workloads " + json.dumps(workloads))

@@ -1,13 +1,13 @@
 """Architecture registry: the reference's 10 assigned archs and the paper's
-own (dpmf), of which the port has the cells of gat-cora, fm, sasrec, bst,
-dlrm-mlperf and dpmf.
+own (dpmf), of which the port has the cells of gemma-7b, qwen1.5-4b,
+qwen3-4b, gat-cora, fm, sasrec, bst, dlrm-mlperf and dpmf.
 
 Counterpart of ``repro/configs/__init__.py``.  ``build_cell(arch, shape)``
 makes a :class:`~repro_torch.configs.base.CellSpec` (step function, meta
 abstract arguments, layouts); :func:`all_cells` lists the ported cells.  The
-transformer archs (ROADMAP A8d) are named, so that ``ALL_ARCHS`` is the
-reference's, but :func:`get_module` of one of them raises
-``NotImplementedError``.
+MLA and mixture-of-experts archs (ROADMAP A8d part 2) are named, so that
+``ALL_ARCHS`` is the reference's, but :func:`get_module` of one of them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,9 +15,9 @@ import importlib
 from typing import List, Tuple
 
 _ARCH_MODULES = {
-    "gemma-7b": None,
-    "qwen1.5-4b": None,
-    "qwen3-4b": None,
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "deepseek-v2-lite-16b": None,
     "granite-moe-1b-a400m": None,
     "gat-cora": "repro_torch.configs.gat_cora",
@@ -29,11 +29,8 @@ _ARCH_MODULES = {
 }
 # the ROADMAP item that ports each arch not yet here
 _WAITING = {
-    "gemma-7b": "A8d (the transformer zoo)",
-    "qwen1.5-4b": "A8d (the transformer zoo)",
-    "qwen3-4b": "A8d (the transformer zoo)",
-    "deepseek-v2-lite-16b": "A8d (the transformer zoo)",
-    "granite-moe-1b-a400m": "A8d (the transformer zoo)",
+    "deepseek-v2-lite-16b": "A8d part 2 (MLA and MoE)",
+    "granite-moe-1b-a400m": "A8d part 2 (MLA and MoE)",
 }
 
 ASSIGNED_ARCHS: Tuple[str, ...] = tuple(a for a in _ARCH_MODULES if a != "dpmf")
@@ -73,6 +70,6 @@ def build_cell(arch: str, shape_id: str):
 
 def all_cells(include_dpmf: bool = True) -> List[Tuple[str, str]]:
     """Every (arch, shape) cell of the ported archs only (``PORTED_ARCHS``;
-    the reference's list also holds the LM cells)."""
+    the reference's list also holds the MLA and MoE archs' cells)."""
     archs = PORTED_ARCHS if include_dpmf else tuple(a for a in PORTED_ARCHS if a != "dpmf")
     return [(arch, sid) for arch in archs for sid in shape_ids(arch)]

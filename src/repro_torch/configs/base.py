@@ -1,8 +1,8 @@
 """Cell machinery: an (architecture x input shape) cell bundles the step
 function, its abstract arguments and the layout of each argument on a mesh.
 
-Counterpart of ``repro/configs/base.py`` for the dpmf, recsys and GNN cells
-(the LM cells are not ported yet).  Three choices differ from the
+Counterpart of ``repro/configs/base.py`` for the dpmf, LM (dense
+transformers), recsys and GNN cells.  Three choices differ from the
 reference, each forced by PyTorch:
 
 * **Abstract arguments are meta tensors.**  The reference's
@@ -15,8 +15,9 @@ reference, each forced by PyTorch:
   tuples (``repro_torch.distributed.sharding``); the mesh is read only for
   its axis names and extents.
 * **Steps update in place and run on the device of their arguments.**  A
-  train cell's step writes its parameters in place under
-  ``torch.no_grad()`` (the port's counterpart of ``donate_argnums``).
+  train cell's step writes its parameters (and optimizer state) in place
+  under ``torch.no_grad()``, and a decode cell's step its KV caches (the
+  port's counterpart of ``donate_argnums``).
   Serve cells that rank a catalog go through the ``pruned_topk`` kernel on
   CUDA and never build the (batch, catalog) score matrix the reference
   builds: :func:`streaming_topk_scores`.
@@ -29,9 +30,10 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.collectives import value_and_grad
+from repro_torch.distributed.collectives import microbatch_grads, value_and_grad
 from repro_torch.kernels import ops as kops
 from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import Adam, Sgd
 
 Tree = Any
@@ -41,7 +43,7 @@ Tree = Any
 class CellSpec:
     arch: str
     shape_id: str
-    kind: str  # train | serve | retrieval
+    kind: str  # train | prefill | decode | serve | retrieval
     step_fn: Callable
     abstract_args: Tuple
     in_shardings: Callable[[Any], Tuple]
@@ -64,13 +66,157 @@ def abstract(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-# the LM cells' shapes (the cells themselves wait for the transformer zoo)
+# ---------------------------------------------------------------------------
+# LM transformer cells
+# ---------------------------------------------------------------------------
+
+
+def lm_train_cell(
+    arch: str,
+    shape_id: str,
+    cfg: tfm.TransformerConfig,
+    *,
+    global_batch: int,
+    seq_len: int,
+    n_micro: int = 1,
+    lr: float = 3e-4,
+) -> CellSpec:
+    """``step(params, opt_state, batch) -> (params, opt_state, loss)``: the
+    next-token loss and its gradient over ``n_micro`` microbatches, then one
+    Adam step written into ``params`` and ``opt_state`` in place."""
+    optimizer = Adam(lr=lr)
+
+    def loss_fn(params, batch):
+        return tfm.lm_loss(params, batch, cfg)
+
+    def step(params, opt_state, batch):
+        loss, grads = microbatch_grads(loss_fn, params, batch, n_micro)
+        params, opt_state = optimizer.apply(params, opt_state, grads)
+        return params, opt_state, loss
+
+    a_params = abstract_like(tfm.init_params, torch.Generator(), cfg)
+    a_opt = optimizer.init(a_params)
+    a_batch = {"tokens": abstract((global_batch, seq_len), torch.int32),
+               "labels": abstract((global_batch, seq_len), torch.int32)}
+
+    def in_shardings(mesh):
+        p_sh = shd.transformer_param_shardings(a_params, mesh)
+        o_sh = {"m": p_sh, "v": p_sh, "t": shd.replicated(mesh)}
+        return (p_sh, o_sh, shd.lm_batch_shardings(mesh))
+
+    return CellSpec(
+        arch=arch,
+        shape_id=shape_id,
+        kind="train",
+        step_fn=step,
+        abstract_args=(a_params, a_opt, a_batch),
+        in_shardings=in_shardings,
+        donate_argnums=(0, 1),
+    )
+
+
+def lm_prefill_cell(
+    arch: str,
+    shape_id: str,
+    cfg: tfm.TransformerConfig,
+    *,
+    global_batch: int,
+    seq_len: int,
+) -> CellSpec:
+    """``step(params, tokens) -> (B, V)`` logits of the last position
+    (``transformer.prefill``), without autograd."""
+
+    def step(params, tokens):
+        with torch.no_grad():
+            return tfm.prefill(params, tokens, cfg)
+
+    a_params = abstract_like(tfm.init_params, torch.Generator(), cfg)
+
+    def in_shardings(mesh):
+        return (shd.transformer_param_shardings(a_params, mesh),
+                shd.ns(mesh, shd.data_axes(mesh), None))
+
+    return CellSpec(
+        arch=arch,
+        shape_id=shape_id,
+        kind="prefill",
+        step_fn=step,
+        abstract_args=(a_params, abstract((global_batch, seq_len), torch.int32)),
+        in_shardings=in_shardings,
+    )
+
+
+def lm_decode_cell(
+    arch: str,
+    shape_id: str,
+    cfg: tfm.TransformerConfig,
+    *,
+    global_batch: int,
+    kv_len: int,
+    shard_seq: bool = False,
+    note: str = "",
+) -> CellSpec:
+    """``step(params, state, tokens) -> (logits (B, V), state)``: one token a
+    sequence against a ``kv_len`` cache (the abstract state holds ``kv_len -
+    1`` positions), the caches written in place.  ``shard_seq`` lays the KV
+    sequence axis over the data axes instead of the batch (the batch-1
+    long-context cells)."""
+
+    def step(params, state, tokens):
+        return tfm.decode_step(params, tokens, state, cfg)
+
+    a_params = abstract_like(tfm.init_params, torch.Generator(), cfg)
+    a_state = abstract_like(tfm.init_decode_state, cfg, global_batch, kv_len,
+                            length=kv_len - 1)
+
+    def in_shardings(mesh):
+        state_sh = shd.tree_shardings(
+            a_state, shd.decode_state_spec_fn(mesh, shard_seq=shard_seq), mesh)
+        tokens_sh = shd.ns(mesh, None, None) if shard_seq else shd.ns(
+            mesh, shd.data_axes(mesh), None)
+        return (shd.transformer_param_shardings(a_params, mesh), state_sh, tokens_sh)
+
+    return CellSpec(
+        arch=arch,
+        shape_id=shape_id,
+        kind="decode",
+        step_fn=step,
+        abstract_args=(a_params, a_state, abstract((global_batch, 1), torch.int32)),
+        in_shardings=in_shardings,
+        donate_argnums=(1,),
+        note=note,
+    )
+
+
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
     "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
     "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
     "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
 }
+
+
+def lm_cells(arch: str, cfg: tfm.TransformerConfig) -> Dict[str, Callable[[], CellSpec]]:
+    return {
+        "train_4k": lambda: lm_train_cell(arch, "train_4k", cfg, global_batch=256, seq_len=4096),
+        "prefill_32k": lambda: lm_prefill_cell(arch, "prefill_32k", cfg, global_batch=32,
+                                               seq_len=32768),
+        "decode_32k": lambda: lm_decode_cell(arch, "decode_32k", cfg, global_batch=128,
+                                             kv_len=32768),
+        "long_500k": lambda: lm_decode_cell(
+            arch,
+            "long_500k",
+            cfg,
+            global_batch=1,
+            kv_len=524288,
+            shard_seq=True,
+            note=(
+                "long-context decode is O(L) (one query vs cached KV) — "
+                "runnable with full attention; KV sequence axis sharded (SP)."
+            ),
+        ),
+    }
+
 
 # ---------------------------------------------------------------------------
 # GNN cells

@@ -1,7 +1,8 @@
-"""How the MF tables, batches and serving operands, and the recsys models'
-and the GAT's parameters and batches, map onto a mesh.
+"""How the MF tables, batches and serving operands, the transformers'
+parameters, batches and KV caches, and the recsys models' and the GAT's
+parameters and batches, map onto a mesh.
 
-Counterpart of the MF, recsys and GNN parts of
+Counterpart of the MF, transformer, recsys and GNN parts of
 ``repro/distributed/sharding.py``.  Axes: ``"data"`` (and ``"pod"`` when
 present) carry the user rows and the batch, ``"model"`` carries the item
 rows: a rating batch sharded over the data axes meets its item rows across
@@ -145,6 +146,95 @@ def assemble(x_blk: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         if axes is not None:
             out = spmd.all_gather(out, mesh, axes, dim=dim)
     return out.clone() if out is x_blk else out
+
+
+# ---------------------------------------------------------------------------
+# Transformers
+# ---------------------------------------------------------------------------
+
+
+def transformer_spec(parts, leaf) -> Spec:
+    """The layout of one transformer parameter from its path: ``embed`` rows
+    and ``lm_head`` columns over ``"model"``, the projections' output dims
+    (``wq``, ``wk``, ``wv``, MLA's ``wk_b``, ``wv_b``, the MLP's ``wg``, ``wi``)
+    and their biases over ``"model"``, the ``wo``s' input dims over
+    ``"model"``, MoE experts over ``"model"`` (expert parallelism); MLA's
+    ``wkv_a``, the router, norms and scalars replicated.  A stacked layer
+    (under ``layers``) gets a leading None.  The MLA and MoE names are pure
+    layout and are kept for ROADMAP A8d part 2."""
+    tp = "model"
+    stacked = bool(parts) and parts[0] == "layers"
+    name = parts[-1]
+    parent = parts[-2] if len(parts) >= 2 else ""
+    if name == "embed":
+        spec = (tp, None)
+    elif name == "lm_head":
+        spec = (None, tp)
+    elif name in ("wq", "wk", "wv", "wkv_a", "wk_b", "wv_b"):
+        # wkv_a is small (d x (lora + rope)); splitting its output would
+        # split the latent every head needs
+        spec = (None, None) if name == "wkv_a" else (None, tp)
+    elif name in ("bq", "bk", "bv"):
+        spec = (tp,)
+    elif name == "wo" and parent in ("attn", "mlp", "shared"):
+        spec = (tp, None)
+    elif parent == "moe" and name in ("wg", "wi", "wo"):
+        spec = (tp, None, None)
+    elif name in ("wg", "wi"):
+        spec = (None, tp)
+    elif name == "router":
+        spec = (None, None)
+    else:  # norms, scalars, biases of small layers
+        spec = (None,) * len(getattr(leaf, "shape", ()))
+    if stacked:
+        spec = (None,) + tuple(spec)
+    return P(*spec)
+
+
+def transformer_param_shardings(params: Any, mesh) -> Any:
+    """:func:`transformer_spec` over every leaf of a parameter tree."""
+    return tree_shardings(params, transformer_spec, mesh)
+
+
+def lm_batch_shardings(mesh) -> Dict[str, Spec]:
+    """Layouts of an LM batch: tokens and labels, rows over the data axes."""
+    dp = data_axes(mesh)
+    return {"tokens": ns(mesh, dp, None), "labels": ns(mesh, dp, None)}
+
+
+def decode_state_spec_fn(mesh, *, shard_seq: bool) -> Callable:
+    """``spec_fn(parts, leaf)`` of a decode state's KV caches: batch over the
+    data axes and KV heads over ``"model"``; with ``shard_seq`` (the batch-1
+    long-context cells) the sequence over the data axes instead of the batch
+    (SP decode).  Where the KV-head count does not divide over ``"model"``
+    (qwen1.5's 20 heads on 16 ranks), the sequence is split over
+    ``"model"`` (and the data axes with ``shard_seq``) instead of the heads:
+    flash-decoding's split-S, not a replicated 107 GB cache.  Lengths and
+    scalars replicated; the stacked caches have a leading None, the leading
+    dense layers' (under ``first_caches``) not."""
+    dp = data_axes(mesh)
+    n_model = spmd.axis_size(mesh, "model")
+
+    def spec_fn(parts, leaf) -> Spec:
+        name = parts[-1]
+        ndim = len(getattr(leaf, "shape", ()))
+        if name == "length" or ndim == 0:
+            return P()
+        lead = () if "first_caches" in parts else (None,)
+        body_ndim = ndim - len(lead)
+        if body_ndim == 4:  # (B, S, KH, hd)
+            if leaf.shape[-2] % n_model == 0:
+                spec = (None, dp, "model", None) if shard_seq else (dp, None, "model", None)
+            else:
+                seq_axes = (dp + ("model",)) if shard_seq else ("model",)
+                spec = (None, seq_axes, None, None) if shard_seq else (dp, seq_axes, None, None)
+        elif body_ndim == 3:  # (B, S, lora or rope): MLA's latent, no head axis
+            spec = (None, dp, None) if shard_seq else (dp, None, None)
+        else:
+            spec = (None,) * body_ndim
+        return P(*(lead + tuple(spec)))
+
+    return spec_fn
 
 
 # ---------------------------------------------------------------------------

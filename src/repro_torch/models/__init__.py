@@ -1,24 +1,34 @@
 """The model zoo of the port, as far as it is ported.
 
-* :mod:`repro_torch.models.layers`: the building blocks the recsys models
-  use (``dense``, ``layer_norm``, ``mlp``, ``embed_lookup``, ``init_dense``);
+* :mod:`repro_torch.models.layers`: the building blocks (``dense``,
+  ``layer_norm``, ``mlp``, ``embed_lookup``, ``init_dense``, ``rms_norm``,
+  ``rms_norm_lean``, ``gated_mlp``, ``rope_frequencies``, ``apply_rope``);
+* :mod:`repro_torch.models.attention`: grouped-query attention, its KV
+  cache and the chunked causal attention, in plain tensor ops;
+* :mod:`repro_torch.models.transformer`: the dense decoder-only
+  transformers (gemma-7b, qwen1.5-4b, qwen3-4b): forward, loss, prefill
+  and in-place decode;
 * :mod:`repro_torch.models.recsys`: FM, DLRM (MLPerf config), SASRec and
   BST, with ``embedding_bag``; FM's and SASRec's retrieval score through the
   ``pruned_matmul`` kernel;
 * :mod:`repro_torch.models.gnn`: the GAT of gat-cora, its edge gathers and
   segment sums in batch order (``kernels.scatter``).
 
-Still to port from ``repro/models``: ``attention``, ``moe`` and
-``transformer`` (with ``layers``' ``rms_norm``, ``rms_norm_lean``,
-``gated_mlp``, ``rope_frequencies`` and ``apply_rope``).
+Still to port from ``repro/models`` (ROADMAP A8d part 2): ``moe``, and
+``attention``'s MLA half with the transformer's MLA and MoE branches.
 """
-from repro_torch.models import gnn  # noqa: F401
+from repro_torch.models import attention, gnn, transformer  # noqa: F401
 from repro_torch.models.layers import (  # noqa: F401
+    apply_rope,
     dense,
     embed_lookup,
+    gated_mlp,
     init_dense,
     layer_norm,
     mlp,
+    rms_norm,
+    rms_norm_lean,
+    rope_frequencies,
 )
 from repro_torch.models.recsys import (  # noqa: F401
     MLPERF_CRITEO_VOCABS,

@@ -151,6 +151,9 @@ class RowOptimizer:
 # ---------------------------------------------------------------------------
 
 
+_ADAM_BLOCK = 1 << 26  # elements of a leaf that Adam updates at once
+
+
 def _zeros_f32(tree: Tree) -> Tree:
     return tree_lib.map_leaves(lambda p: torch.zeros_like(p, dtype=torch.float32), tree)
 
@@ -159,7 +162,10 @@ def _zeros_f32(tree: Tree) -> Tree:
 class Adam:
     """Adam as the reference's: ``p - (lr * lr_scale * (m / b1c) /
     (sqrt(v / b2c) + eps) + lr * lr_scale * weight_decay * p)`` in float32,
-    cast back to ``p.dtype``; ``m``, ``v`` float32 and one step count ``t``."""
+    cast back to ``p.dtype``; ``m``, ``v`` float32 and one step count ``t``.
+    A leaf larger than 2^26 elements is updated in blocks of rows along its
+    first dim (a transformer's stacked layers one or a few at a time), with
+    the same operations in the same order."""
 
     lr: float = 1e-3
     beta1: float = 0.9
@@ -182,15 +188,29 @@ class Adam:
         b2c = 1 - torch.pow(one * self.beta2, tf)
 
         def upd(p, g, m, v):
+            # the reference's expressions op for op, each in-place op rounding
+            # as its out-of-place twin: m = b1 m + (1 - b1) g, v = b2 v +
+            # (1 - b2) g g, p - lr (m / b1c) / (sqrt(v / b2c) + eps), in
+            # three float32 temporaries
             g = g.float()
-            m.copy_(self.beta1 * m + (1 - self.beta1) * g)
-            v.copy_(self.beta2 * v + (1 - self.beta2) * g * g)
-            step = self.lr * lr_scale * (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+            m.mul_(self.beta1).add_(g * (1 - self.beta1))
+            v.mul_(self.beta2).add_((g * (1 - self.beta2)).mul_(g))
+            step = (m / b1c).mul_(self.lr * lr_scale)
+            step.div_(torch.div(v, b2c).sqrt_().add_(self.eps))
             if self.weight_decay:
-                step = step + self.lr * lr_scale * self.weight_decay * p.float()
-            p.copy_((p.float() - step).to(p.dtype))
+                step.add_(p.float() * (self.lr * lr_scale * self.weight_decay))
+            p.copy_(step.neg_().add_(p.float()))  # p - step, rounded to p's type
 
-        tree_lib.map_leaves(upd, params, grads, state["m"], state["v"])
+        def by_blocks(p, g, m, v):
+            # elementwise, so the same bits block by block; a block's float32
+            # temporaries stay near _ADAM_BLOCK elements, not a leaf's size
+            rows = max(1, _ADAM_BLOCK // max(p[0].numel(), 1)) if p.dim() else 0
+            if not rows or rows >= p.shape[0]:
+                return upd(p, g, m, v)
+            for lo in range(0, p.shape[0], rows):
+                upd(*(t[lo:lo + rows] for t in (p, g, m, v)))
+
+        tree_lib.map_leaves(by_blocks, params, grads, state["m"], state["v"])
         state["t"] = t
         return params, state
 

@@ -16,6 +16,13 @@ bitwise on 1/8-grid inputs.  FM's and SASRec's retrievals take the port's
 kernel route (``pruned_matmul``'s plain version here) against the
 reference's ``use_kernel=False``.
 
+The LM cells (gemma-7b, qwen1.5-4b, qwen3-4b): ``train_4k``,
+``prefill_32k`` and ``decode_32k`` at each arch's smoke config (2 layers, d
+64, float32) on 2 x 16 tokens, from the same numpy weights: the train
+step's loss within 1e-5 and Adam's first step by
+``chip_smoke.adam_first_step``; prefill's last logits, and one decode step's
+logits and caches (written in place), within 1e-5.
+
 gat-cora: ``full_graph_sm`` and ``molecule`` at their published widths and
 counts, one Adam step: the loss within 1e-5 of the reference's; the
 gradients (from Adam's moments) within 1e-5 of each leaf's largest; the
@@ -200,6 +207,89 @@ def test_streaming_topk_scores_is_the_reference_bitwise_on_the_grid():
     np.testing.assert_array_equal(order, np.broadcast_to(np.arange(50), order.shape))
     with pytest.raises(ValueError, match="fewer than one"):
         base.streaming_topk_scores(torch.as_tensor(h), torch.as_tensor(table[:4000]), chunk=4096)
+
+
+# ---------------------------------------------------------------------------
+# the LM cells (dense transformers)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b")
+LM_CELLS = [(arch, sid) for arch in LM_ARCHS for sid in ("train_4k", "prefill_32k", "decode_32k")]
+
+
+def _lm_small(monkeypatch, arch):
+    """Both packages' ``CONFIG`` of ``arch`` set to its smoke config (2
+    layers, d 64, float32); the reference's."""
+    jmod, pmod = jconfigs.get_module(arch), configs.get_module(arch)
+    monkeypatch.setattr(jmod, "CONFIG", jmod.smoke_config())
+    monkeypatch.setattr(pmod, "CONFIG", pmod.smoke_config())
+    return jmod.CONFIG
+
+
+@pytest.mark.parametrize("arch,sid", LM_CELLS, ids=["::".join(c) for c in LM_CELLS])
+def test_lm_cell_step_matches_reference(monkeypatch, arch, sid):
+    """A cell's step at the smoke config on 2 x 16 tokens (labels the next
+    token, some masked) from the same numpy weights: train (one Adam step
+    in place, lr 3e-4: the loss within 1e-5, Adam's first step by
+    ``chip_smoke.adam_first_step``), prefill (the last logits within 1e-5)
+    and decode (a cache of 16 positions holding 5, drawn with numpy; the
+    logits and the caches within 1e-5, written in place)."""
+    from repro.models import transformer as jtfm
+    from repro_torch.models import transformer
+
+    jcfg = _lm_small(monkeypatch, arch)
+    jcell, cell = jconfigs.build_cell(arch, sid), configs.build_cell(arch, sid)
+    assert (cell.kind, cell.donate_argnums) == (jcell.kind, jcell.donate_argnums)
+    seed = LM_CELLS.index((arch, sid))
+    rng = np.random.default_rng(seed)
+    weights = jax.tree_util.tree_map(
+        lambda a: np.array(a) if np.array(a).any() else rng.normal(0, 0.1, a.shape).astype(
+            np.float32), jtfm.init_params(jax.random.PRNGKey(seed), jcfg))
+    params = transformer.transformer_params_from_numpy(weights, device="cpu")
+    jweights = jax.tree_util.tree_map(jnp.asarray, weights)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    if cell.kind == "train":
+        labels = np.roll(tokens, -1, axis=1)
+        labels[:, -1] = -1
+        labels[1, :4] = -1
+        jstate = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype),
+                                        jcell.abstract_args[1])
+        want_p, want_s, want_loss = jax.jit(jcell.step_fn)(
+            jweights, jstate, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+        state = tree.map_leaves(lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                                cell.abstract_args[1])
+        start = tree.map_leaves(lambda t: t.clone(), (params, state))
+        got_p, got_s, loss = cell.step_fn(params, state, {"tokens": torch.as_tensor(tokens),
+                                                          "labels": torch.as_tensor(labels)})
+        assert got_p is params and got_s is state
+        _close(loss, want_loss, what="loss")
+        assert int(state["t"]) == int(want_s["t"]) == 1
+        ok, errs = _chip_smoke().adam_first_step(
+            start, (params, state),
+            tree.map_leaves(lambda _, w: torch.as_tensor(np.array(w)), (params, state),
+                            (want_p, want_s)), 3e-4, TOL)
+        assert ok, errs
+    elif cell.kind == "prefill":
+        want = jax.jit(jcell.step_fn)(jweights, jnp.asarray(tokens))
+        got = cell.step_fn(params, torch.as_tensor(tokens))
+        assert not got.requires_grad
+        _close(got, want, what="prefill")
+    else:
+        shape = (jcfg.n_layers, 2, 16, jcfg.n_kv_heads, jcfg.head_dim)
+        k0, v0 = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
+        jstate = jtfm.DecodeState(caches=jtfm.KVCache(jnp.asarray(k0), jnp.asarray(v0),
+                                                      jnp.int32(5)), first_caches=())
+        state = transformer.init_decode_state(configs.get_config(arch), 2, 16, length=5,
+                                              device="cpu")
+        state.caches.k.copy_(torch.as_tensor(k0))
+        state.caches.v.copy_(torch.as_tensor(v0))
+        want_logits, want_state = jax.jit(jcell.step_fn)(jweights, jstate, jnp.asarray(tokens[:, :1]))
+        logits, new_state = cell.step_fn(params, state, torch.as_tensor(tokens[:, :1]))
+        _close(logits, want_logits, what="logits")
+        assert new_state.caches.k is state.caches.k  # in place (donated)
+        assert int(new_state.caches.length) == int(want_state.caches.length) == 6
+        _close(new_state.caches.k, want_state.caches.k, what="k")
+        _close(new_state.caches.v, want_state.caches.v, what="v")
 
 
 # ---------------------------------------------------------------------------

@@ -367,3 +367,51 @@ def test_delta_after_the_barrier_keeps_following(tmp_path):
                         user_remap=port.evictor.remap.as_array(), remap_epoch=1)
     for a, b in zip(engine.topk(users, 5), ref.topk(users, 5)):
         np.testing.assert_array_equal(a, b)
+
+
+class _OneRankMesh:
+    """A (1, 1) ("data", "model") mesh of this process alone: what the port's
+    mesh-backed updater reads of a ``DeviceMesh`` to cut its blocks."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return 1
+
+    def get_coordinate(self):
+        return [0, 0]
+
+
+def test_mesh_backed_updater_refuses_eviction_as_the_reference(tmp_path):
+    """ROADMAP C8: neither package evicts on a mesh.  The reference's
+    ``attach_evictor`` hands the updater to ``UserEvictor.bind``, which raises
+    ValueError for a mesh-backed updater; the port's refuses before binding
+    (NotImplementedError).  Both updaters stay unarmed, and the same evictor
+    arms an updater without a mesh."""
+    import jax
+    from jax.sharding import Mesh
+
+    fields = _fields(3, variant="funk")
+    kw = dict(optimizer="sgd", lr=0.05, lam=0.02, batch_size=8)
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    ref = jupdater.OnlineUpdater(
+        jmf.MFParams(*(None if fields[n] is None else jnp.asarray(fields[n])
+                       for n in jmf.MFParams._fields)), None, 0.05, 0.05, mesh=jmesh, **kw)
+    port = updater.OnlineUpdater(mf.params_from_numpy(fields, device="cpu"), None, 0.05, 0.05,
+                                 mesh=_OneRankMesh(), device="cpu", **kw)
+    assert port.mesh is not None and tuple(port.params.p.shape) == (M, K)
+
+    def evictor(module, name):
+        return module.UserEvictor(module.EvictionConfig(
+            max_users=30, spill_dir=str(tmp_path / name), target_users=20))
+
+    with pytest.raises(ValueError, match="single-host"):
+        ref.attach_evictor(evictor(jeviction, "ref"))
+    ev = evictor(eviction, "port")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port.attach_evictor(ev)
+    assert port.evictor is None and ev.updater is None
+    single = updater.OnlineUpdater(mf.params_from_numpy(fields, device="cpu"), None, 0.05, 0.05,
+                                   device="cpu", **kw)
+    single.attach_evictor(ev)
+    assert single.evictor is ev and ev.updater is single

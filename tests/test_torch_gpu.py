@@ -1243,3 +1243,107 @@ def test_gat_cell_step_on_cuda_is_reproducible_and_the_cpu_step(cuda):
     torch.testing.assert_close(card_loss, cpu_loss, rtol=1e-5, atol=1e-5)
     ok, errs = _chip_smoke().adam_first_step(start, card, cpu, 5e-3, 1e-5)
     assert ok, errs
+
+
+LM_GPU_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b")
+
+
+def _lm_config(arch):
+    """The arch's flags (GeGLU and scaled embeddings, biases and an untied
+    head, qk-norm and grouped heads) at a small float32 width: 2 layers, d
+    256, head_dim 64, vocab 8192, four attention chunks of 16 over 64
+    tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    full = configs.get_config(arch)
+    kv = 2 if full.n_kv_heads < full.n_heads else 4
+    return dataclasses.replace(full, n_layers=2, d_model=256, n_heads=4, n_kv_heads=kv,
+                               head_dim=64, d_ff=512, vocab_size=8192, attn_chunk=16,
+                               dtype=torch.float32)
+
+
+def _lm_start(arch, dev):
+    from repro_torch.models import transformer
+
+    cfg = _lm_config(arch)
+    params = transformer.init_params(torch.Generator().manual_seed(11), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(12)
+    for t in (params["final_norm"], params["layers"]["norm1"], params["layers"]["norm2"]):
+        t.normal_(0.0, 0.1, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
+    return cfg, params, tokens
+
+
+@pytest.mark.parametrize("arch", LM_GPU_ARCHS)
+def test_lm_train_cell_on_cuda_is_reproducible_and_the_cpu_step(cuda, arch):
+    """The LM train cell's step (autograd, one Adam step in place) on the
+    card: one ``add_rows`` launch (the embedding gather's gradient), two steps
+    from one state bitwise equal, the loss within 1e-5 of the same step on
+    the CPU and Adam's first step held against the CPU's by
+    ``chip_smoke.adam_first_step`` at 1e-4 (float32 sums over 512-term
+    products in another order)."""
+    from repro_torch import tree
+    from repro_torch.configs import base
+    from repro_torch.optim.optimizers import Adam
+
+    cfg, start_params, tokens = _lm_start(arch, cuda)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    labels[0, :10] = -1
+    cell = base.lm_train_cell(arch, "gpu", cfg, global_batch=2, seq_len=64)
+    start = (start_params, Adam().init(start_params))
+    runs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        state = tree.map_leaves(lambda t: t.to(dev, copy=True), start)
+        before = scatter.launches
+        _, _, loss = cell.step_fn(*state, {"tokens": tokens.to(dev), "labels": labels.to(dev)})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert scatter.launches == before + 1
+        runs.append((tree.map_leaves(lambda t: t.cpu(), state), loss.cpu()))
+    (card, card_loss), (again, again_loss), (cpu, cpu_loss) = runs
+    assert torch.equal(card_loss, again_loss)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(card), tree.leaves(again)))
+    torch.testing.assert_close(card_loss, cpu_loss, rtol=1e-5, atol=1e-5)
+    ok, errs = _chip_smoke().adam_first_step(start, card, cpu, 3e-4, 1e-4)
+    assert ok, errs
+
+
+@pytest.mark.parametrize("arch", LM_GPU_ARCHS)
+def test_lm_prefill_and_decode_on_cuda_match_the_cpu_and_forward(cuda, arch):
+    """On the card: prefill's logits and six decode steps from a random
+    cache (logits, caches written in place) within 1e-4 of the CPU's;
+    decoding 24 tokens step by step within 2e-3 of ``forward``'s last
+    position (the reference's own bound)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer
+
+    cfg, params, tokens = _lm_start(arch, cuda)
+    card = tree.map_leaves(lambda t: t.to(cuda), params)
+    torch.testing.assert_close(transformer.prefill(card, tokens.to(cuda), cfg).cpu(),
+                               transformer.prefill(params, tokens, cfg), rtol=1e-4, atol=1e-4)
+    states = {}
+    gen = torch.Generator().manual_seed(13)
+    noise = [torch.randn((2, 2, 70, cfg.n_kv_heads, cfg.head_dim), generator=gen)
+             for _ in range(2)]
+    for dev in (cuda, torch.device("cpu")):
+        st = transformer.init_decode_state(cfg, 2, 70, length=64, device=dev)
+        st.caches.k.copy_(noise[0])
+        st.caches.v.copy_(noise[1])
+        states[dev.type] = st
+    for i in range(6):
+        tok = tokens[:, i:i + 1]
+        got, states["cuda"] = transformer.decode_step(card, tok.to(cuda), states["cuda"], cfg)
+        want, states["cpu"] = transformer.decode_step(params, tok, states["cpu"], cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert int(states["cuda"].caches.length) == 70
+    torch.testing.assert_close(states["cuda"].caches.k.cpu(), states["cpu"].caches.k)
+    torch.testing.assert_close(states["cuda"].caches.v.cpu(), states["cpu"].caches.v)
+    st = transformer.init_decode_state(cfg, 2, 24, device=cuda)
+    for i in range(24):
+        logits, st = transformer.decode_step(card, tokens[:, i:i + 1].to(cuda), st, cfg)
+    with torch.no_grad():
+        full, _ = transformer.forward(card, tokens[:, :24].to(cuda), cfg)
+    torch.testing.assert_close(logits, full[:, -1], rtol=2e-3, atol=2e-3)

@@ -432,3 +432,27 @@ def test_fault_tolerance_helpers():
     detector = StragglerDetector(window=20, z_threshold=4.0, min_samples=5)
     assert not any(detector.record(1.0 + 0.01 * (i % 3)) for i in range(10))
     assert detector.record(5.0) and detector.flagged == 1
+
+
+def test_chip_smoke_variants_phase_rehearses_on_the_cpu():
+    """``chip_smoke.py``'s bias-dpmf and svdpp-dpmf phase (ROADMAP C9) at
+    3,000 users x 700 items x 128 on the CPU: every check holds (the launch
+    counts are checked on the card only), each variant's held step within
+    1e-5 of the plain step."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    chip_smoke.failures.clear()
+    out = chip_smoke.variants_phase(torch.device("cpu"), (3000, 700, 2048, 512))
+    assert chip_smoke.failures == []
+    assert list(out) == ["bias", "svdpp"]
+    for variant, stats in out.items():
+        assert len(stats["step_ms"]) == chip_smoke.VARIANT_STEPS, variant
+        assert stats["max_abs_err"] <= 1e-5 and all(np.isfinite(stats["abs_err"])), variant
+    assert chip_smoke.PATH_LAUNCHES["variants"] == {"fused_mf_sgd": 0, "add_rows": 0}
