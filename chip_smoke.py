@@ -217,7 +217,17 @@ script exits) it:
    gradients and weights through ``adam_first_step``; three steps from one
    state bitwise), prefill's logits, four decode steps (logits and caches),
    and 32 decode steps against ``forward`` on the card within 2e-3;
-   launches counted under ``cells``;
+   then "cells: moe transformer": deepseek-v2-lite-16b's (MLA, one dense
+   layer, 64 routed experts top-6 and 2 shared) and granite-moe-1b-a400m's
+   (GQA, 32 experts top-8) four LM cells the same way, every expert kept
+   (the whole MoE layer on one card, depth and batch cut by ``MOE_CUTS``):
+   each step's ``add_rows`` launches (1 + 5 a MoE layer in a train step, 1 a
+   MoE layer in prefill and decode) and its dropped-pair share, the train
+   and prefill FLOPs over the experts' capacity rows as they run and over
+   the active ones; the float32 copies' routing held against the CPU's
+   (expert ids equal wherever the k-th and (k+1)-th probabilities differ by
+   more than ``ROUTE_TIE_TOL``; near-ties counted) and the CPU's steps run
+   through the card's routing; launches counted under ``cells``;
 23. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
@@ -4898,19 +4908,76 @@ LM_CHECK = dict(layers=2, tokens=256, chunk=64, decode_steps=4, consistency_toke
 LM_TOL = 1e-4
 LM_CONSISTENCY_TOL = 2e-3  # the reference's own bound (tests/test_smoke_archs.py)
 
+MOE_ARCHS = ("deepseek-v2-lite-16b", "granite-moe-1b-a400m")
+# (layers, batch) of each MoE LM cell on one card, every expert of a layer
+# kept (the reference's whole MoE layer on one device: moe_shard_map is off
+# in both configs), every width, sequence and cache length as published.
+# Cut by memory as LM_CUTS (train: 12 bytes a parameter, deepseek's MoE
+# layer 584.8M; decode: the latent cache, 1.02 GB a sequence for deepseek,
+# granite's GQA cache 1.61 GB), keeping deepseek's dense layer, and
+# prefill's depth by time.
+MOE_CUTS = {
+    "deepseek-v2-lite-16b": {"train_4k": (8, 1), "prefill_32k": (12, 1),
+                             "decode_32k": (27, 32), "long_500k": (27, 1)},
+    "granite-moe-1b-a400m": {"train_4k": (24, 8), "prefill_32k": (24, 1),
+                             "decode_32k": (24, 40), "long_500k": (24, 1)},
+}
+# expert ids of the card and the CPU compared wherever the k-th and (k+1)-th
+# router probabilities differ by more than this (float32 copies whose
+# inputs differ by about 1e-6 of their largest value)
+ROUTE_TIE_TOL = 1e-5
 
-def _lm_forward_flops(cfg, b, s, last_only=False):
+
+def _lm_forward_flops(cfg, b, s, last_only=False, active=False):
     """Floating-point operations of ``cfg``'s forward on (b, s) tokens as the
-    port executes it: the dense products, the head (on the last position
-    only for prefill), and the attention's two products over all s x s
-    scores (the plain chunks compute the masked half too)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    layer = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
-             + 3 * d * cfg.d_ff)
-    dense = 2.0 * b * s * layer * cfg.n_layers
-    head = 2.0 * b * (1 if last_only else s) * d * cfg.vocab_size
-    attn = 4.0 * b * cfg.n_heads * s * s * hd * cfg.n_layers
-    return dense + head + attn
+    port executes it: the dense products (MLA's projections with its
+    latent), the head (on the last position only for prefill), and the
+    attention's two products over all s x s scores (the plain chunks compute
+    the masked half too).  A MoE layer: the router, the shared experts over
+    every token and the routed experts over ``E x capacity`` rows, as they
+    run (``active``: over the ``top_k`` rows each token activates)."""
+    from repro_torch.models.moe import _capacity
+
+    d, t, h = cfg.d_model, b * s, cfg.n_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk, vh = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+        proj = (d * h * qk + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + vh) + h * vh * d)
+    else:
+        qk = vh = cfg.head_dim
+        proj = d * h * qk + 2 * d * cfg.n_kv_heads * qk + h * vh * d
+    attn = 2.0 * t * proj + 2.0 * b * h * s * s * (qk + vh)
+
+    def mlp(ff):
+        return 2.0 * t * 3 * d * ff
+
+    if cfg.moe is None:
+        ffn = mlp(cfg.d_ff)
+    else:
+        mo = cfg.moe
+        rows = mo.top_k * t if active else mo.num_experts * _capacity(t, mo)
+        ffn = (2.0 * t * d * mo.num_experts + 2.0 * rows * 3 * d * mo.d_ff
+               + mlp(mo.num_shared * mo.d_ff))
+    body = (cfg.n_layers * attn + cfg.scan_layers * ffn
+            + cfg.first_dense_layers * mlp(cfg.first_dense_ff or cfg.d_ff))
+    return body + 2.0 * b * (1 if last_only else s) * d * cfg.vocab_size
+
+
+def _lm_add_rows(cfg, kind):
+    """``add_rows`` launches of one LM step: the embedding gather's gradient
+    (train); a MoE layer's combine (a segment sum, again in the recomputed
+    forward of a train step) and, in a train step, the gradients of its
+    three gathers (the tokens into the capacity slots, the gates, the
+    experts' rows)."""
+    n_moe = cfg.scan_layers if cfg.moe is not None else 0
+    return 1 + 5 * n_moe if kind == "train" else n_moe
+
+
+def _state_tensors(state):
+    """A decode state's caches: the stacked layers', then the leading dense
+    layers'."""
+    return [state.caches.k, state.caches.v] + [t for c in state.first_caches for t in (c.k, c.v)]
 
 
 def _lm_tokens(gen, cfg, b, s, dev):
@@ -4943,6 +5010,7 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
     run; throughput against the bf16 dense peak (train, prefill) or the
     bytes bound (decode)."""
     from repro_torch import tree
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.optim.optimizers import Adam
 
@@ -4958,24 +5026,43 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
         args = (params, _lm_tokens(gen, cfg, batch, seq, dev))
     else:
         state = tfm.init_decode_state(cfg, batch, seq, length=seq - 1, device=dev)
-        for t in (state.caches.k, state.caches.v):
+        for t in _state_tensors(state):
             t.normal_(generator=gen)
         args = (params, state, _lm_tokens(gen, cfg, batch, 1, dev))
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    out, ms = _clock(dev, lambda: cell.step_fn(*args))
+    with moe.drops_counted() as drops:
+        out, ms = _clock(dev, lambda: cell.step_fn(*args))
     launches = _cell_counts()
     _count_cells(launches)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
-    want_rows = 1 if cell.kind == "train" else 0  # the embedding gather's gradient
+    want_rows = _lm_add_rows(cfg, cell.kind)
     if dev.type == "cuda":
         check(launches == {"pruned_topk": 0, "pruned_matmul": 0, "add_rows": want_rows},
               f"cells: {cell.cell_id} launched add_rows {want_rows} times and nothing else "
               f"({launches})")
     res = {"layers": cfg.n_layers, "batch": batch, "seq": seq, "params": n_params,
            "launches": launches, "peak_gb": peak}
+    if cfg.moe is not None:
+        pairs = sum(n for _, n in drops)
+        res["dropped_share"] = sum(int(d) for d, _ in drops) / max(pairs, 1)
+        res["active_params"] = cfg.active_param_count()
+        # the forward's dispatches, layer by layer, and a control: as many
+        # independent normal tokens routed by each layer's router
+        res["dropped_by_layer"] = [int(d) / n for d, n in drops[:cfg.scan_layers]]
+        n_tok = batch * (1 if cell.kind == "decode" else seq)
+        ctl = torch.Generator(device=dev)
+        ctl.manual_seed(seed + 1)
+        iid = torch.randn((n_tok, cfg.d_model), generator=ctl, device=dev)
+        with torch.no_grad(), moe.drops_counted() as ctl_drops:
+            for router in params["layers"]["moe"]["router"]:
+                r = moe.route(iid, router, cfg.moe)
+                moe._sorted_slots(r.experts, cfg.moe.num_experts,
+                                  moe._capacity(n_tok, cfg.moe), 0, cfg.moe.num_experts)
+        res["dropped_iid"] = sum(int(d) for d, _ in ctl_drops) / sum(n for _, n in ctl_drops)
+        del iid, r
     if cell.kind == "train":
         new_p, new_o, loss = out
         check(new_p is params and new_o is args[1] and int(new_o["t"]) == 1
@@ -4996,8 +5083,7 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
               and new_state.caches.k is args[1].caches.k and int(new_state.caches.length) == seq,
               f"cells: {cell.cell_id} logits finite of shape {tuple(logits.shape)}, the cache "
               f"written in place, length {int(new_state.caches.length)}")
-        cache_bytes = sum(t.numel() * t.element_size() for t in (new_state.caches.k,
-                                                                  new_state.caches.v))
+        cache_bytes = sum(t.numel() * t.element_size() for t in _state_tensors(new_state))
         res["cache_gb"] = cache_bytes / 1e9
         flops = _lm_forward_flops(cfg, batch, 1, last_only=True)
     del out
@@ -5015,6 +5101,17 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
                    tokens_per_s=batch * seq / (warm / 1e3))
         what = (f"{res['tokens_per_s']:.0f} tokens/s, {tflops:.1f} TFLOP/s executed "
                 f"({flops / 1e12:.1f} TFLOP), {res['of_peak']:.1%} of the bf16 dense peak")
+        if cfg.moe is not None:
+            active = _lm_forward_flops(cfg, batch, seq, last_only=cell.kind == "prefill",
+                                       active=True) * (4.0 if cell.kind == "train" else 1.0)
+            res.update(tflop_active=active / 1e12,
+                       of_peak_active=active / (warm / 1e3) / PEAK_BF16_FLOPS)
+            what += (f"; over the active experts only {active / 1e12:.1f} TFLOP, "
+                     f"{res['of_peak_active']:.1%} of the peak")
+    if cfg.moe is not None:
+        what += (f"; dropped (token, expert) pairs {res['dropped_share']:.4%}, by MoE layer in "
+                 f"the forward [{', '.join(f'{v:.2%}' for v in res['dropped_by_layer'])}], of "
+                 f"independent normal tokens through the same routers {res['dropped_iid']:.4%}")
     log(f"  {cell.cell_id} at {cfg.n_layers} layers, batch {batch}, {seq} positions: {ms:.3f} ms "
         f"counted, {warm:.3f} ms warm (CUDA events); peak {peak:.2f} GB; {what}; launches "
         f"{launches}")
@@ -5028,18 +5125,59 @@ def _max_rel(got, want):
     return float((got - want).abs().max()) / (top if top else 1.0)
 
 
-def _lm_against_cpu(dev, arch, full, seed, check_sz):
-    """A float32 copy of ``full`` cut to ``check_sz["layers"]`` layers (every
-    width kept), TF32 off, ``attn_chunk`` ``check_sz["chunk"]``, one sequence of
-    ``check_sz["tokens"]`` tokens: the cells' train step three times from one
-    state on the card (bitwise equal) and once on the CPU (the loss, and
-    Adam's first step by :func:`adam_first_step` within ``LM_TOL``); prefill's
-    logits and four decode steps from a random cache (logits and caches)
-    against the CPU; then decoding step by step on the card against
-    ``forward``'s last-position logits (``LM_CONSISTENCY_TOL``)."""
-    from repro_torch import tree
+def _routes_against(card, cpu_natural, tally):
+    """The CPU's own routing against the card's, call by call: expert sets
+    equal for every token whose k-th and (k+1)-th probabilities on the card
+    differ by more than ``ROUTE_TIE_TOL``; the near-ties and their flips
+    counted in ``tally``."""
+    check(len(card) == len(cpu_natural), f"cells: the CPU made the card's {len(card)} "
+                                         f"routings ({len(cpu_natural)})")
+    for rec, nat in zip(card, cpu_natural):
+        differ = (torch.sort(rec.experts.cpu(), 1).values != torch.sort(nat, 1).values).any(1)
+        near = rec.margin.cpu() <= ROUTE_TIE_TOL
+        tally["tokens"] += int(differ.numel())
+        tally["near_ties"] += int(near.sum())
+        tally["flipped_at_near_ties"] += int((differ & near).sum())
+        tally["flipped"] += int((differ & ~near).sum())
+        tally["min_margin"] = min(tally["min_margin"], float(rec.margin.min()))
+
+
+def _state_on(state, cfg, dev):
+    """A copy of a decode state on ``dev``, in the layout
+    ``init_decode_state`` gives (GQA caches heads first)."""
     from repro_torch.models import transformer as tfm
     from repro_torch.models.attention import init_kv_cache
+
+    def one(c, lead):
+        if cfg.mla is not None:
+            k, v = (t.to(dev, copy=True) for t in (c.k, c.v))
+        else:
+            k, v = (init_kv_cache(tuple(t.shape[len(lead):]), cfg.dtype, dev, lead=lead)
+                    .copy_(t.to(dev)) for t in (c.k, c.v))
+        return tfm.KVCache(k, v, c.length.to(dev, copy=True))
+
+    return tfm.DecodeState(caches=one(state.caches, (cfg.scan_layers,)),
+                           first_caches=tuple(one(c, ()) for c in state.first_caches))
+
+
+def _lm_against_cpu(dev, arch, full, seed, check_sz):
+    """A float32 copy of ``full`` cut to ``check_sz["layers"]`` layers (every
+    width kept; deepseek's dense layer and one MoE layer), TF32 off,
+    ``attn_chunk`` ``check_sz["chunk"]``, one sequence of
+    ``check_sz["tokens"]`` tokens, every zero-initialised leaf drawn: the
+    cells' train step three times from one state on the card (bitwise equal)
+    and once on the CPU (the loss, and Adam's first step by
+    :func:`adam_first_step` within ``LM_TOL``); prefill's logits and four
+    decode steps from a random cache (logits and caches) against the CPU;
+    then decoding step by step on the card against ``forward``'s
+    last-position logits (``LM_CONSISTENCY_TOL``; a MoE config made
+    dropless for it, as decode routes one token at a time).  A MoE
+    config's CPU steps run through the card's routing (recorded, then
+    replayed), and the CPU's own routing is held against the card's
+    (:func:`_routes_against`)."""
+    from repro_torch import tree
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
     from repro_torch.optim.optimizers import Adam
 
     cfg = dataclasses.replace(full, n_layers=check_sz["layers"], dtype=torch.float32,
@@ -5055,27 +5193,31 @@ def _lm_against_cpu(dev, arch, full, seed, check_sz):
     gen.manual_seed(seed)
     start = tfm.init_params(gen, cfg, dev)
     # the zero-initialised norms and biases drawn, so that they count
-    for t in (start["final_norm"], start["layers"]["norm1"], start["layers"]["norm2"], *(
-            start["layers"]["attn"][key] for key in ("bq", "bk", "bv", "q_norm", "k_norm")
-            if key in start["layers"]["attn"])):
-        t.normal_(0.0, 0.1, generator=gen)
+    for t in tree.leaves(start):
+        if not bool(t.any()):
+            t.normal_(0.0, 0.1, generator=gen)
     t_len = check_sz["tokens"]
     tokens = _lm_tokens(gen, cfg, 1, t_len, dev)
     batch = {"tokens": tokens, "labels": _lm_labels(tokens)}
     on_cpu = lambda t: t.to(cpu, copy=True)  # noqa: E731
     out = {}
-    # the train step once on the CPU, then three times from one state on the
-    # card
-    start_cpu = tree.map_leaves(on_cpu, start)
-    cpu_params = tree.map_leaves(lambda t: t.clone(), start_cpu)
-    cpu_state = (cpu_params, Adam().init(cpu_params))
-    _, _, cpu_loss = cells["train_4k"].step_fn(*cpu_state, {key: on_cpu(value)
-                                                            for key, value in batch.items()})
+    routing = {"tokens": 0, "near_ties": 0, "flipped_at_near_ties": 0, "flipped": 0,
+               "min_margin": math.inf}
+
+    def replayed(card_routes):
+        return moe.routes_replayed([r.experts.cpu() for r in card_routes])
+
+    # the train step three times from one state on the card (the first's
+    # routing recorded), then once on the CPU through that routing
     runs = []
-    for _ in range(3):
+    for i in range(3):
         params = tree.map_leaves(lambda t: t.clone(), start)
         state = Adam().init(params)
-        _, _, loss = cells["train_4k"].step_fn(params, state, batch)
+        if i == 0:
+            with moe.routes_recorded() as card_routes:
+                _, _, loss = cells["train_4k"].step_fn(params, state, batch)
+        else:
+            _, _, loss = cells["train_4k"].step_fn(params, state, batch)
         if runs:
             same = torch.equal(loss, runs[0][2]) and all(torch.equal(a, b) for a, b in zip(
                 tree.leaves((params, state)), tree.leaves(runs[0][:2])))
@@ -5085,6 +5227,13 @@ def _lm_against_cpu(dev, arch, full, seed, check_sz):
             runs.append((params, state, loss))
     check(all(runs[1:]), f"cells: {arch}'s float32 copy ({cfg.n_layers} layers): three train "
                          "steps from one state give the same bits (loss, weights, Adam state)")
+    start_cpu = tree.map_leaves(on_cpu, start)
+    cpu_params = tree.map_leaves(lambda t: t.clone(), start_cpu)
+    cpu_state = (cpu_params, Adam().init(cpu_params))
+    with replayed(card_routes) as natural:
+        _, _, cpu_loss = cells["train_4k"].step_fn(*cpu_state, {key: on_cpu(value)
+                                                                for key, value in batch.items()})
+    _routes_against(card_routes, natural, routing)
     card_loss = float(runs[0][2])
     loss_err = abs(card_loss - float(cpu_loss))
     ok, errs = adam_first_step((start, None), runs[0][:2], cpu_state, LM_LR, LM_TOL)
@@ -5099,8 +5248,11 @@ def _lm_against_cpu(dev, arch, full, seed, check_sz):
     del runs, cpu_state, cpu_params
     _release_cached(dev)
     # prefill's logits
-    got = cells["prefill_32k"].step_fn(start, tokens).cpu()
-    want = cells["prefill_32k"].step_fn(start_cpu, on_cpu(tokens))
+    with moe.routes_recorded() as card_routes:
+        got = cells["prefill_32k"].step_fn(start, tokens).cpu()
+    with replayed(card_routes) as natural:
+        want = cells["prefill_32k"].step_fn(start_cpu, on_cpu(tokens))
+    _routes_against(card_routes, natural, routing)
     out["prefill"] = _max_rel(got, want)
     check(out["prefill"] <= LM_TOL, f"cells: {arch}'s float32 copy: prefill's logits within "
                                     f"{LM_TOL} of their largest of the CPU's "
@@ -5108,35 +5260,47 @@ def _lm_against_cpu(dev, arch, full, seed, check_sz):
     # four decode steps from a cache of t_len + 4 positions holding t_len
     steps = check_sz["decode_steps"]
     state = tfm.init_decode_state(cfg, 1, t_len + steps, length=t_len, device=dev)
-    for t in (state.caches.k, state.caches.v):
+    for t in _state_tensors(state):
         t.normal_(generator=gen)
-    cpu_dec = tfm.DecodeState(
-        caches=tfm.KVCache(*(init_kv_cache(tuple(t.shape[1:]), cfg.dtype, cpu,
-                                           lead=(cfg.n_layers,)).copy_(t.cpu())
-                             for t in (state.caches.k, state.caches.v)),
-                           state.caches.length.cpu()), first_caches=())
+    cpu_dec = _state_on(state, cfg, cpu)
     step_tokens = _lm_tokens(gen, cfg, 1, steps, dev)
     errs = []
     for i in range(steps):
-        logits, state = cells["decode_32k"].step_fn(start, state, step_tokens[:, i:i + 1])
-        want, cpu_dec = cells["decode_32k"].step_fn(start_cpu, cpu_dec,
-                                                    on_cpu(step_tokens[:, i:i + 1]))
+        with moe.routes_recorded() as card_routes:
+            logits, state = cells["decode_32k"].step_fn(start, state, step_tokens[:, i:i + 1])
+        with replayed(card_routes) as natural:
+            want, cpu_dec = cells["decode_32k"].step_fn(start_cpu, cpu_dec,
+                                                        on_cpu(step_tokens[:, i:i + 1]))
+        _routes_against(card_routes, natural, routing)
         errs.append(_max_rel(logits.cpu(), want))
-    cache_err = max(_max_rel(state.caches.k.cpu(), cpu_dec.caches.k),
-                    _max_rel(state.caches.v.cpu(), cpu_dec.caches.v))
+    cache_err = max(_max_rel(a.cpu(), b) for a, b in zip(_state_tensors(state),
+                                                         _state_tensors(cpu_dec)))
     out["decode"] = {"logits": max(errs), "caches": cache_err}
     check(max(errs) <= LM_TOL and cache_err <= LM_TOL
           and int(state.caches.length) == int(cpu_dec.caches.length) == t_len + steps,
           f"cells: {arch}'s float32 copy: {steps} decode steps' logits and the caches within "
           f"{LM_TOL} of their largest of the CPU's ({max(errs):.3e}, {cache_err:.3e} of it)")
     del state, cpu_dec
-    # decoding step by step against forward, on the card
+    if cfg.moe is not None:
+        out["routing"] = routing
+        check(routing["flipped"] == 0,
+              f"cells: {arch}'s float32 copy: the CPU's expert ids are the card's for each of "
+              f"{routing['tokens'] - routing['near_ties']} token routings whose k-th and "
+              f"(k+1)-th probabilities differ by more than {ROUTE_TIE_TOL} "
+              f"({routing['flipped']} differ); {routing['near_ties']} near-ties, "
+              f"{routing['flipped_at_near_ties']} of them flipped, smallest margin "
+              f"{routing['min_margin']:.3e}; the CPU's steps above ran through the card's "
+              "routing")
+    # decoding step by step against forward, on the card (a MoE config
+    # dropless: every expert's capacity at least the tokens)
     n = check_sz["consistency_tokens"]
-    state = tfm.init_decode_state(cfg, 1, n, device=dev)
+    ccfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=cfg.moe._replace(capacity_factor=float(cfg.moe.num_experts)))
+    state = tfm.init_decode_state(ccfg, 1, n, device=dev)
     for i in range(n):
-        logits, state = tfm.decode_step(start, tokens[:, i:i + 1], state, cfg)
+        logits, state = tfm.decode_step(start, tokens[:, i:i + 1], state, ccfg)
     with torch.no_grad():
-        full_logits, _ = tfm.forward(start, tokens[:, :n], cfg)
+        full_logits, _ = tfm.forward(start, tokens[:, :n], ccfg)
     diff = float((logits - full_logits[:, -1]).abs().max())
     out["decode_vs_forward"] = diff
     check(bool(torch.allclose(logits, full_logits[:, -1], rtol=LM_CONSISTENCY_TOL,
@@ -5148,28 +5312,36 @@ def _lm_against_cpu(dev, arch, full, seed, check_sz):
     return out
 
 
-def lm_cells_phase(dev, sizes=None):
-    """cells: the LM cells of gemma-7b, qwen1.5-4b and qwen3-4b: each arch's
-    four cells built through the registry at the published config (no device
-    memory), then each run at the published widths, sequence and cache
-    lengths in bfloat16 with random weights and drawn tokens (labels masked
-    where -1), its depth and batch cut by ``LM_CUTS`` (:func:`_lm_cell`);
-    then a float32 copy of each arch held against the CPU
-    (:func:`_lm_against_cpu`).  ``sizes`` overrides the cuts, the sequence
-    lengths, the widths and the checks (a rehearsal on the CPU)."""
-    sz = {"cuts": LM_CUTS, "seq": {}, "widths": {}, "check": LM_CHECK}
-    sz.update(sizes or {})
+def _lm_phase(dev, archs, sz, seed0):
+    """Each of ``archs``' four LM cells built through the registry at the
+    published config (no device memory), then each run at the published
+    widths, sequence and cache lengths in bfloat16 with random weights and
+    drawn tokens (labels masked where -1), its depth and batch cut by
+    ``sz["cuts"]`` (:func:`_lm_cell`); then a float32 copy of each arch held
+    against the CPU (:func:`_lm_against_cpu`)."""
     restore = _configs_at(sz["widths"])
     out = {}
     try:
-        for i, arch in enumerate(LM_ARCHS):
+        for i, arch in enumerate(archs):
             t0 = time.perf_counter()
             full = configs.get_config(arch)
             built = {sid: _build_cell(dev, arch, sid) for sid in configs.shape_ids(arch)}
+            extra = ""
+            if full.mla is not None:
+                m = full.mla
+                extra += (f", MLA (latent {m.kv_lora_rank}, q/k heads {m.qk_nope_head_dim} + "
+                          f"{m.qk_rope_head_dim}, v heads {m.v_head_dim})")
+            if full.first_dense_layers:
+                extra += f", {full.first_dense_layers} dense layer(s) of d_ff {full.first_dense_ff}"
+            if full.moe is not None:
+                mo = full.moe
+                extra += (f", {mo.num_experts} experts top-{mo.top_k} of d_ff {mo.d_ff} "
+                          f"({mo.num_shared} shared, capacity factor {mo.capacity_factor}); "
+                          f"{full.active_param_count() / 1e9:.2f}B active")
             log(f"## cells: {arch} ({full.param_count() / 1e9:.2f}B parameters at "
                 f"{full.n_layers} layers, d {full.d_model}, {full.n_heads} heads of "
                 f"{full.head_dim} ({full.n_kv_heads} KV), d_ff {full.d_ff}, vocab "
-                f"{full.vocab_size}), bfloat16")
+                f"{full.vocab_size}{extra}), bfloat16")
             res = {}
             for j, (sid, cell) in enumerate(built.items()):
                 layers, batch = sz["cuts"][arch][sid]
@@ -5183,16 +5355,36 @@ def lm_cells_phase(dev, sizes=None):
                     run = configs.build_cell(arch, sid)
                 finally:
                     cut()
-                res[sid] = _lm_cell(dev, run, cfg, batch, seq, SEED + 300 + 10 * i + j)
+                res[sid] = _lm_cell(dev, run, cfg, batch, seq, seed0 + 10 * i + j)
                 _release_cached(dev)
-            res["check"] = _lm_against_cpu(dev, arch, full, SEED + 350 + i, sz["check"])
+            res["check"] = _lm_against_cpu(dev, arch, full, seed0 + 50 + i, sz["check"])
             res["seconds"] = time.perf_counter() - t0
+            log(f"  {arch}: {res['seconds']:.1f} s")
             out[arch] = res
             _release_cached(dev)
     finally:
         restore()
     log(f"  launches on the cells path so far: {PATH_LAUNCHES.get('cells', {})}")
     return out
+
+
+def lm_cells_phase(dev, sizes=None):
+    """cells: the LM cells of gemma-7b, qwen1.5-4b and qwen3-4b
+    (:func:`_lm_phase`, cut by ``LM_CUTS``).  ``sizes`` overrides the cuts,
+    the sequence lengths, the widths and the checks (a rehearsal on the
+    CPU)."""
+    sz = {"cuts": LM_CUTS, "seq": {}, "widths": {}, "check": LM_CHECK}
+    sz.update(sizes or {})
+    return _lm_phase(dev, LM_ARCHS, sz, SEED + 300)
+
+
+def moe_cells_phase(dev, sizes=None):
+    """cells: the LM cells of deepseek-v2-lite-16b and granite-moe-1b-a400m
+    (:func:`_lm_phase`, cut by ``MOE_CUTS``: every expert kept).  ``sizes``
+    as :func:`lm_cells_phase`'s."""
+    sz = {"cuts": MOE_CUTS, "seq": {}, "widths": {}, "check": LM_CHECK}
+    sz.update(sizes or {})
+    return _lm_phase(dev, MOE_ARCHS, sz, SEED + 400)
 
 
 def mf_grid_view(view):
@@ -5276,6 +5468,7 @@ def main() -> int:
         cells = phase("cells", cells_phase, dev)
         gnn_cells = phase("cells: gat-cora", gnn_cells_phase, dev)
         lm_cells = phase("cells: transformer", lm_cells_phase, dev)
+        moe_cells = phase("cells: moe transformer", moe_cells_phase, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5333,7 +5526,7 @@ def main() -> int:
         "fleet_launchers": fleet_launchers,
         "multirank": {k: v for k, v in multirank.items() if k != "small"},
         "recsys": {k: v for k, v in recsys_stats.items() if k not in ("launches", "kernels")},
-        "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells, **lm_cells,
+        "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells, **lm_cells, **moe_cells,
                   "multirank": {mode: multirank["train"][mode]["step_ms"] for mode in ("none", "int8")}},
     }
     log("# workloads " + json.dumps(workloads))

@@ -1,13 +1,9 @@
 """Architecture registry: the reference's 10 assigned archs and the paper's
-own (dpmf), of which the port has the cells of gemma-7b, qwen1.5-4b,
-qwen3-4b, gat-cora, fm, sasrec, bst, dlrm-mlperf and dpmf.
+own (dpmf), every one of them ported.
 
 Counterpart of ``repro/configs/__init__.py``.  ``build_cell(arch, shape)``
 makes a :class:`~repro_torch.configs.base.CellSpec` (step function, meta
-abstract arguments, layouts); :func:`all_cells` lists the ported cells.  The
-MLA and mixture-of-experts archs (ROADMAP A8d part 2) are named, so that
-``ALL_ARCHS`` is the reference's, but :func:`get_module` of one of them
-raises ``NotImplementedError``.
+abstract arguments, layouts); :func:`all_cells` lists the cells.
 """
 from __future__ import annotations
 
@@ -18,8 +14,8 @@ _ARCH_MODULES = {
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
-    "deepseek-v2-lite-16b": None,
-    "granite-moe-1b-a400m": None,
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe",
     "gat-cora": "repro_torch.configs.gat_cora",
     "fm": "repro_torch.configs.fm_arch",
     "sasrec": "repro_torch.configs.sasrec_arch",
@@ -27,23 +23,15 @@ _ARCH_MODULES = {
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
     "dpmf": "repro_torch.configs.dpmf",
 }
-# the ROADMAP item that ports each arch not yet here
-_WAITING = {
-    "deepseek-v2-lite-16b": "A8d part 2 (MLA and MoE)",
-    "granite-moe-1b-a400m": "A8d part 2 (MLA and MoE)",
-}
 
 ASSIGNED_ARCHS: Tuple[str, ...] = tuple(a for a in _ARCH_MODULES if a != "dpmf")
 ALL_ARCHS: Tuple[str, ...] = tuple(_ARCH_MODULES)
-PORTED_ARCHS: Tuple[str, ...] = tuple(a for a, m in _ARCH_MODULES.items() if m is not None)
+PORTED_ARCHS: Tuple[str, ...] = ALL_ARCHS
 
 
 def get_module(arch: str):
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
-    if _ARCH_MODULES[arch] is None:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP item {_WAITING[arch]}")
     return importlib.import_module(_ARCH_MODULES[arch])
 
 
@@ -69,7 +57,6 @@ def build_cell(arch: str, shape_id: str):
 
 
 def all_cells(include_dpmf: bool = True) -> List[Tuple[str, str]]:
-    """Every (arch, shape) cell of the ported archs only (``PORTED_ARCHS``;
-    the reference's list also holds the MLA and MoE archs' cells)."""
+    """Every (arch, shape) cell, in the reference's order."""
     archs = PORTED_ARCHS if include_dpmf else tuple(a for a in PORTED_ARCHS if a != "dpmf")
     return [(arch, sid) for arch in archs for sid in shape_ids(arch)]

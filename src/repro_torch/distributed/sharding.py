@@ -160,8 +160,7 @@ def transformer_spec(parts, leaf) -> Spec:
     and their biases over ``"model"``, the ``wo``s' input dims over
     ``"model"``, MoE experts over ``"model"`` (expert parallelism); MLA's
     ``wkv_a``, the router, norms and scalars replicated.  A stacked layer
-    (under ``layers``) gets a leading None.  The MLA and MoE names are pure
-    layout and are kept for ROADMAP A8d part 2."""
+    (under ``layers``) gets a leading None."""
     tp = "model"
     stacked = bool(parts) and parts[0] == "layers"
     name = parts[-1]

@@ -130,18 +130,23 @@ def _flat_rows(t: torch.Tensor) -> torch.Tensor:
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, table, idx, keep):
+        ctx.save_for_backward(idx, keep)
         ctx.table_shape = table.shape
-        return table[idx]
+        rows = table[idx]
+        if keep is None:
+            return rows
+        return torch.where(keep.reshape(keep.shape + (1,) * (rows.dim() - keep.dim())),
+                           rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
     @staticmethod
     def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
+        idx, keep = ctx.saved_tensors
         out = grad.new_zeros(ctx.table_shape)
         flat = idx.reshape(-1)
-        add_rows(_flat_rows(out), flat, _flat_rows(grad.reshape((flat.shape[0],) + out.shape[1:])))
-        return out, None
+        add_rows(_flat_rows(out), flat, _flat_rows(grad.reshape((flat.shape[0],) + out.shape[1:])),
+                 keep=None if keep is None else keep.reshape(-1))
+        return out, None, None
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -158,12 +163,16 @@ class _SegmentSum(torch.autograd.Function):
         return grad[seg], None, None
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``table[idx]`` (``idx`` of any shape) whose gradient is added into a
     zero table by :func:`add_rows`: the repeats of an index in batch order,
     one stable sort and one launch on CUDA, where PyTorch's own backward of
-    an index (``index_put_`` with accumulate) adds them with atomics."""
-    return _GatherRows.apply(table, idx.long())
+    an index (``index_put_`` with accumulate) adds them with atomics.
+    ``keep`` (``idx``'s shape, bool) zeroes the rows it leaves out and
+    leaves them out of the gradient's scatter (``add_rows(keep=)``), so a
+    placeholder index costs no run of repeats there."""
+    return _GatherRows.apply(table, idx.long(), keep)
 
 
 def segment_sum(rows: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -3,21 +3,20 @@
 * :mod:`repro_torch.models.layers`: the building blocks (``dense``,
   ``layer_norm``, ``mlp``, ``embed_lookup``, ``init_dense``, ``rms_norm``,
   ``rms_norm_lean``, ``gated_mlp``, ``rope_frequencies``, ``apply_rope``);
-* :mod:`repro_torch.models.attention`: grouped-query attention, its KV
-  cache and the chunked causal attention, in plain tensor ops;
-* :mod:`repro_torch.models.transformer`: the dense decoder-only
-  transformers (gemma-7b, qwen1.5-4b, qwen3-4b): forward, loss, prefill
-  and in-place decode;
+* :mod:`repro_torch.models.attention`: grouped-query attention, MLA, their
+  KV caches and the chunked causal attention, in plain tensor ops;
+* :mod:`repro_torch.models.moe`: the mixture-of-experts feed-forward
+  (sort-based dispatch, and expert parallelism across ranks);
+* :mod:`repro_torch.models.transformer`: the decoder-only transformers
+  (gemma-7b, qwen1.5-4b, qwen3-4b, deepseek-v2-lite, granite-moe):
+  forward, loss, prefill and in-place decode;
 * :mod:`repro_torch.models.recsys`: FM, DLRM (MLPerf config), SASRec and
   BST, with ``embedding_bag``; FM's and SASRec's retrieval score through the
   ``pruned_matmul`` kernel;
 * :mod:`repro_torch.models.gnn`: the GAT of gat-cora, its edge gathers and
   segment sums in batch order (``kernels.scatter``).
-
-Still to port from ``repro/models`` (ROADMAP A8d part 2): ``moe``, and
-``attention``'s MLA half with the transformer's MLA and MoE branches.
 """
-from repro_torch.models import attention, gnn, transformer  # noqa: F401
+from repro_torch.models import attention, gnn, moe, transformer  # noqa: F401
 from repro_torch.models.layers import (  # noqa: F401
     apply_rope,
     dense,

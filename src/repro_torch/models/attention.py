@@ -1,10 +1,11 @@
-"""Attention, its GQA half: grouped-query attention (with optional qk-norm
-and biases), the decode-time KV cache, and a memory-chunked causal
-attention that serves 32k prefill without the full (S, S) scores of a head.
+"""Attention: grouped-query attention (with optional qk-norm and biases),
+DeepSeek's multi-head latent attention (MLA), the decode-time KV caches,
+and a memory-chunked causal attention that serves 32k prefill without the
+full (S, S) scores of a head.
 
-Counterpart of ``repro/models/attention.py:1-234``; its MLA half waits for
-ROADMAP A8d part 2.  The attention is plain tensor ops, as the reference's
-``einsum`` and softmax are: no hand-written kernel.
+Counterpart of ``repro/models/attention.py``.  The attention is plain
+tensor ops, as the reference's ``einsum`` and softmax are: no hand-written
+kernel.
 
 Chunked attention loops over query blocks; each block builds only a
 (chunk, S) score slice, and is recomputed in the backward pass
@@ -289,3 +290,139 @@ def gqa_decode_attention(
     length = cache.length + 1
     out = decode_attention(q, cache.k, cache.v, length)
     return dense(out.reshape(b, 1, -1), params["wo"]), KVCache(cache.k, cache.v, length)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV with decoupled RoPE
+# ---------------------------------------------------------------------------
+
+
+class MLAConfig(NamedTuple):
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+def init_mla_params(
+    generator: torch.Generator,
+    d_model: int,
+    n_heads: int,
+    cfg: MLAConfig,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+    lead: Tuple[int, ...] = (),
+) -> Dict[str, torch.Tensor]:
+    """Full-rank queries ``wq`` (V2-Lite has no query LoRA) and the joint
+    down-projection ``wkv_a`` (the latent, then the shared RoPE key) N(0,
+    1/d); a zero ``kv_a_norm``; the latent's up-projections ``wk_b`` and
+    ``wv_b`` N(0, 1/kv_lora_rank); ``wo`` N(0, 1/(H v_head_dim)); drawn in
+    that order from ``generator``, ``lead`` prepended as in
+    :func:`init_gqa_params`."""
+    dev = resolve_device(device, meta_ok=True)
+
+    def draw(shape, scale):
+        return torch.empty(tuple(lead) + shape, dtype=dtype, device=dev).normal_(
+            generator=generator).mul_(scale)
+
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    scale = d_model ** -0.5
+    lora = cfg.kv_lora_rank
+    return {
+        "wq": draw((d_model, n_heads * qk_head), scale),
+        "wkv_a": draw((d_model, lora + cfg.qk_rope_head_dim), scale),
+        "kv_a_norm": torch.zeros(tuple(lead) + (lora,), dtype=dtype, device=dev),
+        "wk_b": draw((lora, n_heads * cfg.qk_nope_head_dim), lora ** -0.5),
+        "wv_b": draw((lora, n_heads * cfg.v_head_dim), lora ** -0.5),
+        "wo": draw((n_heads * cfg.v_head_dim, d_model), (n_heads * cfg.v_head_dim) ** -0.5),
+    }
+
+
+def _mla_projections(x, params, positions, cfg: MLAConfig, n_heads: int, rope_theta: float,
+                     norm_eps: float):
+    """The queries ``(B, S, H, nope)`` and ``(B, S, H, rope)`` (RoPE'd), the
+    normed latent ``(B, S, lora)`` and the shared RoPE key ``(B, S, 1,
+    rope)``."""
+    b, s, _ = x.shape
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    q = dense(x, params["wq"]).reshape(b, s, n_heads, qk_head)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    kv = dense(x, params["wkv_a"])
+    c_kv, k_rope = torch.split(kv, [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, params["kv_a_norm"], norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, rope_theta)  # one key for all heads
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_self_attention(
+    x: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    positions: torch.Tensor,
+    cfg: MLAConfig,
+    *,
+    n_heads: int,
+    rope_theta: float = 10000.0,
+    norm_eps: float = 1e-6,
+    chunk_size: int = 1024,
+    softmax_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Training and prefill: the latent expanded to per-head K (``nope +
+    rope`` wide, the RoPE key broadcast to every head: one copy a layer) and
+    V (``v_head_dim`` wide), then :func:`causal_attention` with ``softmax_scale
+    = (nope + rope) ** -0.5``."""
+    b, s, _ = x.shape
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_projections(x, params, positions, cfg, n_heads,
+                                                    rope_theta, norm_eps)
+    k_nope = dense(c_kv, params["wk_b"]).reshape(b, s, n_heads, cfg.qk_nope_head_dim)
+    v = dense(c_kv, params["wv_b"]).reshape(b, s, n_heads, cfg.v_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, n_heads, cfg.qk_rope_head_dim)], dim=-1)
+    out = causal_attention(q_full, k_full, v, chunk_size=chunk_size,
+                           softmax_scale=qk_head ** -0.5, softmax_dtype=softmax_dtype)
+    return dense(out.reshape(b, s, -1), params["wo"])
+
+
+def mla_decode_attention(
+    x: torch.Tensor,  # (B, 1, d)
+    params: Dict[str, torch.Tensor],
+    cache: KVCache,   # k: the latent (B, S, lora), v: the RoPE key (B, S, rope)
+    cfg: MLAConfig,
+    *,
+    n_heads: int,
+    rope_theta: float = 10000.0,
+    norm_eps: float = 1e-6,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step against the compressed cache: this position's latent
+    and RoPE key written in place at ``cache.length``, the queries mapped
+    into the latent space (``W_UK`` absorbed), the two score products added
+    in the activations' type before the float32 softmax, the latent context
+    mapped out through ``W_UV``.  Returns the output and the cache (the same
+    tensors, ``length + 1``)."""
+    b = x.shape[0]
+    h, lora = n_heads, cfg.kv_lora_rank
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    positions = cache.length.reshape(1, 1).to(torch.int32).expand(b, 1)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_projections(x, params, positions, cfg, n_heads,
+                                                            rope_theta, norm_eps)
+    _write_position(cache.k, c_kv_new, cache.length)
+    _write_position(cache.v, k_rope_new[:, :, 0, :], cache.length)
+    length = cache.length + 1
+    ckv, krope = cache.k, cache.v
+    dt = q_nope.dtype
+    # q_lat[h] = q_nope[h] @ W_UK[h]^T, batched over heads: (H, B, lora)
+    wk_b = params["wk_b"].to(dt).reshape(lora, h, cfg.qk_nope_head_dim)
+    q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1), wk_b.permute(1, 2, 0))
+    scores = (torch.matmul(q_lat.transpose(0, 1), ckv.transpose(1, 2).to(dt))
+              + torch.matmul(q_rope[:, 0], krope.transpose(1, 2).to(dt)))  # (B, H, S)
+    scores = scores.float() * (qk_head ** -0.5)
+    valid = torch.arange(ckv.shape[1], device=x.device)[None, :] < length.reshape(-1, 1)
+    scores.masked_fill_(~valid[:, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx_lat = torch.matmul(probs, ckv)                           # (B, H, lora)
+    wv_b = params["wv_b"].to(ctx_lat.dtype).reshape(lora, h, cfg.v_head_dim)
+    ctx = torch.matmul(ctx_lat.transpose(0, 1), wv_b.transpose(0, 1))  # (H, B, v)
+    out = dense(ctx.transpose(0, 1).reshape(b, 1, -1), params["wo"])
+    return out, KVCache(ckv, krope, length)

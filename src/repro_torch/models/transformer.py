@@ -1,6 +1,8 @@
-"""Decoder-only transformer, its dense half: gemma-7b (GeGLU, embeddings
-scaled by sqrt(d)), qwen1.5-4b (QKV biases, untied head) and qwen3-4b (GQA
-with per-head qk RMS-norm).
+"""Decoder-only transformer: gemma-7b (GeGLU, embeddings scaled by
+sqrt(d)), qwen1.5-4b (QKV biases, untied head) and qwen3-4b (GQA with
+per-head qk RMS-norm), dense; deepseek-v2-lite (MLA, a leading dense layer,
+then shared and routed experts) and granite-moe (GQA, routed experts),
+sparse.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters are the
 reference's tree: ``embed``, ``final_norm``, ``lm_head`` when untied,
@@ -29,12 +31,14 @@ Two departures, neither visible in a value:
   only: the reference builds the ``(B, S, V)`` float32 logits first and
   keeps the last (33.6 GB for gemma-7b at one sequence of 32,768).
 
-Decoding writes the caches in place (:mod:`repro_torch.models.attention`).
-
-MLA and mixture-of-experts layers (deepseek-v2-lite, granite-moe) wait for
-ROADMAP A8d part 2: a config with ``mla`` or ``moe`` set raises
-``NotImplementedError`` wherever the reference branches on them.
-``param_count`` counts them all the same (pure arithmetic).
+Decoding writes the caches in place (:mod:`repro_torch.models.attention`);
+an MLA config's caches hold the latent ``(B, S, kv_lora_rank)`` and the
+RoPE key ``(B, S, qk_rope_head_dim)``.  A mixture-of-experts layer
+(:mod:`repro_torch.models.moe`) returns its aux loss, which ``forward``
+sums over the layers as the reference does.  ``moe_shard_map`` is read as
+the reference reads it; the port's cells run on one device with no mesh,
+where it falls back to the single-device dispatch, as the reference does
+without an ambient mesh.
 """
 from __future__ import annotations
 
@@ -50,16 +54,11 @@ from repro_torch import tree as tree_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.scatter import gather_rows
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLAConfig
 from repro_torch.models.layers import gated_mlp, rms_norm, rms_norm_lean
+from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 
 Params = Dict[str, Any]
-
-PART_2 = "ROADMAP A8d part 2 (MLA and MoE)"
-
-
-def _waits(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: {PART_2}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,13 +78,13 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     embed_scale: bool = False         # gemma multiplies embeddings by sqrt(d)
-    moe: Optional[Any] = None         # A8d part 2
-    mla: Optional[Any] = None         # A8d part 2
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     first_dense_layers: int = 0       # leading dense-FFN layers (deepseek: 1)
     first_dense_ff: int = 0
     attn_chunk: int = 1024
     unroll: bool = False              # the reference's unrolled form; the port always loops
-    moe_shard_map: bool = False       # A8d part 2
+    moe_shard_map: bool = False       # expert parallelism across ranks (needs a mesh)
     attn_softmax_dtype: str = "f32"   # "bf16" halves the score chain's bytes
     remat_policy: str = "full"        # "dots" saves the dense products' outputs
     mem_lean: bool = False            # lean norms + logits in the residual type
@@ -143,39 +142,43 @@ class TransformerConfig:
 
 
 def _init_layer(generator, cfg: TransformerConfig, dev, lead: Tuple[int, ...],
-                ff: int) -> Params:
-    """One dense layer (``lead`` = ``(n,)``: ``n`` layers stacked): attention
-    (``wq``, ``wk``, ``wv``, ``wo``), then ``wg``, ``wi`` N(0, 1/d) and ``wo``
-    N(0, 1/ff); zero norms."""
+                ff: Optional[int]) -> Params:
+    """One layer (``lead`` = ``(n,)``: ``n`` layers stacked): attention (GQA's
+    ``wq``, ``wk``, ``wv``, ``wo`` or MLA's), then the experts (``moe``, when
+    the config has them and ``ff`` is None) or a dense MLP ``ff`` wide:
+    ``wg``, ``wi`` N(0, 1/d) and ``wo`` N(0, 1/ff); zero norms."""
     if cfg.mla is not None:
-        _waits("MLA attention")
-    a = attn.init_gqa_params(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                             qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=cfg.dtype,
-                             device=dev, lead=lead)
+        a = attn.init_mla_params(generator, cfg.d_model, cfg.n_heads, cfg.mla, dtype=cfg.dtype,
+                                 device=dev, lead=lead)
+    else:
+        a = attn.init_gqa_params(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                                 dtype=cfg.dtype, device=dev, lead=lead)
 
     def draw(shape, scale):
         return torch.empty(lead + shape, dtype=cfg.dtype, device=dev).normal_(
             generator=generator).mul_(scale)
 
     zeros = functools.partial(torch.zeros, lead + (cfg.d_model,), dtype=cfg.dtype, device=dev)
+    layer: Params = {"attn": a, "norm1": zeros(), "norm2": zeros()}
+    if cfg.moe is not None and ff is None:
+        layer["moe"] = init_moe_params(generator, cfg.d_model, cfg.moe, activation=cfg.activation,
+                                       dtype=cfg.dtype, device=dev, lead=lead)
+        return layer
+    ff = ff or cfg.d_ff
     s_in, s_out = cfg.d_model ** -0.5, ff ** -0.5
-    return {
-        "attn": a,
-        "norm1": zeros(),
-        "norm2": zeros(),
-        "mlp": {"wg": draw((cfg.d_model, ff), s_in), "wi": draw((cfg.d_model, ff), s_in),
-                "wo": draw((ff, cfg.d_model), s_out)},
-    }
+    layer["mlp"] = {"wg": draw((cfg.d_model, ff), s_in), "wi": draw((cfg.d_model, ff), s_in),
+                    "wo": draw((ff, cfg.d_model), s_out)}
+    return layer
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
                 device: DeviceLike = None) -> Params:
     """The reference's tree in ``cfg.dtype``: ``embed`` N(0, 1/d), zero
     ``final_norm``, ``lm_head`` N(0, 1/d) when untied, the leading dense
-    layers, then the stacked layers; drawn in that order from ``generator``
-    (which must live on ``device``)."""
-    if cfg.moe is not None:
-        _waits("a mixture-of-experts config")
+    layers, then the stacked layers (each with ``moe`` and no ``mlp`` when
+    the config has experts); drawn in that order from ``generator`` (which
+    must live on ``device``)."""
     dev = resolve_device(device, meta_ok=True)
     d, v = cfg.d_model, cfg.vocab_size
 
@@ -190,14 +193,15 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     if cfg.first_dense_layers:
         params["first"] = [_init_layer(generator, cfg, dev, (), cfg.first_dense_ff or cfg.d_ff)
                            for _ in range(cfg.first_dense_layers)]
-    params["layers"] = _init_layer(generator, cfg, dev, (cfg.scan_layers,), cfg.d_ff)
+    params["layers"] = _init_layer(generator, cfg, dev, (cfg.scan_layers,), None)
     return params
 
 
 def transformer_params_from_numpy(tree, device: DeviceLike = None) -> Params:
     """A reference parameter tree of numpy arrays (stacked layers, ``lm_head``
-    when untied; bfloat16 arrays too) as tensors on ``device`` (copies),
-    keys and nesting kept."""
+    when untied, the MLA leaves and the nested ``moe``/``shared`` experts;
+    bfloat16 arrays too) as tensors on ``device`` (copies), keys, nesting
+    and each leaf's type kept (the router float32)."""
     dev = resolve_device(device)
 
     def one(a):
@@ -227,21 +231,36 @@ def _norm(cfg: TransformerConfig):
     return rms_norm_lean if cfg.mem_lean else rms_norm
 
 
+def _ffn(h: torch.Tensor, layer: Params,
+         cfg: TransformerConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's experts over its (B * S) tokens and their aux loss, or
+    its dense MLP and None."""
+    if "moe" in layer:
+        b, s, d = h.shape
+        out, aux = moe_ffn(h.reshape(b * s, d), layer["moe"], cfg.moe,
+                           activation=cfg.activation, use_shard_map=cfg.moe_shard_map)
+        return out.reshape(b, s, d), aux
+    return gated_mlp(h, layer["mlp"], cfg.activation), None
+
+
 def _block(x: torch.Tensor, layer: Params, positions: torch.Tensor,
-           cfg: TransformerConfig) -> torch.Tensor:
-    """Pre-norm block: attention, then the gated MLP, each added to ``x``."""
+           cfg: TransformerConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-norm block: attention, then the MLP or the experts, each added to
+    ``x``.  Returns (output, moe_aux or None)."""
     norm = _norm(cfg)
     h = norm(x, layer["norm1"], cfg.norm_eps)
     if cfg.mla is not None:
-        _waits("MLA attention")
-    x = x + attn.gqa_self_attention(
-        h, layer["attn"], positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
-        chunk_size=cfg.attn_chunk, softmax_dtype=cfg._softmax_dtype)
-    h = norm(x, layer["norm2"], cfg.norm_eps)
-    if "moe" in layer:
-        _waits("a mixture-of-experts layer")
-    return x + gated_mlp(h, layer["mlp"], cfg.activation)
+        a = attn.mla_self_attention(
+            h, layer["attn"], positions, cfg.mla, n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps, chunk_size=cfg.attn_chunk, softmax_dtype=cfg._softmax_dtype)
+    else:
+        a = attn.gqa_self_attention(
+            h, layer["attn"], positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+            chunk_size=cfg.attn_chunk, softmax_dtype=cfg._softmax_dtype)
+    x = x + a
+    out, aux = _ffn(norm(x, layer["norm2"], cfg.norm_eps), layer, cfg)
+    return x + out, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -264,13 +283,15 @@ def _head(params: Params, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tens
     return torch.matmul(x, head.to(x.dtype))
 
 
-def hidden_states(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens (B, S) -> the final-normed residual stream (B, S, d)."""
+def hidden_states(params: Params, tokens: torch.Tensor,
+                  cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (the final-normed residual stream (B, S, d), the MoE
+    aux loss summed over the layers (), float32)."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
-    for layer in params.get("first", []):
-        x = _block(x, layer, positions, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    layers = list(params.get("first", [])) + _unstack(params["layers"], cfg.scan_layers)
     block = functools.partial(_block, positions=positions, cfg=cfg)
     context = checkpoint.noop_context_fn
     if cfg.remat_policy == "dots":
@@ -278,21 +299,25 @@ def hidden_states(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) 
                                     _dots_policy)
     elif cfg.remat_policy != "full":
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-    for layer in _unstack(params["layers"], cfg.scan_layers):
-        if torch.is_grad_enabled():
-            x = checkpoint.checkpoint(block, x, layer, use_reentrant=False, context_fn=context)
+    for i, layer in enumerate(layers):
+        # the leading dense layers run as they are, the stacked ones recomputed
+        if torch.is_grad_enabled() and i >= cfg.first_dense_layers:
+            x, aux = checkpoint.checkpoint(block, x, layer, use_reentrant=False,
+                                           context_fn=context)
         else:
-            x = block(x, layer)
-    return _norm(cfg)(x, params["final_norm"], cfg.norm_eps)
+            x, aux = block(x, layer)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _norm(cfg)(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def forward(params: Params, tokens: torch.Tensor,
             cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), moe_aux ()).  Logits are float32,
-    or the residual type with ``mem_lean``; the aux loss is 0 (dense)."""
-    x = hidden_states(params, tokens, cfg)
+    or the residual type with ``mem_lean``; the aux loss is float32, the sum
+    over the MoE layers (0 for a dense model)."""
+    x, aux = hidden_states(params, tokens, cfg)
     logits = _head(params, x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return (logits if cfg.mem_lean else logits.float()), aux
 
 
@@ -322,7 +347,7 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
 def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """The last position's logits (B, V): the reference's ``forward(...)[:,
     -1]``, with the head applied to that position only."""
-    x = hidden_states(params, tokens, cfg)[:, -1]
+    x = hidden_states(params, tokens, cfg)[0][:, -1]
     logits = _head(params, x, cfg)
     return logits if cfg.mem_lean else logits.float()
 
@@ -340,17 +365,22 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: TransformerConfig, batch: int, max_len: int, *, length: int = 0,
                       device: DeviceLike = None) -> DecodeState:
     """Zero caches of ``(n_layers, batch, max_len, n_kv_heads, head_dim)``
-    (laid out heads first: ``attention.init_kv_cache``) and ``length`` as a
-    0-d int32 tensor."""
-    if cfg.mla is not None:
-        _waits("the MLA latent cache")
+    (laid out heads first: ``attention.init_kv_cache``), or with MLA the
+    latent ``(n_layers, batch, max_len, kv_lora_rank)`` and the RoPE key
+    ``(n_layers, batch, max_len, qk_rope_head_dim)``; ``length`` as a 0-d
+    int32 tensor."""
     dev = resolve_device(device, meta_ok=True)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
 
     def length_t():
         return torch.full((), length, dtype=torch.int32, device=dev)
 
     def one(lead=()):
+        if cfg.mla is not None:
+            return KVCache(*(torch.zeros(tuple(lead) + (batch, max_len, width), dtype=cfg.dtype,
+                                         device=dev)
+                             for width in (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)),
+                           length_t())
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return KVCache(attn.init_kv_cache(shape, cfg.dtype, dev, lead=lead),
                        attn.init_kv_cache(shape, cfg.dtype, dev, lead=lead), length_t())
 
@@ -363,15 +393,16 @@ def _decode_block(x: torch.Tensor, layer: Params, cache: KVCache,
     norm = _norm(cfg)
     h = norm(x, layer["norm1"], cfg.norm_eps)
     if cfg.mla is not None:
-        _waits("MLA decode attention")
-    a, new_cache = attn.gqa_decode_attention(
-        h, layer["attn"], cache, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+        a, new_cache = attn.mla_decode_attention(
+            h, layer["attn"], cache, cfg.mla, n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps)
+    else:
+        a, new_cache = attn.gqa_decode_attention(
+            h, layer["attn"], cache, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
     x = x + a
-    h = norm(x, layer["norm2"], cfg.norm_eps)
-    if "moe" in layer:
-        _waits("a mixture-of-experts layer")
-    return x + gated_mlp(h, layer["mlp"], cfg.activation), new_cache
+    out, _ = _ffn(norm(x, layer["norm2"], cfg.norm_eps), layer, cfg)
+    return x + out, new_cache
 
 
 @torch.no_grad()

@@ -164,8 +164,9 @@ class Adam:
     (sqrt(v / b2c) + eps) + lr * lr_scale * weight_decay * p)`` in float32,
     cast back to ``p.dtype``; ``m``, ``v`` float32 and one step count ``t``.
     A leaf larger than 2^26 elements is updated in blocks of rows along its
-    first dim (a transformer's stacked layers one or a few at a time), with
-    the same operations in the same order."""
+    first dim (a transformer's stacked layers one or a few at a time; a
+    layer's stacked experts, above 2^26 themselves, a few experts at a
+    time), with the same operations in the same order."""
 
     lr: float = 1e-3
     beta1: float = 0.9
@@ -204,9 +205,15 @@ class Adam:
         def by_blocks(p, g, m, v):
             # elementwise, so the same bits block by block; a block's float32
             # temporaries stay near _ADAM_BLOCK elements, not a leaf's size
-            rows = max(1, _ADAM_BLOCK // max(p[0].numel(), 1)) if p.dim() else 0
-            if not rows or rows >= p.shape[0]:
+            # (a row larger than that, one layer's stacked experts, is cut
+            # along its own first dim in turn)
+            if p.numel() <= _ADAM_BLOCK or p.dim() == 0:
                 return upd(p, g, m, v)
+            rows = _ADAM_BLOCK // p[0].numel()
+            if not rows:
+                for i in range(p.shape[0]):
+                    by_blocks(*(t[i] for t in (p, g, m, v)))
+                return None
             for lo in range(0, p.shape[0], rows):
                 upd(*(t[lo:lo + rows] for t in (p, g, m, v)))
 

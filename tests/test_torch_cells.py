@@ -16,9 +16,10 @@ bitwise on 1/8-grid inputs.  FM's and SASRec's retrievals take the port's
 kernel route (``pruned_matmul``'s plain version here) against the
 reference's ``use_kernel=False``.
 
-The LM cells (gemma-7b, qwen1.5-4b, qwen3-4b): ``train_4k``,
-``prefill_32k`` and ``decode_32k`` at each arch's smoke config (2 layers, d
-64, float32) on 2 x 16 tokens, from the same numpy weights: the train
+The LM cells (gemma-7b, qwen1.5-4b, qwen3-4b, deepseek-v2-lite-16b,
+granite-moe-1b-a400m): ``train_4k``, ``prefill_32k`` and ``decode_32k`` at
+each arch's smoke config (2 or 3 layers, d 64, float32; the MoE archs
+dropless) on 2 x 16 tokens, from the same numpy weights: the train
 step's loss within 1e-5 and Adam's first step by
 ``chip_smoke.adam_first_step``; prefill's last logits, and one decode step's
 logits and caches (written in place), within 1e-5.
@@ -210,10 +211,10 @@ def test_streaming_topk_scores_is_the_reference_bitwise_on_the_grid():
 
 
 # ---------------------------------------------------------------------------
-# the LM cells (dense transformers)
+# the LM cells (dense, MLA and MoE transformers)
 # ---------------------------------------------------------------------------
 
-LM_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b")
+LM_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b", "deepseek-v2-lite-16b", "granite-moe-1b-a400m")
 LM_CELLS = [(arch, sid) for arch in LM_ARCHS for sid in ("train_4k", "prefill_32k", "decode_32k")]
 
 
@@ -232,8 +233,9 @@ def test_lm_cell_step_matches_reference(monkeypatch, arch, sid):
     token, some masked) from the same numpy weights: train (one Adam step
     in place, lr 3e-4: the loss within 1e-5, Adam's first step by
     ``chip_smoke.adam_first_step``), prefill (the last logits within 1e-5)
-    and decode (a cache of 16 positions holding 5, drawn with numpy; the
-    logits and the caches within 1e-5, written in place)."""
+    and decode (a cache of 16 positions holding 5, drawn with numpy, the
+    leading dense layer's too; the logits and the caches within 1e-5,
+    written in place)."""
     from repro.models import transformer as jtfm
     from repro_torch.models import transformer
 
@@ -275,14 +277,18 @@ def test_lm_cell_step_matches_reference(monkeypatch, arch, sid):
         assert not got.requires_grad
         _close(got, want, what="prefill")
     else:
-        shape = (jcfg.n_layers, 2, 16, jcfg.n_kv_heads, jcfg.head_dim)
-        k0, v0 = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
-        jstate = jtfm.DecodeState(caches=jtfm.KVCache(jnp.asarray(k0), jnp.asarray(v0),
-                                                      jnp.int32(5)), first_caches=())
         state = transformer.init_decode_state(configs.get_config(arch), 2, 16, length=5,
                                               device="cpu")
-        state.caches.k.copy_(torch.as_tensor(k0))
-        state.caches.v.copy_(torch.as_tensor(v0))
+        drawn = tree.map_leaves(lambda t: rng.normal(0, 1, tuple(t.shape)).astype(np.float32),
+                                (state.caches.k, state.caches.v,
+                                 [(c.k, c.v) for c in state.first_caches]))
+        jstate = jtfm.DecodeState(
+            caches=jtfm.KVCache(jnp.asarray(drawn[0]), jnp.asarray(drawn[1]), jnp.int32(5)),
+            first_caches=tuple(jtfm.KVCache(jnp.asarray(k), jnp.asarray(v), jnp.int32(5))
+                               for k, v in drawn[2]))
+        tree.map_leaves(lambda t, a: t.copy_(torch.as_tensor(a)),
+                        (state.caches.k, state.caches.v,
+                         [(c.k, c.v) for c in state.first_caches]), drawn)
         want_logits, want_state = jax.jit(jcell.step_fn)(jweights, jstate, jnp.asarray(tokens[:, :1]))
         logits, new_state = cell.step_fn(params, state, torch.as_tensor(tokens[:, :1]))
         _close(logits, want_logits, what="logits")
@@ -290,6 +296,9 @@ def test_lm_cell_step_matches_reference(monkeypatch, arch, sid):
         assert int(new_state.caches.length) == int(want_state.caches.length) == 6
         _close(new_state.caches.k, want_state.caches.k, what="k")
         _close(new_state.caches.v, want_state.caches.v, what="v")
+        for got, want in zip(new_state.first_caches, want_state.first_caches, strict=True):
+            _close(got.k, want.k, what="first k")
+            _close(got.v, want.v, what="first v")
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """The port's cell registry, abstract arguments, layouts, dense optimizers
 and microbatched gradients held against the JAX reference on the CPU.
 
-* Registry: ``ALL_ARCHS`` and ``ASSIGNED_ARCHS`` equal the reference's; the
-  ported archs (the dense transformers gemma-7b, qwen1.5-4b and qwen3-4b
-  among them) have the reference's shape ids; the MLA and MoE archs raise
-  naming the ROADMAP item that ports them (A8d part 2).
+* Registry: ``ALL_ARCHS`` and ``ASSIGNED_ARCHS`` equal the reference's, and
+  every arch is ported (the transformers gemma-7b, qwen1.5-4b, qwen3-4b,
+  deepseek-v2-lite-16b and granite-moe-1b-a400m among them) with the
+  reference's shape ids.
 * Abstract arguments: for every ported cell at its full size, the port's
   meta tensors equal ``jax.eval_shape``'s leaves in path, shape and dtype
   (the LM decode cells' states and caches included).
@@ -38,8 +38,8 @@ from repro_torch.distributed import collectives, sharding
 from repro_torch.models import recsys
 from repro_torch.optim import optimizers
 
-PORTED = ("gemma-7b", "qwen1.5-4b", "qwen3-4b", "gat-cora", "fm", "sasrec", "bst",
-          "dlrm-mlperf", "dpmf")
+PORTED = ("gemma-7b", "qwen1.5-4b", "qwen3-4b", "deepseek-v2-lite-16b", "granite-moe-1b-a400m",
+          "gat-cora", "fm", "sasrec", "bst", "dlrm-mlperf", "dpmf")
 MESHES = [((2, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model")),
           ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
 CELLS = [(arch, sid) for arch in PORTED for sid in jconfigs.shape_ids(arch)]
@@ -92,7 +92,7 @@ def _at(t, parts):
 def test_registry_names_are_the_reference():
     assert configs.ALL_ARCHS == jconfigs.ALL_ARCHS and len(configs.ALL_ARCHS) == 11
     assert configs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS and len(configs.ASSIGNED_ARCHS) == 10
-    assert configs.PORTED_ARCHS == PORTED
+    assert configs.PORTED_ARCHS == PORTED == configs.ALL_ARCHS
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -105,16 +105,6 @@ def test_ported_archs_have_the_reference_cells(arch):
         want = jconfigs.build_cell(arch, sid)
         assert (cell.cell_id, cell.kind, cell.donate_argnums) == (
             want.cell_id, want.kind, want.donate_argnums)
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-lite-16b", "A8d part 2"), ("granite-moe-1b-a400m", "A8d part 2")])
-def test_unported_archs_raise_naming_their_item(arch, item):
-    assert arch in jconfigs.ALL_ARCHS
-    with pytest.raises(NotImplementedError, match=item):
-        configs.get_module(arch)
-    with pytest.raises(NotImplementedError, match=item):
-        configs.build_cell(arch, jconfigs.shape_ids(arch)[0])
 
 
 def test_unknown_names_raise_as_the_reference():

@@ -1245,47 +1245,70 @@ def test_gat_cell_step_on_cuda_is_reproducible_and_the_cpu_step(cuda):
     assert ok, errs
 
 
-LM_GPU_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b")
+LM_GPU_ARCHS = ("gemma-7b", "qwen1.5-4b", "qwen3-4b", "deepseek-v2-lite-16b",
+                "granite-moe-1b-a400m")
 
 
 def _lm_config(arch):
     """The arch's flags (GeGLU and scaled embeddings, biases and an untied
-    head, qk-norm and grouped heads) at a small float32 width: 2 layers, d
-    256, head_dim 64, vocab 8192, four attention chunks of 16 over 64
-    tokens."""
+    head, qk-norm and grouped heads, MLA with a leading dense layer, routed
+    and shared experts at the published top-k) at a small float32 width: 2
+    layers, d 256, head_dim 64, vocab 8192, four attention chunks of 16 over
+    64 tokens; MLA's latent 128 (heads 64 + 32, v 64), 16 experts of 128."""
     import dataclasses
 
     from repro_torch import configs
 
     full = configs.get_config(arch)
     kv = 2 if full.n_kv_heads < full.n_heads else 4
+    extra = {}
+    if full.mla is not None:
+        extra["mla"] = full.mla._replace(kv_lora_rank=128, qk_nope_head_dim=64,
+                                         qk_rope_head_dim=32, v_head_dim=64)
+        extra["first_dense_ff"] = 512
+    if full.moe is not None:
+        extra["moe"] = full.moe._replace(num_experts=16, d_ff=128)
     return dataclasses.replace(full, n_layers=2, d_model=256, n_heads=4, n_kv_heads=kv,
                                head_dim=64, d_ff=512, vocab_size=8192, attn_chunk=16,
-                               dtype=torch.float32)
+                               dtype=torch.float32, **extra)
 
 
 def _lm_start(arch, dev):
+    from repro_torch import tree
     from repro_torch.models import transformer
 
     cfg = _lm_config(arch)
     params = transformer.init_params(torch.Generator().manual_seed(11), cfg, device="cpu")
     gen = torch.Generator().manual_seed(12)
-    for t in (params["final_norm"], params["layers"]["norm1"], params["layers"]["norm2"]):
-        t.normal_(0.0, 0.1, generator=gen)
+    for t in tree.leaves(params):  # the zero norms and biases drawn, so that they count
+        if not bool(t.any()):
+            t.normal_(0.0, 0.1, generator=gen)
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
     return cfg, params, tokens
+
+
+def _card_routes(card_routes):
+    """A recorded routing as the expert ids to replay on the CPU."""
+    from repro_torch.models import moe
+
+    return moe.routes_replayed([r.experts.cpu() for r in card_routes])
 
 
 @pytest.mark.parametrize("arch", LM_GPU_ARCHS)
 def test_lm_train_cell_on_cuda_is_reproducible_and_the_cpu_step(cuda, arch):
     """The LM train cell's step (autograd, one Adam step in place) on the
-    card: one ``add_rows`` launch (the embedding gather's gradient), two steps
-    from one state bitwise equal, the loss within 1e-5 of the same step on
-    the CPU and Adam's first step held against the CPU's by
+    card: one ``add_rows`` launch for the embedding gather's gradient, and
+    five a MoE layer (its combine, again recomputed, and its three gathers'
+    gradients); two steps from one state bitwise equal, the loss within
+    1e-5 of the same step on the CPU (through the card's routing, a MoE
+    arch) and Adam's first step held against the CPU's by
     ``chip_smoke.adam_first_step`` at 1e-4 (float32 sums over 512-term
     products in another order)."""
+    import contextlib
+
     from repro_torch import tree
     from repro_torch.configs import base
+    from repro_torch.models import moe
     from repro_torch.optim.optimizers import Adam
 
     cfg, start_params, tokens = _lm_start(arch, cuda)
@@ -1295,13 +1318,19 @@ def test_lm_train_cell_on_cuda_is_reproducible_and_the_cpu_step(cuda, arch):
     cell = base.lm_train_cell(arch, "gpu", cfg, global_batch=2, seq_len=64)
     start = (start_params, Adam().init(start_params))
     runs = []
-    for dev in (cuda, cuda, torch.device("cpu")):
+    for i, dev in enumerate((cuda, cuda, torch.device("cpu"))):
         state = tree.map_leaves(lambda t: t.to(dev, copy=True), start)
         before = scatter.launches
-        _, _, loss = cell.step_fn(*state, {"tokens": tokens.to(dev), "labels": labels.to(dev)})
+        routing = (moe.routes_recorded() if i == 0 else _card_routes(card_routes) if i == 2
+                   else contextlib.nullcontext())
+        with routing as recorded:
+            _, _, loss = cell.step_fn(*state, {"tokens": tokens.to(dev),
+                                               "labels": labels.to(dev)})
+        if i == 0:
+            card_routes = recorded
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert scatter.launches == before + 1
+            assert scatter.launches == before + _chip_smoke()._lm_add_rows(cfg, "train")
         runs.append((tree.map_leaves(lambda t: t.cpu(), state), loss.cpu()))
     (card, card_loss), (again, again_loss), (cpu, cpu_loss) = runs
     assert torch.equal(card_loss, again_loss)
@@ -1314,36 +1343,128 @@ def test_lm_train_cell_on_cuda_is_reproducible_and_the_cpu_step(cuda, arch):
 @pytest.mark.parametrize("arch", LM_GPU_ARCHS)
 def test_lm_prefill_and_decode_on_cuda_match_the_cpu_and_forward(cuda, arch):
     """On the card: prefill's logits and six decode steps from a random
-    cache (logits, caches written in place) within 1e-4 of the CPU's;
-    decoding 24 tokens step by step within 2e-3 of ``forward``'s last
-    position (the reference's own bound)."""
-    from repro_torch import tree
-    from repro_torch.models import transformer
+    cache (logits, caches written in place; MLA's latent caches, the
+    leading dense layer's too) within 1e-4 of the CPU's, the CPU through the
+    card's routing (a MoE arch); decoding 24 tokens step by step within
+    2e-3 of ``forward``'s last position (the reference's own bound; a MoE
+    config dropless for it)."""
+    import dataclasses
 
+    from repro_torch import tree
+    from repro_torch.models import moe, transformer
+
+    state_tensors = _chip_smoke()._state_tensors
     cfg, params, tokens = _lm_start(arch, cuda)
     card = tree.map_leaves(lambda t: t.to(cuda), params)
-    torch.testing.assert_close(transformer.prefill(card, tokens.to(cuda), cfg).cpu(),
-                               transformer.prefill(params, tokens, cfg), rtol=1e-4, atol=1e-4)
-    states = {}
+    with moe.routes_recorded() as routes:
+        got = transformer.prefill(card, tokens.to(cuda), cfg).cpu()
+    with _card_routes(routes):
+        want = transformer.prefill(params, tokens, cfg)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     gen = torch.Generator().manual_seed(13)
-    noise = [torch.randn((2, 2, 70, cfg.n_kv_heads, cfg.head_dim), generator=gen)
-             for _ in range(2)]
-    for dev in (cuda, torch.device("cpu")):
-        st = transformer.init_decode_state(cfg, 2, 70, length=64, device=dev)
-        st.caches.k.copy_(noise[0])
-        st.caches.v.copy_(noise[1])
-        states[dev.type] = st
+    on_card, on_cpu = (transformer.init_decode_state(cfg, 2, 70, length=64, device=dev)
+                       for dev in (cuda, torch.device("cpu")))
+    for a, b in zip(state_tensors(on_card), state_tensors(on_cpu)):
+        b.copy_(torch.randn(tuple(b.shape), generator=gen))
+        a.copy_(b)
     for i in range(6):
         tok = tokens[:, i:i + 1]
-        got, states["cuda"] = transformer.decode_step(card, tok.to(cuda), states["cuda"], cfg)
-        want, states["cpu"] = transformer.decode_step(params, tok, states["cpu"], cfg)
+        with moe.routes_recorded() as routes:
+            got, on_card = transformer.decode_step(card, tok.to(cuda), on_card, cfg)
+        with _card_routes(routes):
+            want, on_cpu = transformer.decode_step(params, tok, on_cpu, cfg)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
-    assert int(states["cuda"].caches.length) == 70
-    torch.testing.assert_close(states["cuda"].caches.k.cpu(), states["cpu"].caches.k)
-    torch.testing.assert_close(states["cuda"].caches.v.cpu(), states["cpu"].caches.v)
+    assert int(on_card.caches.length) == 70
+    for a, b in zip(state_tensors(on_card), state_tensors(on_cpu)):
+        torch.testing.assert_close(a.cpu(), b)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=cfg.moe._replace(
+            capacity_factor=float(cfg.moe.num_experts)))
     st = transformer.init_decode_state(cfg, 2, 24, device=cuda)
     for i in range(24):
         logits, st = transformer.decode_step(card, tokens[:, i:i + 1].to(cuda), st, cfg)
     with torch.no_grad():
         full, _ = transformer.forward(card, tokens[:, :24].to(cuda), cfg)
     torch.testing.assert_close(logits, full[:, -1], rtol=2e-3, atol=2e-3)
+
+
+def _moe_inputs(dtype, seed=21):
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(seed)
+    cfg = moe.MoEConfig(num_experts=16, top_k=6, d_ff=96, num_shared=2, capacity_factor=1.0)
+    params = moe.init_moe_params(gen, 128, cfg, dtype=dtype, device="cpu")
+    x = torch.randn((300, 128), generator=gen).to(dtype)
+    cot = torch.randn((300, 128), generator=gen)
+    return cfg, params, x, cot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_ffn_xla_on_cuda_matches_the_cpu_and_repeats_bitwise(cuda, dtype):
+    """``moe_ffn_xla`` (300 tokens over 16 experts, top-6, 2 shared,
+    capacity factor 1.0: some pairs dropped) forward and backward on the
+    card: four ``add_rows`` launches (the combine, the three gathers'
+    gradients), a second run bitwise equal, and the output, aux loss and
+    every gradient within 1e-4 (float32) or 2e-2 (bfloat16) of each
+    tensor's largest value on the CPU through the card's routing."""
+    import contextlib
+
+    from repro_torch import tree
+    from repro_torch.models import moe
+
+    cfg, params, x, cot = _moe_inputs(dtype)
+
+    def run(dev, routing):
+        p = tree.map_leaves(lambda t: t.to(dev, copy=True).requires_grad_(), params)
+        xx = x.to(dev).requires_grad_()
+        before = scatter.launches
+        with routing as routes, moe.drops_counted() as drops:
+            out, aux = moe.moe_ffn_xla(xx, p, cfg)
+        ((out.float() * cot.to(dev)).sum() + aux).backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert scatter.launches == before + 4
+        grads = tree.leaves(tree.map_leaves(lambda t: t.grad.cpu(), p)) + [xx.grad.cpu()]
+        return [out.detach().cpu(), aux.detach().cpu()] + grads, int(drops[0][0]), routes
+
+    first, dropped, card_routes = run(cuda, moe.routes_recorded())
+    again, _, _ = run(cuda, contextlib.nullcontext())
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert dropped > 0
+    want, _, _ = run(torch.device("cpu"), _card_routes(card_routes))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref_t in zip(first, want):
+        top = float(ref_t.float().abs().max())
+        assert float((got.float() - ref_t.float()).abs().max()) <= tol * max(top, 1e-30)
+
+
+def test_mla_decode_on_cuda_matches_the_cpu(cuda):
+    """MLA's absorbed decode at deepseek-v2-lite's attention widths (d 2048,
+    16 heads, latent 512, heads 128 + 64, v 128), float32, batch 3 against
+    a random 200-position cache holding 150: eight steps' outputs and the
+    caches (written in place) within 1e-4 of the CPU's."""
+    from repro_torch import configs
+    from repro_torch.models import attention
+
+    full = configs.get_config("deepseek-v2-lite-16b")
+    gen = torch.Generator().manual_seed(22)
+    params = attention.init_mla_params(gen, full.d_model, full.n_heads, full.mla, device="cpu")
+    params["kv_a_norm"].normal_(0.0, 0.1, generator=gen)
+    card = {key: t.to(cuda) for key, t in params.items()}
+    widths = (full.mla.kv_lora_rank, full.mla.qk_rope_head_dim)
+    caches = [torch.randn((3, 200, w), generator=gen) for w in widths]
+    cpu_cache = attention.KVCache(*(c.clone() for c in caches),
+                                  torch.tensor(150, dtype=torch.int32))
+    card_cache = attention.KVCache(*(c.to(cuda) for c in caches),
+                                   torch.tensor(150, dtype=torch.int32, device=cuda))
+    k_buf = card_cache.k
+    for _ in range(8):
+        x = torch.randn((3, 1, full.d_model), generator=gen)
+        got, card_cache = attention.mla_decode_attention(x.to(cuda), card, card_cache, full.mla,
+                                                         n_heads=full.n_heads)
+        want, cpu_cache = attention.mla_decode_attention(x, params, cpu_cache, full.mla,
+                                                         n_heads=full.n_heads)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert card_cache.k is k_buf and int(card_cache.length) == 158
+    torch.testing.assert_close(card_cache.k.cpu(), cpu_cache.k, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card_cache.v.cpu(), cpu_cache.v, rtol=1e-4, atol=1e-4)

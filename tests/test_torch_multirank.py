@@ -2,7 +2,12 @@
 on the CPU: the int8 helpers and ``compressed_psum``, the owner router, the
 block layouts, the owner-compute step ``mf.train_step_shard_map`` and its
 epoch, ``init_error_feedback_state``, ``checkpoint.elastic_load`` and the
-refusals.
+refusals; and the mixture of experts' expert-parallel form
+``moe.moe_ffn_shard_map``: each data shard's output and aux loss against
+the reference's ``moe_ffn_xla`` on that shard (its capacity is the
+shard's), with drops and without, and each rank's expert slab's gradients,
+summed over the data axes, against the matching slice of the reference's
+gradients, within 1e-5.
 
 The port runs SPMD in 4 spawned gloo ranks (one pool per module, a
 ``file://`` store, so xdist workers never share a port); the reference runs
@@ -581,3 +586,74 @@ def test_elastic_load_across_meshes(ref, pool, tmp_path):
     jtree, _ = jcheckpoint.elastic_load(directory, jlike, lambda tree: tree)
     for key, value in jtree.items():
         np.testing.assert_array_equal(np.asarray(value), written[key], err_msg=key)
+
+
+MOE_MESHES = [((2, 2), ("data", "model")), ((1, 4), ("data", "model"))]
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.0], ids=["dropless", "drops"])
+@pytest.mark.parametrize("shape,names", MOE_MESHES)
+def test_moe_shard_map_matches_reference(pool, shape, names, cf):
+    """Experts over ``"model"``, 32 tokens over ``"data"``: every rank routes
+    its data shard over all 8 experts and runs its slab; the psum over
+    ``"model"`` gives the reference's ``moe_ffn_xla`` on that shard (2 shared
+    experts included), the aux loss the shards' mean; under the loss
+    ``sum(out * cot) + aux``, the slab's gradients (summed over the data
+    axes) the reference's slice, the router's and the shared experts' (so
+    summed) the reference's whole, and each rank's tokens' the reference's
+    on its shard, the same on every rank of ``"model"``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import moe as jmoe
+
+    rng = np.random.default_rng(31)
+    t, d, e, f = 32, 16, 8, 12
+    cfg = jmoe.MoEConfig(num_experts=e, top_k=2, d_ff=f, num_shared=2, capacity_factor=cf)
+    p = {"router": rng.normal(0, 0.3, (d, e)).astype(np.float32),
+         "wg": rng.normal(0, 0.2, (e, d, f)).astype(np.float32),
+         "wi": rng.normal(0, 0.2, (e, d, f)).astype(np.float32),
+         "wo": rng.normal(0, 0.2, (e, f, d)).astype(np.float32),
+         "shared": {"wg": rng.normal(0, 0.2, (d, 2 * f)).astype(np.float32),
+                    "wi": rng.normal(0, 0.2, (d, 2 * f)).astype(np.float32),
+                    "wo": rng.normal(0, 0.2, (2 * f, d)).astype(np.float32)}}
+    x = rng.normal(0, 1, (t, d)).astype(np.float32)
+    cot = rng.normal(0, 1, (t, d)).astype(np.float32)
+    n_dp = shape[0]
+    rows = t // n_dp
+
+    def ref_loss(params, xb, cb):
+        out, aux = jmoe.moe_ffn_xla(xb, params, cfg)
+        return jnp.sum(out * cb) + aux / n_dp, (out, aux)
+
+    want_out, want_aux, want_x, want_grads = [], [], [], None
+    for i in range(n_dp):
+        blk = slice(i * rows, (i + 1) * rows)
+        (_, (out, aux)), (g, gx) = jax.value_and_grad(ref_loss, argnums=(0, 1), has_aux=True)(
+            jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x[blk]), jnp.asarray(cot[blk]))
+        want_out.append(np.asarray(out))
+        want_aux.append(float(aux))
+        want_x.append(np.asarray(gx))
+        want_grads = g if want_grads is None else jax.tree_util.tree_map(
+            lambda a, b: a + b, want_grads, g)
+    results = pool.run(cases.moe_shard_map_case, shape, names, p, x, cot, tuple(cfg))
+    e_loc = e // shape[1]
+    for res in results:
+        np.testing.assert_allclose(res["out"], want_out[res["data"]], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res["aux"], np.mean(want_aux), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(res["x"], want_x[res["data"]], rtol=1e-5, atol=1e-5,
+                                   err_msg="x")
+        slab = slice(res["model"] * e_loc, (res["model"] + 1) * e_loc)
+        assert set(res["grads"]) == {"wg", "wi", "wo", "router", "shared/wg", "shared/wi",
+                                     "shared/wo"}
+        for key, value in res["grads"].items():
+            path = key.split("/")
+            want = np.asarray(want_grads[path[0]] if len(path) == 1
+                              else want_grads[path[0]][path[1]])
+            np.testing.assert_allclose(value, want[slab] if key in ("wg", "wi", "wo") else want,
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+    if cf == 1.0:  # some shard drops tokens: the shard's capacity is what the test holds
+        jcount = [np.bincount(np.asarray(jax.lax.top_k(jax.nn.softmax(
+            x[i * rows:(i + 1) * rows] @ p["router"], -1), 2)[1]).reshape(-1), minlength=e).max()
+            for i in range(n_dp)]
+        assert max(jcount) > jmoe._capacity(rows, cfg)

@@ -257,3 +257,34 @@ def dpmf_cell_step_case(ctx, shape, names, full, batch, t, shape_id):
     batch = {key: torch.as_tensor(value) for key, value in batch.items()}
     params, state, metrics = cell.step_fn(params, state, batch, t, t, mesh=mesh)
     return _result(mesh, params, state, metrics)
+
+
+def moe_shard_map_case(ctx, shape, names, p, x, cot, cfg_fields):
+    """``moe_ffn_shard_map`` on this rank's token block (rows over the data
+    axes) and expert slab (``"model"``), the loss ``sum(out * cot) + aux``
+    on the block: the block's output and aux loss, the block's gradient,
+    and the slab's, the router's and the shared experts' gradients summed
+    over the data axes, with the rank's coordinates."""
+    from repro_torch.models import moe
+
+    mesh = ctx.mesh(shape, names)
+    cfg = moe.MoEConfig(*cfg_fields)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    n_dp, d_i = spmd.axis_size(mesh, dp), spmd.axis_index(mesh, dp)
+    m_i, e_loc = spmd.axis_index(mesh, "model"), cfg.num_experts // spmd.axis_size(mesh, "model")
+    rows = x.shape[0] // n_dp
+    blk = slice(d_i * rows, (d_i + 1) * rows)
+    slab = slice(m_i * e_loc, (m_i + 1) * e_loc)
+    leaf = lambda a: torch.tensor(a, device=ctx.device).requires_grad_()  # noqa: E731
+    params = {key: leaf(p[key][slab]) for key in ("wg", "wi", "wo")}
+    params["router"] = leaf(p["router"])
+    params["shared"] = {key: leaf(value) for key, value in p["shared"].items()}
+    xb = leaf(x[blk])
+    out, aux = moe.moe_ffn_shard_map(xb, params, cfg, mesh=mesh)
+    ((out * torch.tensor(cot[blk], device=ctx.device)).sum() + aux).backward()
+    grads = {key: spmd.psum(params[key].grad, mesh, dp).cpu().numpy()
+             for key in ("wg", "wi", "wo", "router")}
+    grads.update({"shared/" + key: spmd.psum(value.grad, mesh, dp).cpu().numpy()
+                  for key, value in params["shared"].items()})
+    return {"out": out.detach().cpu().numpy(), "aux": float(aux), "grads": grads,
+            "x": xb.grad.cpu().numpy(), "data": d_i, "model": m_i}

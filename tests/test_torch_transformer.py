@@ -1,9 +1,11 @@
-"""The dense transformer (``repro_torch.models.{layers,attention,transformer}``)
+"""The transformer (``repro_torch.models.{layers,attention,transformer}``)
 held against the JAX reference on the CPU.
 
-Each arch (gemma-7b, qwen1.5-4b, qwen3-4b) runs at its ``smoke_config()``
-(2 layers, d 64, float32, ``attn_chunk`` 8, so a 16-token batch takes two
-chunks).  Both packages take the same numpy weights (the reference's
+Each arch (gemma-7b, qwen1.5-4b, qwen3-4b, and the MLA and MoE archs
+deepseek-v2-lite-16b and granite-moe-1b-a400m) runs at its
+``smoke_config()`` (2 or 3 layers, d 64, float32, ``attn_chunk`` 8, so a
+16-token batch takes two chunks; the MoE smoke configs are dropless at
+capacity factor 4).  Both packages take the same numpy weights (the reference's
 ``init_params``, its zero leaves — norms, biases, qk-norm scales — drawn
 N(0, 0.1^2) so that they count) through
 ``transformer_params_from_numpy``; the reference runs under ``jax.jit``.
@@ -25,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import deepseek_v2_lite as jdeepseek
 from repro.configs import gemma_7b as jgemma
+from repro.configs import granite_moe as jgranite
 from repro.configs import qwen3_4b as jqwen3
 from repro.configs import qwen15_4b as jqwen15
 from repro.distributed import sharding as jsharding
@@ -33,7 +37,7 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtfm
 from repro_torch import tree
-from repro_torch.configs import gemma_7b, qwen3_4b, qwen15_4b
+from repro_torch.configs import deepseek_v2_lite, gemma_7b, granite_moe, qwen3_4b, qwen15_4b
 from repro_torch.distributed.collectives import value_and_grad
 from repro_torch.models import attention, layers, transformer
 from repro_torch.optim import optimizers
@@ -41,8 +45,10 @@ from repro_torch.optim import optimizers
 TOL = 1e-5
 BF16_TOL = 2e-2
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
-ARCHS = {"gemma-7b": (jgemma, gemma_7b), "qwen1.5-4b": (jqwen15, qwen15_4b),
-         "qwen3-4b": (jqwen3, qwen3_4b)}
+DENSE_ARCHS = {"gemma-7b": (jgemma, gemma_7b), "qwen1.5-4b": (jqwen15, qwen15_4b),
+               "qwen3-4b": (jqwen3, qwen3_4b)}
+ARCHS = {**DENSE_ARCHS, "deepseek-v2-lite-16b": (jdeepseek, deepseek_v2_lite),
+         "granite-moe-1b-a400m": (jgranite, granite_moe)}
 B, S, DECODE_STEPS = 2, 16, 8
 
 
@@ -294,7 +300,7 @@ def arch_case(request):
     tokens, labels = _batch(jcfg.vocab_size, seed + 10)
     jw = _j(w)
     batch = {"tokens": tokens, "labels": labels}
-    ref = {"forward": jax.jit(lambda p, t: jtfm.forward(p, t, jcfg))(jw, tokens)[0],
+    ref = {"forward": jax.jit(lambda p, t: jtfm.forward(p, t, jcfg))(jw, tokens),
            "prefill": jax.jit(lambda p, t: jtfm.prefill(p, t, jcfg))(jw, tokens)}
     ref["loss"], ref["grads"] = jax.jit(jax.value_and_grad(
         lambda p: jtfm.lm_loss(p, batch, jcfg)))(jw)
@@ -322,8 +328,11 @@ def test_smoke_config_is_the_reference(arch_case):
 def test_forward_matches_reference(arch_case):
     logits, aux = transformer.forward(_port_params(arch_case), torch.tensor(arch_case["tokens"]),
                                       arch_case["cfg"])
-    assert logits.dtype == torch.float32 and float(aux) == 0.0
-    _close(logits, arch_case["ref"]["forward"])
+    want_logits, want_aux = arch_case["ref"]["forward"]
+    assert logits.dtype == torch.float32 and aux.dtype == torch.float32
+    _close(logits, want_logits)
+    _close(aux, want_aux, what="aux")
+    assert (float(aux) == 0.0) == (arch_case["cfg"].moe is None)
 
 
 def test_loss_and_every_gradient_match_reference(arch_case):
@@ -355,9 +364,13 @@ def test_init_decode_state_is_the_reference(arch_case):
         assert value.shape == want_leaves[path].shape, path
         np.testing.assert_array_equal(value, want_leaves[path], err_msg=str(path))
     assert state.caches.k.dtype == torch.float32 and state.caches.length.dtype == torch.int32
-    assert state.first_caches == ()
-    # laid out heads first: each layer's (B, KH, S, hd) view is contiguous
-    assert state.caches.k[0].transpose(1, 2).is_contiguous()
+    assert len(state.first_caches) == cfg.first_dense_layers
+    if cfg.mla is None:
+        # laid out heads first: each layer's (B, KH, S, hd) view is contiguous
+        assert state.caches.k[0].transpose(1, 2).is_contiguous()
+    else:  # the latent and the RoPE key, (B, S, width) each
+        assert tuple(state.caches.k.shape[1:]) == (B, S, cfg.mla.kv_lora_rank)
+        assert tuple(state.caches.v.shape[1:]) == (B, S, cfg.mla.qk_rope_head_dim)
 
 
 def test_eight_decode_steps_match_reference(arch_case):
@@ -374,6 +387,10 @@ def test_eight_decode_steps_match_reference(arch_case):
     assert int(state.caches.length) == int(ref["state"].caches.length) == DECODE_STEPS
     _close(state.caches.k, ref["state"].caches.k, what="k")
     _close(state.caches.v, ref["state"].caches.v, what="v")
+    for got, want in zip(state.first_caches, ref["state"].first_caches, strict=True):
+        _close(got.k, want.k, what="first k")
+        _close(got.v, want.v, what="first v")
+        assert int(got.length) == int(want.length) == DECODE_STEPS
 
 
 # ---------------------------------------------------------------------------
@@ -456,29 +473,13 @@ def test_param_counts_and_init_are_the_reference(arch):
     assert set(got_shapes) == {tuple(jsharding._path_parts(p)) for p, _ in flat}
     for path, leaf in flat:
         got = got_shapes[tuple(jsharding._path_parts(path))]
-        assert got.is_meta and tuple(got.shape) == leaf.shape and got.dtype == torch.bfloat16
+        assert got.is_meta and tuple(got.shape) == leaf.shape
+        assert str(got.dtype) == f"torch.{leaf.dtype}"  # bfloat16; a MoE router float32
     # drawn from the generator: the same seed the same weights
     cfg = pmod.smoke_config()
     one, two = (transformer.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
                 for _ in range(2))
     assert all(torch.equal(a, b) for a, b in zip(tree.leaves(one), tree.leaves(two)))
-
-
-def test_mla_and_moe_raise_naming_part_2():
-    cfg = port_config(jqwen3.smoke_config())
-    params = transformer.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    mla, moe = dataclasses.replace(cfg, mla=object()), dataclasses.replace(cfg, moe=object())
-    for call in (lambda: transformer.init_params(torch.Generator(), mla, device="cpu"),
-                 lambda: transformer.init_params(torch.Generator(), moe, device="cpu"),
-                 lambda: transformer.forward(params, tokens, mla),
-                 lambda: transformer.init_decode_state(mla, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="A8d part 2"):
-            call()
-    layer = {**transformer._unstack(params["layers"], 2)[0], "moe": {}}
-    with pytest.raises(NotImplementedError, match="A8d part 2"):
-        transformer._block(torch.zeros((1, 4, 64)), layer,
-                           torch.zeros((1, 4), dtype=torch.int32), cfg)
 
 
 def test_params_from_numpy_takes_bfloat16_trees():
@@ -542,19 +543,19 @@ def test_chip_smoke_transformer_phase_rehearses_on_the_cpu():
     chip_smoke.failures.clear()
     chip_smoke.PATH_LAUNCHES.pop("cells", None)
     small = {}
-    for arch, (_, pmod) in ARCHS.items():
+    for arch, (_, pmod) in DENSE_ARCHS.items():
         grouped = pmod.CONFIG.n_kv_heads < pmod.CONFIG.n_heads
         small[arch] = dataclasses.replace(pmod.CONFIG, d_model=64, n_heads=8 if grouped else 4,
                                           n_kv_heads=2 if grouped else 4, head_dim=16, d_ff=96,
                                           vocab_size=512, attn_chunk=8)
     cuts = {arch: {sid: (2, 2) for sid in ("train_4k", "prefill_32k", "decode_32k", "long_500k")}
-            for arch in ARCHS}
+            for arch in DENSE_ARCHS}
     out = chip_smoke.lm_cells_phase(torch.device("cpu"), dict(
         cuts=cuts, widths=small,
         seq={"train_4k": 16, "prefill_32k": 16, "decode_32k": 16, "long_500k": 32},
         check=dict(layers=2, tokens=16, chunk=8, decode_steps=2, consistency_tokens=8)))
     assert chip_smoke.failures == []
-    assert list(out) == list(ARCHS)
+    assert list(out) == list(DENSE_ARCHS)
     for arch, res in out.items():
         assert np.isfinite(res["train_4k"]["loss"])
         assert res["check"]["decode_vs_forward"] <= 1e-5, arch
@@ -563,6 +564,6 @@ def test_chip_smoke_transformer_phase_rehearses_on_the_cpu():
                                                  "add_rows": 0}
     # the card's cuts: the published widths, fewer layers and sequences
     for arch, cells in chip_smoke.LM_CUTS.items():
-        full = ARCHS[arch][1].CONFIG
+        full = DENSE_ARCHS[arch][1].CONFIG
         assert set(cells) == {"train_4k", "prefill_32k", "decode_32k", "long_500k"}
         assert all(1 <= layers <= full.n_layers and batch >= 1 for layers, batch in cells.values())
