@@ -211,8 +211,12 @@ script exits) it:
    widths, sequence and cache lengths with random weights and drawn tokens,
    depth and batch cut by ``LM_CUTS`` (listed in PERF.md section 4): each
    step counted (1 ``add_rows`` a train step, none in prefill and decode)
-   and warm, its peak memory, prefill's tokens/s against the bf16 dense
-   peak and decode against its bytes bound; then a float32 copy of each arch
+   and warm, its peak memory, its work counted first on meta copies of its
+   arguments (``repro_torch.roofline.analysis.count``: one line of counted
+   TFLOP, least bytes, the binding bound on the H100's peaks
+   (``roofline/hw.py``) and its share, the useful share of 6·N·D or 2·N·D),
+   train's and prefill's tokens/s against the bf16 dense peak; the count's
+   host time is printed at the end; then a float32 copy of each arch
    cut to 2 layers (TF32 off) against the CPU: the train step (loss,
    gradients and weights through ``adam_first_step``; three steps from one
    state bitwise), prefill's logits, four decode steps (logits and caches),
@@ -222,9 +226,9 @@ script exits) it:
    (GQA, 32 experts top-8) four LM cells the same way, every expert kept
    (the whole MoE layer on one card, depth and batch cut by ``MOE_CUTS``):
    each step's ``add_rows`` launches (1 + 5 a MoE layer in a train step, 1 a
-   MoE layer in prefill and decode) and its dropped-pair share, the train
-   and prefill FLOPs over the experts' capacity rows as they run and over
-   the active ones; the float32 copies' routing held against the CPU's
+   MoE layer in prefill and decode) and its dropped-pair share, the counted
+   FLOPs over the experts' capacity rows as they run and the useful share
+   over the active parameters; the float32 copies' routing held against the CPU's
    (expert ids equal wherever the k-th and (k+1)-th probabilities differ by
    more than ``ROUTE_TIE_TOL``; near-ties counted) and the CPU's steps run
    through the card's routing; launches counted under ``cells``;
@@ -268,13 +272,10 @@ if not (SRC / "repro_torch").is_dir():
 sys.path.insert(0, str(SRC))
 from repro_torch import configs  # noqa: E402  (the sizes below are the registry's)
 from repro_torch.configs.base import RECSYS_SHAPES  # noqa: E402
+from repro_torch.roofline import analysis, hw  # noqa: E402  (peaks, bounds, counts)
 
 DPMF = configs.get_config("dpmf")
 
-PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
-TF32_PASSES = 3           # pruned_matmul's 3xTF32: three TF32 products per fp32 one
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 RTOL = ATOL = 1e-5
 BF16_TOL = 2e-2
 RECORD_RTOL = 1e-4
@@ -340,6 +341,7 @@ MR_ONLINE = (1 << 21, 1 << 22)
 
 failures: list = []
 PATH_LAUNCHES: dict = {}  # path -> {kernel: launches in that path's counted run}
+COUNT_SECONDS: list = []  # host seconds of each analysis.count of a cell
 
 
 def log(*args):
@@ -379,29 +381,6 @@ def time_ms(fn, reps, dev=torch.device("cuda")):
     fn()
     _sync(dev)
     return _clock(dev, fn, reps)[1]
-
-
-def above(r, k):
-    """#{rows with rank > t} for t = 0..k-1."""
-    counts = torch.bincount(r.long(), minlength=k + 1).double()
-    return counts.flip(0).cumsum(0).flip(0)[1:]
-
-
-def pair_flops(r_u, r_i, k):
-    return 2.0 * float((above(r_u, k) * above(r_i, k)).sum())
-
-
-def factor_bytes(r_u, r_i, itemsize):
-    """Factor elements the pruned product needs: each row's prefix up to its
-    own rank, cut at the other side's largest rank."""
-    need_u = torch.clamp(r_u, max=int(r_i.max())).double().sum()
-    need_i = torch.clamp(r_i, max=int(r_u.max())).double().sum()
-    return itemsize * float(need_u + need_i) + 4.0 * (r_u.numel() + r_i.numel())
-
-
-def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def compare_topk(got_s, got_i, want_s, want_i, what, exact=False):
@@ -476,9 +455,9 @@ def serving_path(dev):
         qm = q * (torch.arange(K, device=dev) < r_i[:, None])
         yard_ms = time_ms(lambda: torch.topk(torch.addmm(zero_bias, pm, qm.T), TOPK, dim=1), 2)
         del pm, qm
-        flops = pair_flops(r_u, r_i, K)
-        nbytes = factor_bytes(r_u, r_i, 4) + 4.0 * N_ITEMS + 8.0 * TOPK_USERS * TOPK
-        b_ms, b_by = bound(flops, nbytes)
+        cost = pruned_topk.cost(TOPK_USERS, N_ITEMS, K, TOPK, r_u, r_i)
+        flops, nbytes = cost.flops, cost.bytes
+        b_ms, b_by = analysis.bound(flops, nbytes)
         log(f"  {label}: mean r_u {float(r_u.float().mean()):.3f}, mean r_i "
             f"{float(r_i.float().mean()):.3f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"yardstick addmm+topk (two calls) {yard_ms:.3f} ms; bound {b_ms:.3f} ms "
@@ -536,15 +515,16 @@ def serving_path(dev):
         qm = q * (torch.arange(K, device=dev) < r_i[:, None])
         lib_ms = time_ms(lambda: torch.matmul(pm, qm.T), 3)
         del pm, qm
-        flops = pair_flops(r_u, r_i, K)
-        nbytes = factor_bytes(r_u, r_i, 4) + 4.0 * MATMUL_USERS * N_ITEMS
-        b_ms, b_by = bound(flops, nbytes)
+        cost = pruned_matmul.cost(MATMUL_USERS, N_ITEMS, K, r_u, r_i)
+        flops, nbytes = cost.flops, cost.bytes
+        b_ms, b_by = analysis.bound(flops, nbytes)
         # the units the kernel runs its products on: 3 TF32 passes on the tensor cores
-        tc_ms, tc_by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+        tc_ms, tc_by = analysis.bound(pruned_matmul.TF32_PASSES * flops, nbytes,
+                                      hw.PEAK_TF32_FLOPS)
         log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul on "
             f"pre-masked operands {lib_ms:.3f} ms; bound {b_ms:.3f} ms on fp32 CUDA cores "
             f"({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB), {tc_ms:.3f} ms as "
-            f"{TF32_PASSES}xTF32 on the tensor cores ({tc_by})")
+            f"{pruned_matmul.TF32_PASSES}xTF32 on the tensor cores ({tc_by})")
         st = stats["pruned_matmul"]
         st["err"] = max(st["err"], err)
         st[label] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -578,7 +558,8 @@ def serving_path(dev):
     t_p, t_q = thresholds_from_matrices(p, q, RATE)
     r_u_all = effective_ranks(p, t_p)
     r_i_all = effective_ranks(q, t_q)
-    work = float((above(r_u_all, K) / N_USERS * above(r_i_all, K) / N_ITEMS).sum()) / K
+    work = float((analysis.above(r_u_all, K) / N_USERS
+                  * analysis.above(r_i_all, K) / N_ITEMS).sum()) / K
     log(f"  rate {RATE}: T_p {float(t_p):.6g}, T_q {float(t_q):.6g}; mean r_u "
         f"{float(r_u_all.float().mean()):.3f}, mean r_i {float(r_i_all.float().mean()):.3f}, "
         f"pair work fraction {work:.4f}")
@@ -812,8 +793,8 @@ def repairs_phase(dev):
     plain_ms = time_ms(lambda: [pruned_topk.pruned_topk_plain(
         p[lo:lo + (1 << 21)], q, r_u[lo:lo + (1 << 21)], r_i, bias, topk, block_n=n)
         for lo in range(0, m, 1 << 21)], 1)
-    b_ms, b_by = bound(pair_flops(r_u, r_i, k),
-                       factor_bytes(r_u, r_i, 4) + 4.0 * n + 8.0 * m * topk)
+    cost = pruned_topk.cost(m, n, k, topk, r_u, r_i)
+    b_ms, b_by = analysis.bound(cost.flops, cost.bytes)
     log(f"  kernel {ms:.3f} ms, plain (in 2^21-user pieces) {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
         f"({b_by})")
     out["pruned_topk"] = {f"m={m}": dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)}
@@ -846,9 +827,9 @@ def repairs_phase(dev):
             if rows is None:
                 ms = time_ms(lambda: pruned_matmul.pruned_matmul_ranked(p, q, r_u, r_i), 5)
                 plain_ms = time_ms(lambda: pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i), 2)
-                flops = pair_flops(r_u, r_i, kw)
-                nbytes = factor_bytes(r_u, r_i, 4) + 4.0 * mu * mn
-                b_ms, b_by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+                cost = pruned_matmul.cost(mu, mn, kw, r_u, r_i)
+                b_ms, b_by = analysis.bound(pruned_matmul.TF32_PASSES * cost.flops, cost.bytes,
+                                            hw.PEAK_TF32_FLOPS)
                 log(f"  k={kw} T={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                     f"{b_ms:.3f} ms as 3xTF32 ({b_by})")
                 out["pruned_matmul"][f"k={kw}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -892,8 +873,9 @@ def repairs_phase(dev):
                     pr, qr, ratings, tp, tq, lr=lr, lam=lam), 10)
                 plain_ms = time_ms(lambda: fused_mf_sgd.fused_mf_sgd_plain(
                     pr, qr, ratings, tp, tq, lr=lr, lam=lam), 3)
-                nbytes = 4.0 * b * kw * 4 + 8.0 * b
-                b_ms, b_by = bound(16.0 * b * kw, nbytes)
+                cost = fused_mf_sgd.cost(b, kw)
+                nbytes = cost.bytes
+                b_ms, b_by = analysis.bound(cost.flops, nbytes)
                 log(f"  k={kw}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
                     f"({b_by}); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
                 out["fused_mf_sgd"][f"k={kw}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1027,10 +1009,9 @@ def fused_kernel_phase(dev):
             p_rows, q_rows, ratings, t_p, t_q, lr=1.0, lam=LAM), 20)
         plain_ms = time_ms(lambda: fused_mf_sgd.fused_mf_sgd_plain(
             p_rows, q_rows, ratings, t_p, t_q, lr=1.0, lam=LAM), 5)
-        # each row element read once and written once, plus the rating and
-        # err columns; ~16 fp32 operations an element pair
-        nbytes = 4.0 * BATCH * K * 4 + 8.0 * BATCH
-        b_ms, b_by = bound(16.0 * BATCH * K, nbytes)
+        cost = fused_mf_sgd.cost(BATCH, K)
+        nbytes = cost.bytes
+        b_ms, b_by = analysis.bound(cost.flops, nbytes)
         log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b_ms:.3f} ms "
             f"({b_by}: {nbytes / 1e9:.3f} GB); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
         stats[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -3665,9 +3646,9 @@ def add_rows_phase(dev):
     sort_ms = time_ms(lambda: torch.sort(idx, stable=True), 20)
     lib_ms = time_ms(lambda: table.index_add_(0, idx, rows), 20)
     plain_ms = time_ms(lambda: scatter.add_rows_in_passes(table, idx, rows), 3)
-    # rows and indices read once; each touched table row read once and written once
-    nbytes = 4.0 * BATCH * K + 8.0 * BATCH + 2 * 4.0 * unique * K
-    b_ms, b_by = bound(float(BATCH * K), nbytes)
+    cost = scatter.cost(table, idx, rows)
+    nbytes = cost.bytes
+    b_ms, b_by = analysis.bound(cost.flops, nbytes)
     log(f"  {unique} distinct rows; add_rows {ms:.3f} ms (its stable sort alone {sort_ms:.3f} ms), "
         f"index_add_ (atomics, any order) {lib_ms:.3f} ms, plain passes {plain_ms:.3f} ms; bound "
         f"{b_ms:.3f} ms ({b_by}: {nbytes / 1e9:.3f} GB); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
@@ -4120,9 +4101,9 @@ def recsys_phase(dev, sizes=None):
         qm = mq * (torch.arange(k_w, device=dev) < m_ri[:, None])
         lib_ms = ms_of(lambda: torch.matmul(pm, qm.T), 3)
         del pm, qm
-        flops = pair_flops(m_ru, m_ri, k_w)
-        nbytes = factor_bytes(m_ru, m_ri, 4) + 4.0 * mp.shape[0] * mq.shape[0]
-        b_ms, b_by = bound(flops, nbytes)
+        cost = pruned_matmul.cost(mp.shape[0], mq.shape[0], k_w, m_ru, m_ri)
+        flops, nbytes = cost.flops, cost.bytes
+        b_ms, b_by = analysis.bound(flops, nbytes)
         kernels[name] = dict(ms=kms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                              mean_r_i=float(m_ri.float().mean()))
         log(f"  pruned_matmul {name}: {mp.shape[0]} x {mq.shape[0]}, mean r_i "
@@ -4135,9 +4116,8 @@ def recsys_phase(dev, sizes=None):
     plain_ms = ms_of(lambda: pruned_topk.pruned_topk_plain(
         pu, q_all, r_u, engine.r_i, zero_bias, rs["topk"],
         block_n=min(PLAIN_BLOCK_N, q_all.shape[0])), 2)
-    flops = pair_flops(r_u, engine.r_i, SR_K)
-    nbytes = factor_bytes(r_u, engine.r_i, 4) + 4.0 * q_all.shape[0] + 8.0 * first * rs["topk"]
-    b_ms, b_by = bound(flops, nbytes)
+    cost = pruned_topk.cost(first, q_all.shape[0], SR_K, rs["topk"], r_u, engine.r_i)
+    b_ms, b_by = analysis.bound(cost.flops, cost.bytes)
     kernels["pruned_topk k=50"] = dict(ms=kms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                        mean_r_i=float(engine.r_i.float().mean()))
     log(f"  pruned_topk k=50 (sessions): {first} x {q_all.shape[0]}, top-{rs['topk']}, mean r_i "
@@ -4330,6 +4310,7 @@ def _recsys_cells(dev, arch, cfg, sz, seed):
     and last candidates; DLRM's tables cut to the rows a batch reads)."""
     from repro_torch import tree
     from repro_torch.configs import base
+    from repro_torch.kernels import pruned_topk
     from repro_torch.models import recsys
 
     gen = torch.Generator(device=dev)
@@ -4439,9 +4420,10 @@ def _recsys_cells(dev, arch, cfg, sz, seed):
         table = params["item_embed"]
         rows_scored = max(table.shape[0] // 65536, 1) * 65536
         k_ms = time_ms(lambda: base.streaming_topk_scores(h, table, k=100), 1, dev)
-        flops = 2.0 * h.shape[0] * rows_scored * h.shape[1]
-        nbytes = 4.0 * (h.numel() + rows_scored * h.shape[1]) + 8.0 * h.shape[0] * 100
-        b_ms, b_by = bound(flops, nbytes)
+        # T = 0: every rank is k, the dense count
+        cost = pruned_topk.cost(h.shape[0], rows_scored, h.shape[1], 100)
+        flops = cost.flops
+        b_ms, b_by = analysis.bound(flops, cost.bytes)
         out["bulk_topk"] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by, users=h.shape[0],
                                 items=rows_scored, k=h.shape[1])
         log(f"  sasrec::serve_bulk's pruned_topk: {h.shape[0]} x {rows_scored} x {h.shape[1]} at "
@@ -4897,7 +4879,6 @@ LM_CUTS = {
     "qwen3-4b": {"train_4k": (36, 2), "prefill_32k": (6, 1), "decode_32k": (36, 12),
                  "long_500k": (29, 1)},
 }
-PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 LM_LR = 3e-4              # lm_train_cell's Adam lr (its other settings Adam's defaults)
 # the CPU checks: a float32 copy at the published widths cut to 2 layers, one
 # sequence of 256 tokens in four attention chunks, 4 decode steps; decoding
@@ -4926,42 +4907,6 @@ MOE_CUTS = {
 # router probabilities differ by more than this (float32 copies whose
 # inputs differ by about 1e-6 of their largest value)
 ROUTE_TIE_TOL = 1e-5
-
-
-def _lm_forward_flops(cfg, b, s, last_only=False, active=False):
-    """Floating-point operations of ``cfg``'s forward on (b, s) tokens as the
-    port executes it: the dense products (MLA's projections with its
-    latent), the head (on the last position only for prefill), and the
-    attention's two products over all s x s scores (the plain chunks compute
-    the masked half too).  A MoE layer: the router, the shared experts over
-    every token and the routed experts over ``E x capacity`` rows, as they
-    run (``active``: over the ``top_k`` rows each token activates)."""
-    from repro_torch.models.moe import _capacity
-
-    d, t, h = cfg.d_model, b * s, cfg.n_heads
-    if cfg.mla is not None:
-        m = cfg.mla
-        qk, vh = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
-        proj = (d * h * qk + d * (m.kv_lora_rank + m.qk_rope_head_dim)
-                + m.kv_lora_rank * h * (m.qk_nope_head_dim + vh) + h * vh * d)
-    else:
-        qk = vh = cfg.head_dim
-        proj = d * h * qk + 2 * d * cfg.n_kv_heads * qk + h * vh * d
-    attn = 2.0 * t * proj + 2.0 * b * h * s * s * (qk + vh)
-
-    def mlp(ff):
-        return 2.0 * t * 3 * d * ff
-
-    if cfg.moe is None:
-        ffn = mlp(cfg.d_ff)
-    else:
-        mo = cfg.moe
-        rows = mo.top_k * t if active else mo.num_experts * _capacity(t, mo)
-        ffn = (2.0 * t * d * mo.num_experts + 2.0 * rows * 3 * d * mo.d_ff
-               + mlp(mo.num_shared * mo.d_ff))
-    body = (cfg.n_layers * attn + cfg.scan_layers * ffn
-            + cfg.first_dense_layers * mlp(cfg.first_dense_ff or cfg.d_ff))
-    return body + 2.0 * b * (1 if last_only else s) * d * cfg.vocab_size
 
 
 def _lm_add_rows(cfg, kind):
@@ -5005,10 +4950,13 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
     """One LM cell at ``cfg`` (the published widths, ``cfg.n_layers`` layers)
     on ``batch`` sequences of ``seq`` tokens (a decode cell: a cache of
     ``seq`` positions holding ``seq - 1``, filled with normal draws), random
-    weights from ``seed``: the step once counted (``add_rows`` under
-    ``cells``) and once warm, CUDA events; the peak memory of the counted
-    run; throughput against the bf16 dense peak (train, prefill) or the
-    bytes bound (decode)."""
+    weights from ``seed``: its work counted on meta copies of the arguments
+    (``analysis.count``: executed FLOPs, least bytes) before the run; the
+    step once counted (``add_rows`` under ``cells``) and once warm, CUDA
+    events; the peak memory of the counted run; the warm time against the
+    count's roofline on the card (``analysis.roofline_terms``, the useful
+    share from ``analysis.lm_model_flops``) and throughput against the bf16
+    dense peak."""
     from repro_torch import tree
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
@@ -5029,6 +4977,10 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
         for t in _state_tensors(state):
             t.normal_(generator=gen)
         args = (params, state, _lm_tokens(gen, cfg, batch, 1, dev))
+    t0 = time.perf_counter()
+    counted = analysis.count(cell.step_fn, *args)
+    count_s = time.perf_counter() - t0
+    COUNT_SECONDS.append(count_s)
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5070,13 +5022,11 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
               f"cells: {cell.cell_id} loss {float(loss):.4f} finite, weights and Adam state "
               "updated in place and finite")
         res["loss"] = float(loss)
-        flops = 4.0 * _lm_forward_flops(cfg, batch, seq)  # forward, recomputed, backward 2x
     elif cell.kind == "prefill":
         check(tuple(out.shape) == (batch, cfg.vocab_size) and out.dtype == torch.float32
               and bool(torch.isfinite(out).all()),
               f"cells: {cell.cell_id} last-position logits finite, float32, of shape "
               f"{tuple(out.shape)}")
-        flops = _lm_forward_flops(cfg, batch, seq, last_only=True)
     else:
         logits, new_state = out
         check(tuple(logits.shape) == (batch, cfg.vocab_size) and bool(torch.isfinite(logits).all())
@@ -5085,29 +5035,34 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
               f"written in place, length {int(new_state.caches.length)}")
         cache_bytes = sum(t.numel() * t.element_size() for t in _state_tensors(new_state))
         res["cache_gb"] = cache_bytes / 1e9
-        flops = _lm_forward_flops(cfg, batch, 1, last_only=True)
     del out
     _, warm = _clock(dev, lambda: cell.step_fn(*args))
-    res.update(ms=ms, warm_ms=warm)
+    tokens = batch * (1 if cell.kind == "decode" else seq)
+    roof = analysis.roofline_terms(counted.flops, counted.least_bytes, 0.0, 1,
+                                   model_flops=analysis.lm_model_flops(
+                                       cfg.param_count(), cfg.active_param_count(), tokens,
+                                       cell.kind))
+    bound_ms = roof["bound_s"] * 1e3
+    res.update(ms=ms, warm_ms=warm, tflop=counted.flops / 1e12,
+               recompute_tflop=counted.recompute_flops / 1e12,
+               least_gb=counted.least_bytes / 1e9, bound_ms=bound_ms,
+               bound_by="operations" if roof["dominant"] == "compute" else "bytes",
+               of_bound=bound_ms / warm, useful_share=roof["useful_flop_fraction"],
+               model_tflop=roof["model_flops"] / 1e12, count_s=count_s)
+    log(f"  {cell.cell_id} roofline (analysis.count on meta, {count_s:.2f} s): "
+        f"{res['tflop']:.3f} TFLOP counted ({res['recompute_tflop']:.3f} recomputed), least "
+        f"{res['least_gb']:.3f} GB; bound by {res['bound_by']} {bound_ms:.3f} ms, "
+        f"{res['of_bound']:.1%} of it warm; useful share {res['useful_share']:.1%} "
+        f"({res['model_tflop']:.3f} TFLOP of {6 if cell.kind == 'train' else 2}*N*D)")
     if cell.kind == "decode":
-        bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES * 1e3
-        res.update(bound_ms=bound_ms, bound_by="bytes", of_bound=bound_ms / warm)
-        what = (f"bytes bound {bound_ms:.3f} ms (weights {param_bytes / 1e9:.2f} GB + cache "
-                f"{cache_bytes / 1e9:.2f} GB at {PEAK_BYTES / 1e12:.2f} TB/s), "
-                f"{bound_ms / warm:.1%} of it")
+        what = (f"{res['of_bound']:.1%} of the bytes bound ({res['least_gb']:.2f} GB: "
+                f"weights {param_bytes / 1e9:.2f} GB, cache {cache_bytes / 1e9:.2f} GB)")
     else:
-        tflops = flops / (warm / 1e3) / 1e12
-        res.update(tflop=flops / 1e12, tflops=tflops, of_peak=tflops * 1e12 / PEAK_BF16_FLOPS,
+        tflops = counted.flops / (warm / 1e3) / 1e12
+        res.update(tflops=tflops, of_peak=tflops * 1e12 / hw.PEAK_BF16_FLOPS,
                    tokens_per_s=batch * seq / (warm / 1e3))
-        what = (f"{res['tokens_per_s']:.0f} tokens/s, {tflops:.1f} TFLOP/s executed "
-                f"({flops / 1e12:.1f} TFLOP), {res['of_peak']:.1%} of the bf16 dense peak")
-        if cfg.moe is not None:
-            active = _lm_forward_flops(cfg, batch, seq, last_only=cell.kind == "prefill",
-                                       active=True) * (4.0 if cell.kind == "train" else 1.0)
-            res.update(tflop_active=active / 1e12,
-                       of_peak_active=active / (warm / 1e3) / PEAK_BF16_FLOPS)
-            what += (f"; over the active experts only {active / 1e12:.1f} TFLOP, "
-                     f"{res['of_peak_active']:.1%} of the peak")
+        what = (f"{res['tokens_per_s']:.0f} tokens/s, {tflops:.1f} TFLOP/s executed, "
+                f"{res['of_peak']:.1%} of the bf16 dense peak")
     if cfg.moe is not None:
         what += (f"; dropped (token, expert) pairs {res['dropped_share']:.4%}, by MoE layer in "
                  f"the forward [{', '.join(f'{v:.2%}' for v in res['dropped_by_layer'])}], of "
@@ -5529,7 +5484,10 @@ def main() -> int:
         "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells, **lm_cells, **moe_cells,
                   "multirank": {mode: multirank["train"][mode]["step_ms"] for mode in ("none", "int8")}},
     }
+    workloads["roofline_count_s"] = sum(COUNT_SECONDS)
     log("# workloads " + json.dumps(workloads))
+    log(f"# roofline counts (analysis.count on meta copies of {len(COUNT_SECONDS)} LM cells' "
+        f"arguments): {sum(COUNT_SECONDS):.1f} s host time")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"# {len(failures)} check(s) failed:")

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 launches = 0  # kernel launches by :func:`fused_mf_sgd_rows` (CUDA only)
 
@@ -46,6 +47,17 @@ def fused_mf_sgd_plain(
         bias_i=bias_i, global_mean=0.0 if global_mean is None else global_mean,
         weight=weight,
     )
+
+
+def cost(b: int, k: int, *, itemsize: int = 4, bias: bool = False,
+         weight: bool = False) -> analysis.KernelCost:
+    """One launch's work: about 16 float32 operations an element pair; both
+    (b, k) blocks read once and written once, the ratings read and the
+    errors written, the bias columns read and written and the weights read
+    where given (the one-value thresholds and mean aside)."""
+    nbytes = itemsize * 4.0 * b * k + 8.0 * b + (16.0 * b if bias else 0.0) + (
+        4.0 * b if weight else 0.0)
+    return analysis.KernelCost(16.0 * b * k, nbytes)
 
 
 def _launch(p_rows, q_rows, ratings, t_p, t_q, lr, lam, bias_u, bias_i,
@@ -119,7 +131,19 @@ def fused_mf_sgd_rows(
     new_q_rows, new_bias_u, new_bias_i, err)``; the bias outputs are None
     when the inputs are.  ``t_p``, ``t_q`` and ``global_mean`` are one-value
     float32 tensors.  CUDA tensors launch the kernel (or raise); CPU tensors
-    take the plain version."""
+    take the plain version.  Under :func:`analysis.count` it records
+    :func:`cost` and returns empty outputs."""
+    rec = analysis.counting()
+    if rec is not None:
+        b, k = p_rows.shape
+        rec.kernel("fused_mf_sgd", cost(b, k, itemsize=p_rows.element_size(),
+                                        bias=bias_u is not None, weight=weight is not None),
+                   analysis.reads(p_rows, q_rows, ratings, t_p, t_q, bias_u, bias_i,
+                                  global_mean, weight))
+        return (torch.empty_like(p_rows), torch.empty_like(q_rows),
+                None if bias_u is None else torch.empty_like(bias_u),
+                None if bias_i is None else torch.empty_like(bias_i),
+                torch.empty((b,), dtype=torch.float32, device=p_rows.device))
     if p_rows.is_cuda:
         return _launch(p_rows, q_rows, ratings, t_p, t_q, lr, lam, bias_u, bias_i,
                        global_mean, weight)

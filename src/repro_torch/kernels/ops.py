@@ -22,6 +22,12 @@ from repro_torch.kernels.pruned_topk import (  # noqa: F401  (layout helpers)
     stream_topk_tiles,
     tile_catalog,
 )
+from repro_torch.roofline import analysis
+
+
+def _device(device: DeviceLike) -> torch.device:
+    """The call's device: meta only while :func:`analysis.count` runs."""
+    return resolve_device(device, meta_ok=analysis.counting() is not None)
 
 
 def pruned_matmul(
@@ -35,7 +41,7 @@ def pruned_matmul(
 ) -> torch.Tensor:
     """All-pairs early-stopped product ``(m, k) x (n, k) -> (m, n)``; ranks
     come from the current factor values (dynamic pruning)."""
-    dev = resolve_device(device)
+    dev = _device(device)
     check_on(dev, p=p, q=q)
     r_u = effective_ranks(p, t_p)
     r_i = effective_ranks(q, t_q)
@@ -58,7 +64,7 @@ def pruned_topk(
     """Top-k pruned scores per user row: ``(m, k) x (n, k) -> 2 x (m, topk)``,
     identical to scoring everything and stable-sorting
     (``ref.pruned_topk_ref``) without the (m, n) score matrix."""
-    dev = resolve_device(device)
+    dev = _device(device)
     check_on(dev, p=p, q=q, item_bias=item_bias)
     n = q.shape[0]
     if not 0 < topk <= n:
@@ -98,7 +104,7 @@ def fused_mf_sgd(
     ``weight`` gates the updates.  Thresholds and the global mean may be
     floats or tensors; tensors already on ``device`` cost no host sync.
     """
-    dev = resolve_device(device)
+    dev = _device(device)
     check_on(dev, p_rows=p_rows, q_rows=q_rows, ratings=ratings, bias_u=bias_u,
              bias_i=bias_i, weight=weight)
 

@@ -40,9 +40,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import analysis
 
 launches = 0  # kernel launches by :func:`pruned_matmul_ranked` (CUDA only)
 MAX_K = 512  # the widest slice of a launch (pruned_matmul.cu keeps its user tile resident)
+TF32_PASSES = 3  # 3xTF32: three TF32 products on the tensor cores for each float32 one
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,6 +52,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def pruned_matmul_plain(p, q, r_u, r_i, *, out_dtype=torch.float32) -> torch.Tensor:
     """The plain PyTorch version: rank-masked operands, one fp32 product."""
     return ref.pruned_matmul_ref(p, q, r_u, r_i, out_dtype=out_dtype)
+
+
+def cost(m: int, n: int, k: int, r_u=None, r_i=None, *, itemsize: int = 4,
+         out_itemsize: int = 4) -> analysis.KernelCost:
+    """One call's work: the pair products each (u, i) needs (cut at
+    ``min(r_u, r_i)``), the factor prefixes they read, the ranks and the
+    (m, n) output written.  Without ranks to read (None, or meta) every
+    rank is ``k``.  The kernel runs each float32 product as
+    :data:`TF32_PASSES` TF32 ones: ``analysis.bound(TF32_PASSES * flops,
+    bytes, hw.PEAK_TF32_FLOPS)``."""
+    flops, nbytes, dense = analysis.pair_work(m, n, k, r_u, r_i, itemsize)
+    return analysis.KernelCost(flops, nbytes + out_itemsize * m * n, products=True, dense=dense)
 
 
 def column_slices(k: int):
@@ -114,7 +128,16 @@ def _launch(p, q, r_u, r_i, out_dtype) -> torch.Tensor:
 def pruned_matmul_ranked(p, q, r_u, r_i, *, out_dtype=torch.float32) -> torch.Tensor:
     """``(m, k) x (n, k) -> (m, n)`` with the sum of pair (u, i) cut at
     ``min(r_u[u], r_i[i])``.  CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version."""
+    tensors take the plain version.  Under :func:`analysis.count` it
+    records :func:`cost` and returns an empty output."""
+    rec = analysis.counting()
+    if rec is not None:
+        (m, k), n = p.shape, q.shape[0]
+        out_itemsize = torch.finfo(out_dtype).bits // 8
+        rec.kernel("pruned_matmul", cost(m, n, k, r_u, r_i, itemsize=p.element_size(),
+                                         out_itemsize=out_itemsize),
+                   analysis.reads(p, q, r_u, r_i))
+        return torch.empty((m, n), dtype=out_dtype, device=p.device)
     if p.is_cuda:
         return _launch(p, q, r_u, r_i, out_dtype)
     return pruned_matmul_plain(p, q, r_u, r_i, out_dtype=out_dtype)

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.ranks import rank_mask
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis
 
 launches = 0  # kernel launches by :func:`pruned_topk_ranked` (CUDA only)
 # an engine's worker thread and its caller's thread launch at the same time
@@ -96,6 +97,16 @@ def pruned_topk_plain(p, q, r_u, r_i, bias, topk: int, *, block_n: int = 1024):
     qm = q.float() * rank_mask(r_i, k)
     q_tiles, b_tiles, offs = tile_catalog(qm, bias.float(), block_n)
     return stream_topk_tiles(pm, q_tiles, b_tiles, offs, topk=topk)
+
+
+def cost(m: int, n: int, k: int, topk: int, r_u=None, r_i=None) -> analysis.KernelCost:
+    """One launch's work: the pair products each (u, i) needs (cut at
+    ``min(r_u, r_i)``), the factor prefixes they read, the ranks, the bias
+    and the (m, topk) scores and indices written.  Without ranks to read
+    (None, or meta) every rank is ``k``."""
+    flops, nbytes, dense = analysis.pair_work(m, n, k, r_u, r_i)
+    return analysis.KernelCost(flops, nbytes + 4.0 * n + 8.0 * m * topk, products=True,
+                               dense=dense)
 
 
 def split_geometry(m: int, n: int, num_sms: int, topk: int):
@@ -157,7 +168,16 @@ def pruned_topk_ranked(p, q, r_u, r_i, bias, topk: int, *, block_n: int = 1024):
     """Top-k per user row of ``sum_{t < min(r_u, r_i)} p q + bias``:
     ``(scores, item_indices)``, each (m, topk), scores descending, ties to
     the lower index.  CUDA tensors launch the kernel (or raise); CPU tensors
-    take the plain version, whose tile width is ``block_n``."""
+    take the plain version, whose tile width is ``block_n``.  Under
+    :func:`analysis.count` it records :func:`cost` and returns empty
+    outputs."""
+    rec = analysis.counting()
+    if rec is not None:
+        (m, k), n = p.shape, q.shape[0]
+        rec.kernel("pruned_topk", cost(m, n, k, topk, r_u, r_i),
+                   analysis.reads(p, q, r_u, r_i, bias))
+        return (torch.empty((m, topk), dtype=torch.float32, device=p.device),
+                torch.empty((m, topk), dtype=torch.int32, device=p.device))
     if p.is_cuda:
         return _launch(p, q, r_u, r_i, bias, topk)
     return pruned_topk_plain(p, q, r_u, r_i, bias, topk, block_n=block_n)

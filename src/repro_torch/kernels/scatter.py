@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis
 
 launches = 0  # kernel launches by :func:`add_rows` (CUDA only)
 
@@ -81,11 +82,37 @@ def _launch(table, idx, rows, keep) -> torch.Tensor:
     return table
 
 
+def cost(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+         keep: Optional[torch.Tensor] = None) -> analysis.KernelCost:
+    """One launch's work: an add an element of ``rows``; the rows and the
+    indices read once, each distinct row of the table it touches read once
+    and written once.  Without indices to read (meta) every index is
+    distinct."""
+    b = idx.shape[0]
+    k = rows.numel() // b if b else 0
+    if analysis.has_values(idx) and (keep is None or analysis.has_values(keep)):
+        touched = torch.unique(idx if keep is None else idx[keep]).numel()
+        dense = False
+    else:
+        touched, dense = min(b, table.shape[0]), True
+    nbytes = (rows.numel() * rows.element_size() + idx.numel() * idx.element_size()
+              + 2.0 * table.element_size() * touched * k)
+    return analysis.KernelCost(float(rows.numel()), float(nbytes), dense=dense)
+
+
 def add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *,
              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``table[idx] += rows`` in place, repeats added in batch order; returns
     ``table``.  ``keep`` (B,) bool leaves rows out.  A CUDA table launches the
-    kernel (or raises); a CPU table takes ``index_add_``."""
+    kernel (or raises); a CPU table takes ``index_add_``.  Under
+    :func:`analysis.count` it records :func:`cost` and returns ``table``."""
+    rec = analysis.counting()
+    if rec is not None:
+        c = cost(table, idx, rows, keep)
+        moved = analysis.reads(idx, rows, keep)
+        row_bytes = (c.bytes - sum(read for _, read, _ in moved[:2])) / 2
+        rec.kernel("add_rows", c, moved + [(table, row_bytes, row_bytes)])
+        return table
     if table.is_cuda:
         return _launch(table, idx, rows, keep)
     if keep is not None:

@@ -89,7 +89,11 @@ def embedding_bag(
         sums = segment_sum(rows, segment_ids, num_bags)
         if combiner == "sum":
             return sums
-        counts = torch.bincount(segment_ids, minlength=num_bags).float()
+        # integer counts, exact in float32 in any order; static-shaped, so a
+        # step on meta tensors (roofline.analysis.count) takes this path too
+        counts = sums.new_zeros((num_bags,), dtype=torch.float32).index_add_(
+            0, segment_ids, torch.ones(segment_ids.shape, dtype=torch.float32,
+                                       device=segment_ids.device))
         return sums / torch.clamp(counts, min=1.0)[:, None]
     if combiner == "max":
         out = torch.full((num_bags,) + tuple(rows.shape[1:]), float("-inf"), dtype=rows.dtype,

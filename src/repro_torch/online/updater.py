@@ -237,11 +237,7 @@ class OnlineUpdater:
         """Arm cold-row eviction (``store/eviction.UserEvictor``): event user
         ids become external ids, translated to physical rows on every apply;
         ``evictor.maybe_evict()`` may spill and compact the user tables at
-        publish points.  Not on a mesh."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "eviction compacts whole user tables; mesh-backed updates "
-                "hold blocks of them")
+        publish points.  ``bind`` refuses a mesh-backed updater."""
         evictor.bind(self)
         self.evictor = evictor
 

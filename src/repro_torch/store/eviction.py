@@ -136,6 +136,10 @@ class UserEvictor:
     def bind(self, updater) -> None:
         """Attach to an updater; the initial remap is the identity over the
         current physical table."""
+        if updater.mesh is not None:
+            raise ValueError(
+                "eviction is a single-host feature: mesh-sharded tables "
+                "must keep their row counts divisible over the mesh")
         if updater.params.implicit is not None:
             raise ValueError(
                 "eviction does not support the SVD++ variant (per-user implicit "

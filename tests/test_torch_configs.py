@@ -12,7 +12,9 @@ and microbatched gradients held against the JAX reference on the CPU.
   reference's on ``jax.sharding.AbstractMesh`` shapes (2, 2), (2, 2, 2),
   (16, 16) and (2, 16, 16), the GAT's layout helpers too; the port reads a
   layout-only stand-in mesh.  On (16, 16) qwen1.5-4b's 20 KV heads do not
-  divide over "model": its caches take the split-S layout.
+  divide over "model": its caches take the split-S layout.  The bytes of
+  one device's blocks of each cell's arguments (``dryrun.
+  device_argument_bytes``) equal the reference's shard shapes.
 * ``Adam`` (with and without weight decay) and ``Sgd`` (momentum 0 and 0.9)
   over 3 steps in float32 and bfloat16: within 1e-6 relative (the
   reference called op by op, each op rounded as the port's).
@@ -35,6 +37,8 @@ from repro.optim import optimizers as joptim
 from repro_torch import configs, tree
 from repro_torch.configs import base
 from repro_torch.distributed import collectives, sharding
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import LayoutMesh
 from repro_torch.models import recsys
 from repro_torch.optim import optimizers
 
@@ -43,17 +47,6 @@ PORTED = ("gemma-7b", "qwen1.5-4b", "qwen3-4b", "deepseek-v2-lite-16b", "granite
 MESHES = [((2, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model")),
           ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
 CELLS = [(arch, sid) for arch in PORTED for sid in jconfigs.shape_ids(arch)]
-
-
-class LayoutMesh:
-    """Axis names and extents only: all the port's layout functions read."""
-
-    def __init__(self, shape, names):
-        self.mesh_dim_names = tuple(names)
-        self._shape = tuple(shape)
-
-    def size(self, dim):
-        return self._shape[dim]
 
 
 @pytest.fixture(scope="module")
@@ -162,6 +155,20 @@ def test_layouts_are_the_reference_specs(built, shape, names):
         assert set(got_specs) == set(want_specs), cell
         for path, spec in got_specs.items():
             assert spec == want_specs[path], (cell, path, spec, want_specs[path])
+
+
+@pytest.mark.parametrize("shape,names", MESHES)
+def test_device_argument_bytes_are_the_reference_shards(built, shape, names):
+    """The dry run's bytes of one device's blocks equal the reference's shard
+    shapes under ``sanitize_shardings``, cell by cell."""
+    amesh = jax.sharding.AbstractMesh(shape, names)
+    stand_in = LayoutMesh(shape, names)
+    for cell, (want_cell, got_cell) in built.items():
+        want = jsharding.sanitize_shardings(want_cell.in_shardings(amesh), want_cell.abstract_args)
+        shardings = _ref_leaves(want)
+        want_bytes = sum(int(np.prod(shardings[path].shard_shape(leaf.shape))) * leaf.dtype.itemsize
+                         for path, leaf in _ref_leaves(want_cell.abstract_args).items())
+        assert dryrun.device_argument_bytes(got_cell, stand_in) == want_bytes, cell
 
 
 @pytest.mark.parametrize("shape,names", MESHES)

@@ -383,11 +383,11 @@ class _OneRankMesh:
 
 
 def test_mesh_backed_updater_refuses_eviction_as_the_reference(tmp_path):
-    """ROADMAP C8: neither package evicts on a mesh.  The reference's
-    ``attach_evictor`` hands the updater to ``UserEvictor.bind``, which raises
-    ValueError for a mesh-backed updater; the port's refuses before binding
-    (NotImplementedError).  Both updaters stay unarmed, and the same evictor
-    arms an updater without a mesh."""
+    """ROADMAP C8: neither package evicts on a mesh.  Both ``attach_evictor``
+    hand the updater to ``UserEvictor.bind``, which raises ValueError
+    ("single-host") for a mesh-backed updater, called through the updater
+    or directly.  Both updaters stay unarmed, and the same evictor arms an
+    updater without a mesh."""
     import jax
     from jax.sharding import Mesh
 
@@ -408,8 +408,10 @@ def test_mesh_backed_updater_refuses_eviction_as_the_reference(tmp_path):
     with pytest.raises(ValueError, match="single-host"):
         ref.attach_evictor(evictor(jeviction, "ref"))
     ev = evictor(eviction, "port")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="single-host"):
         port.attach_evictor(ev)
+    with pytest.raises(ValueError, match="single-host"):
+        ev.bind(port)
     assert port.evictor is None and ev.updater is None
     single = updater.OnlineUpdater(mf.params_from_numpy(fields, device="cpu"), None, 0.05, 0.05,
                                    device="cpu", **kw)
