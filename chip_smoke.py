@@ -159,7 +159,9 @@ script exits) it:
    (bitwise); then two sharded steps of 2^20 ratings in each of none, int8
    and int8_ef (none and int8 through dpmf's ``train_1m_sm`` and
    ``train_1m_smc`` cells), the last timed by part with the bytes of each collective,
-   every block's replicas bitwise equal; ``topk_sharded`` (top-100, 256
+   every block's replicas bitwise equal, and those bytes by name equal to
+   the same cells counted on meta on a fake (2, 2) mesh at the same sizes
+   (``dryrun.partitioned``, ``analysis.count``, in a subprocess); ``topk_sharded`` (top-100, 256
    users) and ``evaluate_engine(mesh=)`` over 512 users, ``pruned_topk``
    counted on every rank (under ``multirank``), held against rank 0's
    ``engine.topk`` and each rank's kernel against the plain version on a
@@ -214,7 +216,9 @@ script exits) it:
    and warm, its peak memory, its work counted first on meta copies of its
    arguments (``repro_torch.roofline.analysis.count``: one line of counted
    TFLOP, least bytes, the binding bound on the H100's peaks
-   (``roofline/hw.py``) and its share, the useful share of 6·N·D or 2·N·D),
+   (``roofline/hw.py``) and its share, the useful share of 6·N·D or 2·N·D,
+   and the count's peak, arguments plus ``temp``, beside the card's
+   ``max_memory_allocated`` over the warm step),
    train's and prefill's tokens/s against the bf16 dense peak; the count's
    host time is printed at the end; then a float32 copy of each arch
    cut to 2 layers (TF32 off) against the CPU: the train step (loss,
@@ -3294,6 +3298,46 @@ def _mr_small(ctx, tmp, sizes):
 
 MR_CELLS = {"none": "train_1m_sm", "int8": "train_1m_smc"}
 
+# the owner-compute cells counted on a (2, 2) mesh over the fake process
+# group, on meta, at the multirank phase's sizes (a process of its own: the
+# fake group is process-global)
+_MR_COUNT = r"""
+import dataclasses, json, sys
+from repro_torch import configs
+from repro_torch.configs import base, dpmf
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import LayoutMesh, fake_mesh
+from repro_torch.roofline import analysis
+users, items, rows, shape, names = json.loads(sys.argv[1])
+dpmf.CONFIG = dataclasses.replace(dpmf.CONFIG, num_users=users, num_items=items)
+out = {}
+with fake_mesh(LayoutMesh(shape, names)) as mesh:
+    for sid in ("train_1m_sm", "train_1m_smc"):
+        cell = configs.build_cell("dpmf", sid)
+        batch = {key: base.abstract((rows,), leaf.dtype)
+                 for key, leaf in cell.abstract_args[2].items()}
+        step, args = dryrun.partitioned(cell, mesh, cell.abstract_args[:2] + (batch,)
+                                        + cell.abstract_args[3:])
+        log = analysis.count(step, *args).collective_log
+        out[sid] = {"bytes_sent": log.bytes_sent, "calls": log.calls}
+print("COUNTED " + json.dumps(out))
+"""
+
+
+def _mr_counted(users, items, rows):
+    """dpmf's ``train_1m_sm`` and ``train_1m_smc`` at ``users`` x ``items``
+    and a batch of ``rows`` ratings, counted on a fake (2, 2) mesh on meta
+    (``dryrun.partitioned`` and ``analysis.count`` in a subprocess): each
+    cell's collectives by name, bytes sent and calls, as a rank logs them."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _MR_COUNT,
+                           json.dumps([users, items, rows, list(MR_SHAPE), list(MR_NAMES)])],
+                          env=env, capture_output=True, text=True, timeout=300)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("COUNTED ")]
+    if proc.returncode or not line:
+        raise RuntimeError(f"the fake-mesh count failed: {proc.stderr[-2000:]}")
+    return json.loads(line[0][len("COUNTED "):])
+
 
 def _mr_train(ctx, mode, steps, m, n, batch_rows):
     """``steps`` sharded steps of ``batch_rows`` ratings in ``mode`` on this
@@ -3521,6 +3565,20 @@ def multirank_phase(dev, tmp, sizes=None):
                   "replicas of every block bitwise equal")
         out["train"] = {mode: {k: v for k, v in res[0].items() if k != "digests"}
                         for mode, res in train.items()}
+        t_count = time.perf_counter()
+        counted = _mr_counted(sz["users"], sz["items"], sz["batch"])
+        out["count_s"] = time.perf_counter() - t_count
+        for mode, sid in MR_CELLS.items():
+            r0, want = train[mode][0], counted[sid]
+            log(f"  {sid} counted on a fake {MR_SHAPE} mesh on meta: bytes sent by name "
+                f"{want['bytes_sent']}, calls {want['calls']}")
+            check(want["bytes_sent"] == r0["collective_bytes"] and want["calls"] == r0["calls"]
+                  and all(r["collective_bytes"] == r0["collective_bytes"] for r in train[mode]),
+                  f"multirank-dpmf: {sid}'s collectives counted on the fake mesh "
+                  f"({sum(want['bytes_sent'].values())} bytes in {sum(want['calls'].values())} "
+                  f"calls) equal, name by name, what every rank logged "
+                  f"({sum(r0['collective_bytes'].values())} bytes)")
+        out["counted"] = counted
         out["train_peak_gb"] = [r["peak_gb"] for r in train["int8_ef"]]
         pool.run(_mr_release)
         users = np.random.default_rng(SEED + 82).integers(0, sz["users"], sz["topk_users"])
@@ -5036,7 +5094,15 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
         cache_bytes = sum(t.numel() * t.element_size() for t in _state_tensors(new_state))
         res["cache_gb"] = cache_bytes / 1e9
     del out
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _, warm = _clock(dev, lambda: cell.step_fn(*args))
+    # the count's peak (the arguments and what the step holds beyond them at
+    # its height) beside the card's over the warm step
+    res["counted_peak_gb"] = (counted.argument_bytes + counted.temp) / 1e9
+    res["warm_peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else 0.0)
     tokens = batch * (1 if cell.kind == "decode" else seq)
     roof = analysis.roofline_terms(counted.flops, counted.least_bytes, 0.0, 1,
                                    model_flops=analysis.lm_model_flops(
@@ -5053,7 +5119,11 @@ def _lm_cell(dev, cell, cfg, batch, seq, seed):
         f"{res['tflop']:.3f} TFLOP counted ({res['recompute_tflop']:.3f} recomputed), least "
         f"{res['least_gb']:.3f} GB; bound by {res['bound_by']} {bound_ms:.3f} ms, "
         f"{res['of_bound']:.1%} of it warm; useful share {res['useful_share']:.1%} "
-        f"({res['model_tflop']:.3f} TFLOP of {6 if cell.kind == 'train' else 2}*N*D)")
+        f"({res['model_tflop']:.3f} TFLOP of {6 if cell.kind == 'train' else 2}*N*D); "
+        f"peak counted {res['counted_peak_gb']:.3f} GB (arguments "
+        f"{counted.argument_bytes / 1e9:.3f} + temp {counted.temp / 1e9:.3f}) against "
+        f"max_memory_allocated over the warm step {res['warm_peak_gb']:.3f} GB "
+        f"(ratio {res['counted_peak_gb'] / max(res['warm_peak_gb'], 1e-9):.3f})")
     if cell.kind == "decode":
         what = (f"{res['of_bound']:.1%} of the bytes bound ({res['least_gb']:.2f} GB: "
                 f"weights {param_bytes / 1e9:.2f} GB, cache {cache_bytes / 1e9:.2f} GB)")

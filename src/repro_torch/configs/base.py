@@ -49,6 +49,9 @@ class CellSpec:
     in_shardings: Callable[[Any], Tuple]
     donate_argnums: Tuple[int, ...] = ()
     note: str = ""
+    # arguments that a step which takes its mesh is given whole, not as
+    # this rank's blocks (a batch it cuts its own chunk of)
+    whole_args: Tuple[int, ...] = ()
 
     @property
     def cell_id(self) -> str:

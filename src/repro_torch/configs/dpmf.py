@@ -150,6 +150,7 @@ def _train_cell_owner_compute(batch: int, compress: bool = False) -> base.CellSp
         in_shardings=_train_layouts(a_params, a_opt),
         donate_argnums=(0, 1),
         note="owner-compute DP-MF step across ranks (batch routed by user shard)",
+        whole_args=(2, 3, 4),
     )
 
 

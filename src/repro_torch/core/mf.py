@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.ranks import effective_ranks, rank_mask
 from repro_torch.device import DeviceLike, check_on, resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.scatter import add_rows, add_rows_in_passes
+from repro_torch.kernels.scatter import add_rows
 from repro_torch.optim.optimizers import RowOptimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -477,20 +477,6 @@ def _resolve_grad_compression(grad_compression: str, compress_grads: bool) -> st
     return grad_compression
 
 
-def _add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *,
-              keep: Optional[torch.Tensor] = None, in_passes: Optional[bool] = None) -> None:
-    """``table[idx] += rows`` with repeated indices added in batch order, so
-    every replica of a block that applies the same rows holds the same
-    bits: :func:`~repro_torch.kernels.scatter.add_rows` (``index_add_`` on
-    the CPU, the batch-order kernel on CUDA), or with ``in_passes`` its
-    plain form in passes of distinct indices.  ``keep`` drops rows that are
-    exact zeros (adding them changes no bit)."""
-    if in_passes:
-        add_rows_in_passes(table, idx, rows, keep=keep)
-    else:
-        add_rows(table, idx, rows, keep=keep)
-
-
 def init_error_feedback_state(params: MFParams, opt_state: MFOptState, mesh=None) -> MFOptState:
     """Attach this rank's blocks of the int8 error-feedback residual tables
     to ``opt_state`` (``params`` are the rank's blocks).
@@ -556,8 +542,9 @@ def train_step_shard_map(
     6. the weighted metrics, summed over the data axes.
 
     Replicated blocks (``p`` over ``"model"``, ``q`` over the data axes)
-    add their rows in batch order (:func:`_add_rows`), so the replicas stay
-    bitwise equal on the card as on the CPU.
+    add their rows in batch order (``kernels.scatter.add_rows``), so the
+    replicas stay bitwise equal on the card as on the CPU (``keep`` leaves
+    out rows that are exact zeros: adding them changes no bit).
 
     An optional ``batch["weight"]`` gates rows out of the update and the
     metrics (weight-0 rows are inert, which lets the router pad buckets).
@@ -657,14 +644,14 @@ def train_step_shard_map(
         acc_p, acc_q = opt_state.p["acc"], opt_state.q["acc"]
         acc_p_rows = acc_p[u_loc] + g_p * g_p
         dp_rows = -lr * g_p / torch.sqrt(acc_p_rows + eps) * wv
-        _add_rows(acc_p, u_loc, g_p * g_p, keep=p_keep)
+        add_rows(acc_p, u_loc, g_p * g_p, keep=p_keep)
         acc_q_rows = acc_q[safe_i] + g_q * g_q
         dq_rows = torch.where(is_local[:, None],
                               -lr * g_q / torch.sqrt(acc_q_rows + eps) * wv, 0.0)
     else:
         dp_rows = -lr * g_p
         dq_rows = -lr * g_q
-    _add_rows(params.p, u_loc, dp_rows.to(params.p.dtype), keep=p_keep)
+    add_rows(params.p, u_loc, dp_rows.to(params.p.dtype), keep=p_keep)
 
     # 5. each data shard computed q deltas for its own ratings only: gather
     # the sparse (B_loc, k) rows so every replica of the block applies all
@@ -686,13 +673,14 @@ def train_step_shard_map(
                 add_rows(ef_q, safe_i, torch.where(is_local[:, None], dq_rows - recon, 0.0))
         else:
             gat_dq = spmd.all_gather(dq_rows, mesh, dp, name="dq gather")
-        # the indices travel with -1 on the rows left out
-        gat_idx = spmd.all_gather(torch.where(q_keep, i_loc, -1), mesh, dp,
-                                  name="dq index gather")
+        # the indices travel as int32 (item ids lie below 2^31), with -1 on
+        # the rows left out
+        gat_idx = spmd.all_gather(torch.where(q_keep, i_loc, -1).to(torch.int32), mesh, dp,
+                                  name="dq index gather").long()
         gat_keep = gat_idx >= 0
-        _add_rows(params.q, gat_idx, gat_dq.to(params.q.dtype), keep=gat_keep)
+        add_rows(params.q, gat_idx, gat_dq.to(params.q.dtype), keep=gat_keep)
         if adagrad:
-            _add_rows(acc_q, gat_idx, spmd.all_gather(g_q * g_q, mesh, dp, name="g_q^2 gather"),
+            add_rows(acc_q, gat_idx, spmd.all_gather(g_q * g_q, mesh, dp, name="g_q^2 gather"),
                       keep=gat_keep)
     else:
         add_rows(params.q, safe_i, dq_rows.to(params.q.dtype))

@@ -24,10 +24,16 @@ Where the reference returns a ``NamedSharding`` (:func:`ns`,
 ``Spec``: a mesh is needed only to read its axis names and extents, through
 ``spmd.axis_names`` and ``spmd.axis_size``, so the layout functions take a
 ``DeviceMesh`` or any object with ``mesh_dim_names`` and ``size(dim)``.
+
+The dry run (``repro_torch.launch.dryrun``) lays a cell's arguments out as
+DTensors (:func:`placements`, :func:`distribute_tree`) and lets DTensor's
+sharding propagation partition the step, as XLA's partitioner does the
+reference's.  Where it cannot partition an op as the port writes it, the
+dry run's own rules take over (``repro_torch.launch.partition``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +104,53 @@ def sanitize_shardings(shardings: Any, avals: Any, mesh) -> Any:
         return P(*out)
 
     return tree_map_leaves(fix, avals, shardings)
+
+
+def placements(spec: Spec, mesh) -> List[Any]:
+    """``spec`` as DTensor placements, one a mesh dim: a mesh axis named in
+    dim ``d``'s entry becomes ``Shard(d)``, every other ``Replicate()``.
+    Several axes on one dim shard it in the mesh's row-major order, which
+    is the spec's only when the entry names them in the mesh's order: an
+    entry in another order (or an axis named twice) raises, naming the
+    spec, since no plain ``Shard``s lay it out."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = spmd.axis_names(mesh)
+    out: List[Any] = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        at = [names.index(axis) for axis in entry]
+        if at != sorted(at) or any(not isinstance(out[i], Replicate) for i in at):
+            raise ValueError(f"spec {spec}: entry {entry} is not in the mesh's order {names} "
+                             "(or repeats an axis); plain Shard placements cannot lay it out")
+        for i in at:
+            out[i] = Shard(dim)
+    return out
+
+
+def distribute_tree(tree: Any, layouts: Any, mesh) -> Any:
+    """Every tensor leaf of ``tree`` as a DTensor on ``mesh`` (a
+    ``DeviceMesh``) laid out by its spec of ``layouts`` after
+    :func:`sanitize_shardings`.  Each rank cuts its own block out of the
+    leaf it holds (no collective: every rank must hold the same full
+    leaves, as SPMD ranks do); meta leaves give meta blocks."""
+    from torch.distributed.tensor import distribute_tensor
+
+    layouts = sanitize_shardings(layouts, tree, mesh)
+
+    def one(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return distribute_tensor(leaf, mesh, placements(spec, mesh), src_data_rank=None)
+
+    return tree_map_leaves(one, tree, layouts)
+
+
+def is_dtensor(x) -> bool:
+    """True for a DTensor (the dry run's partitioned steps; no card path
+    makes one), told by its type's name, so no card path imports DTensor."""
+    return type(x).__name__ == "DTensor" and isinstance(x, torch.Tensor)
 
 
 def _span(mesh, axes, rows: int) -> Tuple[int, int]:

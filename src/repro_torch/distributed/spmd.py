@@ -12,9 +12,13 @@ those dim names, and the jax collectives map onto its dim groups:
 * ``jax.lax.pmax(x, axes)``   -> :func:`pmax` (``all_reduce(MAX)``)
 * ``jax.lax.all_gather(x, axes)`` -> :func:`all_gather`
 
-An axis tuple such as ``("pod", "data")`` is reduced or gathered one dim
-group at a time, innermost first, so a gather comes out in the row-major
-(pod-major) order of ``shard_map``'s flattened axes.
+An axis tuple such as ``("pod", "data")`` is gathered in one collective on
+the group of the axes flattened (``DeviceMesh._flatten``), in the row-major
+(pod-major) order of ``shard_map``'s flattened axes, as XLA runs it; it is
+reduced one dim group at a time, innermost first (a sum over the flattened
+group would add in another order).  On (2, 2, 2) a psum over both data axes
+so moves two results of its input's size where XLA's one all-reduce moves
+one.
 
 The backend is the caller's choice, never a fallback: ``nccl`` with one rank
 per card (rank r on ``cuda:r``), ``gloo`` otherwise, including several ranks
@@ -25,6 +29,10 @@ cross through host copies, :func:`reduce_in_group` and
 :class:`CollectiveLog` records what each collective moved and how long it
 took, for the measurements of the multi-rank phase; it synchronises the
 card around every collective, so it is for measuring, not for serving.
+:class:`CollectiveBytes` is the counterpart of the reference's
+``collective_bytes``: the result bytes of every collective a count sees
+dispatched, by the reference's kinds (the count of
+``repro_torch.roofline.analysis`` keeps one).
 """
 from __future__ import annotations
 
@@ -209,6 +217,82 @@ def gather_in_group(x: torch.Tensor, group, *, name: Optional[str] = None) -> Li
     return timed(name, x, x.numel() * x.element_size(), run)
 
 
+# ---------------------------------------------------------------------------
+# collective bytes by kind
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+# the dispatched collective ops by name: c10d's (which the port's own
+# collectives run) and _c10d_functional's (which DTensor's redistributions run)
+_KIND_OF = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all", "all_to_all_single": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute",
+}
+# ops of those namespaces that move nothing
+_NOT_MOVING = frozenset(("wait_tensor", "_wrap_tensor_autograd", "barrier", "monitored_barrier"))
+_NAMESPACES = frozenset(("c10d", "_c10d_functional", "_c10d_functional_autograd"))
+
+
+def collective_kind(func) -> Optional[str]:
+    """The reference's kind of a dispatched op (an ``OpOverload``), or None
+    for an op that is no collective.  A collective op of no known kind
+    raises: the count would miss its bytes."""
+    if func.namespace not in _NAMESPACES:
+        return None
+    name = func._overloadpacket.__name__
+    if name in _NOT_MOVING:
+        return None
+    if name not in _KIND_OF:
+        raise ValueError(f"collective {func} has no kind in the count")
+    return _KIND_OF[name]
+
+
+@dataclasses.dataclass
+class CollectiveBytes:
+    """Per kind, the result-buffer bytes per device and the calls of every
+    collective added, as the reference parses them from the partitioned HLO
+    (the result of an all-gather is the whole gathered tensor, of an
+    all-reduce the tensor)."""
+
+    bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    calls: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def add(self, kind: str, out) -> int:
+        """Count one collective of ``kind`` whose outputs are ``out`` (a
+        tensor or a nest of lists and tuples of them); returns its bytes."""
+        nbytes = sum(t.numel() * t.element_size() for t in _flat_tensors(out))
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        return nbytes
+
+    def record(self) -> Dict[str, float]:
+        """The reference's keys: ``<kind>_bytes``, ``<kind>_count`` and
+        ``total_bytes``."""
+        out: Dict[str, float] = {f"{k}_bytes": float(self.bytes.get(k, 0))
+                                 for k in COLLECTIVE_KINDS}
+        out.update({f"{k}_count": int(self.calls.get(k, 0)) for k in COLLECTIVE_KINDS})
+        out["total_bytes"] = float(sum(self.bytes.values()))
+        return out
+
+
+def _flat_tensors(out) -> List[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [t for part in out for t in _flat_tensors(part)]
+    return []
+
+
 def _reduce(x: torch.Tensor, mesh, axes: Axes, op, name: Optional[str]) -> torch.Tensor:
     out = x.clone()
     names = axis_names(mesh)
@@ -231,10 +315,34 @@ def pmax(x: torch.Tensor, mesh, axes: Axes, *, name: Optional[str] = None) -> to
 def all_gather(x: torch.Tensor, mesh, axes: Axes, *, dim: int = 0,
                name: Optional[str] = None) -> torch.Tensor:
     """The blocks of every rank of ``axes``, concatenated along ``dim`` in
-    row-major rank order (``jax.lax.all_gather(x, axes, tiled=True)``)."""
-    out = x.contiguous()
+    row-major rank order (``jax.lax.all_gather(x, axes, tiled=True)``): one
+    collective, on the axes' flattened group where more than one has ranks
+    to gather (:func:`flat_group`)."""
     names = axis_names(mesh)
-    for axis in reversed(_axes(axes)):
-        if mesh.size(names.index(axis)) > 1:
-            out = torch.cat(gather_in_group(out, mesh.get_group(axis), name=name), dim=dim)
-    return out
+    spread = [a for a in _axes(axes) if mesh.size(names.index(a)) > 1]
+    if not spread:
+        return x.contiguous()
+    return torch.cat(gather_in_group(x, flat_group(mesh, spread), name=name), dim=dim)
+
+
+def flat_group(mesh, axes: Sequence[str]):
+    """The process group of ``axes`` taken as one dim, its ranks in row-major
+    order: the dim's own group for one axis, else the group of the mesh's
+    dims flattened (made once a mesh and kept, every rank in the same call;
+    the axes must come in the mesh's order)."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = axis_names(mesh)
+    if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    flat = "_".join(axes)
+    cache = mesh.__dict__.setdefault("_spmd_flat_groups", {})
+    if flat not in cache:
+        override = None
+        if dist.get_backend() == "gloo":
+            options = dist.ProcessGroupGloo._Options()
+            options._timeout = _timeout
+            override = ("gloo", options)
+        cache[flat] = mesh[axes]._flatten(flat, backend_override=override).get_group()
+    return cache[flat]

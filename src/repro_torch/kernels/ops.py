@@ -120,3 +120,65 @@ def fused_mf_sgd(
         global_mean=scalar(global_mean) if has_bias else None,
         weight=None if weight is None else weight.float().contiguous(),
     )
+
+
+# ---------------------------------------------------------------------------
+# the TPU kernel's tiles: padding and work fractions
+# ---------------------------------------------------------------------------
+
+TOPK_BLOCK_M = 128  # the reference's pruned_topk tiles: users,
+TOPK_BLOCK_N = 256  # items,
+TOPK_BLOCK_K = 128  # and the factor depth of a block
+
+
+def _pad_to(x: torch.Tensor, multiple: int, dim: int, value=0) -> torch.Tensor:
+    pad = (-x.shape[dim]) % multiple
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
+
+
+def pad_catalog_for_topk_kernel(q: torch.Tensor, r_i: torch.Tensor,
+                                item_bias: Optional[torch.Tensor], *,
+                                block_n: int = TOPK_BLOCK_N, block_k: int = TOPK_BLOCK_K):
+    """The item side of the TPU kernel's layout: ``q`` zero-padded to
+    ``block_n`` rows and ``block_k`` columns, the ranks as an int32 column
+    and the biases (zeros when None) as a float32 column, both zero-padded to
+    ``block_n`` rows.  The CUDA kernels mask ragged edges themselves and take
+    none of it; it is the reference's layout, for tools that read it."""
+    n = q.shape[0]
+    bias = item_bias if item_bias is not None else torch.zeros((n,), dtype=torch.float32,
+                                                               device=q.device)
+    return (_pad_to(_pad_to(q, block_n, 0), block_k, 1),
+            _pad_to(r_i[:, None].to(torch.int32), block_n, 0),
+            _pad_to(bias.to(torch.float32)[:, None], block_n, 0))
+
+
+def pad_users_for_topk_kernel(p: torch.Tensor, r_u: torch.Tensor, *,
+                              block_m: int = TOPK_BLOCK_M, block_k: int = TOPK_BLOCK_K):
+    """The user side of :func:`pad_catalog_for_topk_kernel`'s layout: ``p``
+    zero-padded to ``block_m`` rows and ``block_k`` columns, the ranks an
+    int32 column zero-padded to ``block_m`` rows."""
+    return (_pad_to(_pad_to(p, block_m, 0), block_k, 1),
+            _pad_to(r_u[:, None].to(torch.int32), block_m, 0))
+
+
+def tile_block_stats(r_u: torch.Tensor, r_i: torch.Tensor, k: int, *, block_m: int = 128,
+                     block_n: int = 128, block_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(tile_fraction, elem_fraction)`` of a pruned all-pairs product, from
+    the ranks alone: the share of ``block_k``-deep blocks that a kernel on
+    ``block_m`` x ``block_n`` tiles runs (each tile to the smaller of its
+    users' and its items' largest rank, in whole blocks) against the dense
+    product, and the share of the element-exact work (every pair cut at
+    ``min(r_u, r_i)``, the paper's early stop), both float32.  The default
+    tiles are the reference TPU kernel's; ``pruned_matmul.cu`` runs tiles of
+    64 users by 128 items with 32-deep stages, so its own share differs."""
+    tu = _pad_to(r_u.to(torch.int32), block_m, 0).reshape(-1, block_m).amax(dim=1)
+    ti = _pad_to(r_i.to(torch.int32), block_n, 0).reshape(-1, block_n).amax(dim=1)
+    bound = torch.minimum(tu[:, None], ti[None, :]).to(torch.float32)
+    nk = -(-k // block_k)
+    tile_fraction = torch.ceil(bound / block_k).mean() / nk
+    elem_fraction = torch.minimum(r_u[:, None], r_i[None, :]).to(torch.float32).mean() / float(k)
+    return tile_fraction, elem_fraction

@@ -71,6 +71,16 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """``(..., n * d)`` -> ``(..., n, d)``: a projection's heads."""
+    return t.reshape(*t.shape[:-1], n, d)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``(..., n, d)`` -> ``(..., n * d)``: the heads back into one dim."""
+    return t.reshape(*t.shape[:-2], -1)
+
+
 def _group_queries(q: torch.Tensor, kh: int) -> torch.Tensor:
     """``(B, Sq, H, hd)`` -> ``(B, KH, G * Sq, hd)``; head ``h = kh * G + g``."""
     b, sq, h, hd = q.shape
@@ -228,9 +238,9 @@ def gqa_qkv(
     """Projections (with biases where given), qwen3's per-head RMS qk-norm
     before RoPE where given, then RoPE on q and k."""
     b, s, _ = x.shape
-    q = dense(x, params["wq"], params.get("bq")).reshape(b, s, n_heads, head_dim)
-    k = dense(x, params["wk"], params.get("bk")).reshape(b, s, n_kv_heads, head_dim)
-    v = dense(x, params["wv"], params.get("bv")).reshape(b, s, n_kv_heads, head_dim)
+    q = _split_heads(dense(x, params["wq"], params.get("bq")), n_heads, head_dim)
+    k = _split_heads(dense(x, params["wk"], params.get("bk")), n_kv_heads, head_dim)
+    v = _split_heads(dense(x, params["wv"], params.get("bv")), n_kv_heads, head_dim)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], norm_eps)
         k = rms_norm(k, params["k_norm"], norm_eps)
@@ -255,7 +265,7 @@ def gqa_self_attention(
     q, k, v = gqa_qkv(x, params, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, rope_theta=rope_theta, norm_eps=norm_eps)
     out = causal_attention(q, k, v, chunk_size=chunk_size, softmax_dtype=softmax_dtype)
-    return dense(out.reshape(x.shape[0], x.shape[1], -1), params["wo"])
+    return dense(_merge_heads(out), params["wo"])
 
 
 def _write_position(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor) -> None:
@@ -289,7 +299,7 @@ def gqa_decode_attention(
     _write_position(cache.v, v, cache.length)
     length = cache.length + 1
     out = decode_attention(q, cache.k, cache.v, length)
-    return dense(out.reshape(b, 1, -1), params["wo"]), KVCache(cache.k, cache.v, length)
+    return dense(_merge_heads(out), params["wo"]), KVCache(cache.k, cache.v, length)
 
 
 # ---------------------------------------------------------------------------

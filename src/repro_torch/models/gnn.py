@@ -90,14 +90,20 @@ def gnn_params_from_numpy(tree, device: DeviceLike = None) -> Params:
     return tree_lib.map_leaves(lambda a: torch.as_tensor(np.array(a, copy=True)).to(dev), tree)
 
 
+def _segment_max(scores: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """The largest of each segment's scores (-inf for an empty one)."""
+    idx = segment_ids[:, None].expand_as(scores)
+    smax = torch.full((num_segments,) + scores.shape[1:], float("-inf"), dtype=scores.dtype,
+                      device=scores.device)
+    return smax.scatter_reduce(0, idx, scores, "amax", include_self=False)
+
+
 def _segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                      num_segments: int) -> torch.Tensor:
     """Numerically stable softmax over edges grouped by destination node;
     ``segment_ids`` int64."""
-    idx = segment_ids[:, None].expand_as(scores)
-    smax = torch.full((num_segments,) + scores.shape[1:], float("-inf"), dtype=scores.dtype,
-                      device=scores.device)
-    smax = smax.scatter_reduce(0, idx, scores.detach(), "amax", include_self=False)
+    smax = _segment_max(scores.detach(), segment_ids, num_segments)
     smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))  # empty segments
     ex = torch.exp(scores - gather_rows(smax, segment_ids))
     denom = segment_sum(ex, segment_ids, num_segments)
@@ -130,6 +136,13 @@ class _EdgeMessages(torch.autograd.Function):
         return grad_alpha, grad_h, None, None, None
 
 
+def _edge_messages(alpha: torch.Tensor, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """:class:`_EdgeMessages`: ``(E, H)`` weights and ``(N, H, d)`` rows ->
+    ``(n, H, d)`` sums."""
+    return _EdgeMessages.apply(alpha, h, src, dst, n)
+
+
 def gat_layer(
     x: torch.Tensor,        # (N, d_in)
     edges: torch.Tensor,    # (E, 2) [src, dst]; messages flow src -> dst
@@ -156,7 +169,7 @@ def gat_layer(
     alpha = _segment_softmax(scores, dst, n)  # (E, H)
     if edge_mask is not None:
         alpha = alpha * edge_mask[:, None]
-    out = _EdgeMessages.apply(alpha, h, src, dst, n)  # (N, H, d_out)
+    out = _edge_messages(alpha, h, src, dst, n)  # (N, H, d_out)
 
     if concat:
         return F.elu(out.reshape(n, heads * d_out) + layer["bias"])

@@ -337,7 +337,8 @@ class _SlabCotangents(torch.autograd.Function):
 
 
 def moe_ffn_shard_map(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig, *,
-                      activation: str = "swiglu", mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      activation: str = "swiglu", mesh=None,
+                      split_tokens: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism without a token exchange, run SPMD on every rank
     of ``mesh``: ``x`` is this rank's block of tokens (rows over the data
     axes), ``params``' ``wg``/``wi``/``wo`` its slab of ``E / n_model``
@@ -351,7 +352,9 @@ def moe_ffn_shard_map(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoE
     slab's gradient, the router's and the shared experts' are their rank's
     loss's (sum them over the data axes, as data parallelism does), and
     ``x``'s is its block's whole gradient, the same on every rank of
-    ``"model"``."""
+    ``"model"``.  ``split_tokens=False``: ``x`` is the whole batch on every
+    rank of the data axes, and the aux loss is every rank's alike (no
+    mean over them)."""
     if mesh is None:
         raise ValueError("moe_ffn_shard_map needs a mesh: pass mesh=")
     names = spmd.axis_names(mesh)
@@ -364,7 +367,7 @@ def moe_ffn_shard_map(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoE
     cap = _capacity(x.shape[0], cfg)  # the shard's: the reference's body computes the same
 
     r = route(x, params["router"], cfg)
-    aux = _ReplicatedReduce.apply(r.aux, mesh, dp, True) if dp else r.aux
+    aux = _ReplicatedReduce.apply(r.aux, mesh, dp, True) if dp and split_tokens else r.aux
     x_routed, gates = _SlabCotangents.apply(x, r.gates, mesh)
     out_loc = _routed(x_routed, params, cfg, r._replace(gates=gates), cap, activation,
                       torch.float32, spmd.axis_index(mesh, "model") * e_loc, e_loc)

@@ -274,6 +274,13 @@ def init_dlrm_params(generator: torch.Generator, cfg: DLRMConfig,
     }
 
 
+def _upper_pairs(inter: torch.Tensor) -> torch.Tensor:
+    """``(B, F, F) -> (B, F (F - 1) / 2)``: each row's pairs above the
+    diagonal, in the reference's ``triu_indices`` order."""
+    iu, ju = torch.triu_indices(inter.shape[1], inter.shape[1], offset=1, device=inter.device)
+    return inter[:, iu, ju]
+
+
 def dlrm_forward(
     params: Params,
     dense_feats: torch.Tensor,  # (B, 13)
@@ -290,8 +297,7 @@ def dlrm_forward(
     emb = _mask_by_rank(emb.reshape(-1, cfg.embed_dim), t_v).reshape(emb.shape)
     z = torch.cat([d_vec[:, None, :], emb], dim=1)  # (B, 27, d)
     inter = torch.bmm(z, z.transpose(1, 2))
-    iu, ju = torch.triu_indices(z.shape[1], z.shape[1], offset=1, device=z.device)
-    flat = inter[:, iu, ju]  # (B, 351), the reference's triu_indices order
+    flat = _upper_pairs(inter)  # (B, 351)
     top_in = torch.cat([d_vec, flat.to(d_vec.dtype)], dim=-1)
     return _run_mlp(top_in, params["top"])[:, 0].float()
 

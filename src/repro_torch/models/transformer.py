@@ -321,6 +321,11 @@ def forward(params: Params, tokens: torch.Tensor,
     return (logits if cfg.mem_lean else logits.float()), aux
 
 
+def _gold_logit(logits: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
+    """Each position's logit at its label: ``(..., V), (..., 1) -> (...)``."""
+    return torch.gather(logits, -1, safe)[..., 0]
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: TransformerConfig) -> torch.Tensor:
     """Next-token cross entropy over the positions with ``labels >= 0``.
@@ -336,10 +341,10 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
         row_max = torch.amax(logits, dim=-1, keepdim=True)
         sumexp = torch.exp(logits - row_max).sum(dim=-1, dtype=torch.float32)
         logz = torch.log(sumexp) + row_max[..., 0].float()
-        gold = torch.gather(logits, -1, safe)[..., 0].float()
+        gold = _gold_logit(logits, safe).float()
     else:
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, safe)[..., 0]
+        gold = _gold_logit(logits, safe)
     nll = (logz - gold) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0) + aux
 

@@ -1,4 +1,4 @@
-"""Roofline terms of one card, and the count of a step's work that feeds them.
+"""Roofline terms, and the count of a step's work per device that feeds them.
 
 Counterpart of ``repro/roofline/analysis.py``.  The reference reads a
 compiled program's FLOPs and bytes from XLA's cost analysis and its
@@ -17,21 +17,44 @@ counts what a step dispatches: :func:`count` runs the step on meta tensors
 * ``least_bytes``: the step's arguments read once and its outputs written
   once (as far as the step reads and writes them), the bound
   :func:`roofline_terms` takes;
+* ``temp``: the peak of the bytes live beyond the arguments (every storage
+  the step allocates, from its allocation until it is freed; outputs
+  included), XLA's ``temp`` with the outputs in it;
+* ``collectives``: every collective's result bytes and calls by the
+  reference's kinds (``spmd.CollectiveBytes``), and ``collective_log`` the
+  port's own by name, as a rank logs them (``spmd.CollectiveLog``);
+* ``redistributions``: per aten op (or kernel), the bytes and calls of the
+  collectives DTensor ran to move that op's inputs;
 * ``op_histogram``: the aten ops dispatched, by name;
 * ``kernels``: per hand-written kernel its calls, operations and bytes by
   the formula beside its wrapper (``kernels/*.py``, ``cost``).
+
+On one device the step's arguments are plain tensors.  Partitioned on a
+mesh (:mod:`repro_torch.launch.dryrun`), they are either this rank's blocks
+and the step takes the mesh (the owner-compute cells: their collectives are
+the port's own), or DTensors laid out by the cell's specs, whose ops
+DTensor's sharding propagation partitions.  The dispatch mode declines a
+DTensor op (``NotImplemented``): DTensor then runs its redistributions and
+the local op on this rank's blocks, and those are what the mode counts, so
+every number is one device's, as the reference's compiled SPMD program is.
+The fake tensors of the propagation itself are not counted.
 
 A kernel's wrapper sees the installed count (:func:`counting`), records its
 formula and returns outputs of the right shape without running its plain
 version, so no plain op is counted in its place.  On meta there are no
 ranks or indices to read, so each formula counts the most the shapes allow
 (every rank at ``k``, every index distinct) and its record says ``dense``.
-The step's collectives are not counted yet: one card has none.
+A kernel has no sharding rule: given DTensors, it runs on their replicas
+(``repro_torch.launch.partition``), as XLA runs a custom call it cannot
+partition, and the gathers show under its name in ``redistributions``
+(:func:`caused_by`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +63,8 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.roofline import hw
 
 # ---------------------------------------------------------------------------
@@ -119,13 +144,40 @@ class Count:
     least_bytes: float = 0.0
     argument_bytes: float = 0.0
     output_bytes: float = 0.0
+    temp: float = 0.0
     op_histogram: Dict[str, int] = dataclasses.field(default_factory=dict)
     kernels: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    collectives: spmd.CollectiveBytes = dataclasses.field(default_factory=spmd.CollectiveBytes)
+    collective_log: spmd.CollectiveLog = dataclasses.field(default_factory=spmd.CollectiveLog)
+    redistributions: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
     # per argument storage: its bytes, and the bytes read from and written
     # into it (each capped at its size for least_bytes)
     _size: Dict[Any, float] = dataclasses.field(default_factory=dict, repr=False)
     _read: Dict[Any, float] = dataclasses.field(default_factory=dict, repr=False)
     _written: Dict[Any, float] = dataclasses.field(default_factory=dict, repr=False)
+    # storages the step allocated and still holds: id -> (weak ref, bytes)
+    _live: Dict[int, Any] = dataclasses.field(default_factory=dict, repr=False)
+    _live_bytes: float = dataclasses.field(default=0.0, repr=False)
+    # the op whose inputs DTensor moves next
+    _cause: str = dataclasses.field(default="", repr=False)
+
+    def _allocated(self, t: torch.Tensor) -> None:
+        """Follow ``t``'s storage from now until it is freed, unless it is an
+        argument's or already followed."""
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._live or _storage(t) in self._size:
+            return
+        nbytes = float(st.nbytes())
+
+        def freed(_ref, key=key, nbytes=nbytes, rec=weakref.ref(self)):
+            owner = rec()
+            if owner is not None and owner._live.pop(key, None) is not None:
+                owner._live_bytes -= nbytes
+
+        self._live[key] = weakref.ref(st, freed)
+        self._live_bytes += nbytes
+        self.temp = max(self.temp, self._live_bytes)
 
     def _on_argument(self, t: torch.Tensor, read: float, written: float) -> None:
         key = _storage(t)
@@ -191,6 +243,20 @@ _SCATTERS = frozenset(("index_put_", "_index_put_impl_", "index_add_", "index_co
                        "scatter_", "scatter_add_", "scatter_reduce_"))
 
 
+@functools.lru_cache(maxsize=None)
+def _subclasses() -> Tuple[type, type]:
+    """DTensor and FakeTensor (imported on first use)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+
+    return DTensor, FakeTensor
+
+
+def _propagating() -> bool:
+    """True while DTensor's sharding propagation runs its fake tensors."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 class _Dispatch(TorchDispatchMode):
     def __init__(self, rec: Count):
         super().__init__()
@@ -198,11 +264,32 @@ class _Dispatch(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        dtensor, fake = _subclasses()
+        if _propagating() or any(issubclass(t, fake) for t in types):
+            return func(*args, **kwargs)
+        rec = self.rec
+        if any(issubclass(t, dtensor) for t in types):
+            # DTensor moves this op's inputs, then runs it on the local blocks
+            rec._cause = func._overloadpacket.__name__
+            return NotImplemented
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         name = packet.__name__
-        rec = self.rec
         rec.op_histogram[name] = rec.op_histogram.get(name, 0) + 1
+        kind = spmd.collective_kind(func)
+        if kind is not None:
+            nbytes = rec.collectives.add(kind, out)
+            if func.namespace != "c10d":  # DTensor's: a redistribution
+                moved = rec.redistributions.setdefault(rec._cause or "?",
+                                                       {"bytes": 0.0, "count": 0})
+                moved["bytes"] += nbytes
+                moved["count"] += 1
+            for t in _tensors(out):
+                rec._allocated(t)
+            return out
+        if not func.is_view:
+            for t in _tensors(out):
+                rec._allocated(t)
         if packet in flop_counter.flop_registry:
             flops = float(flop_counter.flop_registry[packet](*args, **kwargs, out_val=out))
             rec.flops += flops
@@ -231,7 +318,17 @@ class _Dispatch(TorchDispatchMode):
         return out
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank, or the tensor itself."""
+    return t._local_tensor if shd.is_dtensor(t) else t
+
+
 def _to_meta(x):
+    if shd.is_dtensor(x):
+        if x.device.type == "meta":
+            return x
+        return type(x).from_local(x.to_local().to("meta"), x.device_mesh, x.placements,
+                                  shape=x.shape, stride=x.stride())
     if isinstance(x, torch.Tensor) and x.device.type != "meta":
         return x.to("meta")
     return x
@@ -242,27 +339,43 @@ def _recording(rec: Count):
     global _COUNT
     prev, _COUNT = _COUNT, rec
     try:
-        with _Dispatch(rec):
+        with spmd.recording(rec.collective_log), _Dispatch(rec):
             yield rec
     finally:
         _COUNT = prev
 
 
+@contextlib.contextmanager
+def caused_by(name: str):
+    """Attribute to ``name`` the redistributions of the ``with`` body (an
+    explicit ``redistribute``, which no aten op causes)."""
+    rec = _COUNT
+    if rec is None:
+        yield
+        return
+    prev, rec._cause = rec._cause, name
+    try:
+        yield
+    finally:
+        rec._cause = prev
+
+
 def count(fn: Callable, *args, **kwargs) -> Count:
     """Run ``fn(*args, **kwargs)`` once on meta copies of its tensors (meta
-    tensors are taken as they are) and count what it dispatches.
-    ``least_bytes`` counts each argument's storage read at most once and
-    written at most once (as far as the step reads and writes it: a gather
-    reads the rows it returns) and each new output written once."""
+    tensors are taken as they are) and count what it dispatches, per device:
+    a DTensor argument is its block on this rank (see the module's
+    docstring).  ``least_bytes`` counts each argument's storage read at most
+    once and written at most once (as far as the step reads and writes it:
+    a gather reads the rows it returns) and each new output written once."""
     args, kwargs = tree_map(_to_meta, (args, kwargs))
-    arguments = _tensors((args, kwargs))
+    arguments = [_local(t) for t in _tensors((args, kwargs))]
     rec = Count(argument_bytes=sum(_nbytes(t) for t in arguments))
     for t in arguments:
         rec._size[_storage(t)] = float(t.untyped_storage().nbytes())
     with _recording(rec):
         out = fn(*args, **kwargs)
     fresh = {}
-    for t in _tensors(out):
+    for t in map(_local, _tensors(out)):
         rec.output_bytes += _nbytes(t)
         if _storage(t) not in rec._size:
             fresh[_storage(t)] = _nbytes(t)
@@ -285,6 +398,14 @@ def roofline_terms(
     *,
     model_flops: Optional[float] = None,
 ) -> Dict[str, float]:
+    """The compute, memory and collective terms of a step in seconds, the
+    dominant one and the bound (their largest).  ``flops``,
+    ``bytes_accessed`` and ``coll_bytes`` are the ``chips`` devices' sum, or
+    one device's with ``chips=1``.  The collective term takes the counted
+    collective result bytes at :data:`hw.LINK_BANDWIDTH`, one direction of
+    one H100's NVLink 4: a 16 x 16 mesh of H100s spans 32 nodes of 8, and
+    traffic between nodes runs on slower network links, so that term is a
+    lower bound."""
     compute_s = flops / (chips * hw.PEAK_BF16_FLOPS)
     memory_s = bytes_accessed / (chips * hw.HBM_BANDWIDTH)
     collective_s = coll_bytes / (chips * hw.LINK_BANDWIDTH)

@@ -11,4 +11,4 @@ PEAK_BF16_FLOPS = 989e12   # FLOP/s, bf16 (and fp16) on the tensor cores
 PEAK_TF32_FLOPS = 495e12   # FLOP/s, TF32 on the tensor cores
 PEAK_FP32_FLOPS = 67e12    # FLOP/s, float32 outside the tensor cores
 HBM_BANDWIDTH = 3.35e12    # bytes/s
-LINK_BANDWIDTH = 450e9     # bytes/s, NVLink 4 in one direction (unused on one card)
+LINK_BANDWIDTH = 450e9     # bytes/s, NVLink 4 in one direction (within a node of 8)

@@ -370,3 +370,44 @@ def test_pruned_matmul_column_slices_sum_to_whole(k, ranks):
             p[:, c0:c0 + w], q[:, c0:c0 + w],
             pruned_matmul.slice_ranks(r_u, c0, w), pruned_matmul.slice_ranks(r_i, c0, w))
     assert torch.equal(total, pruned_matmul.pruned_matmul_plain(p, q, r_u, r_i))
+
+
+# ---------------------------------------------------------------------------
+# the TPU kernel's tile layout: padding and work fractions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,n,k,t", [(300, 1000, 16, 0.05), (128, 256, 128, 0.0),
+                                     (77, 513, 40, 0.08)])
+@pytest.mark.parametrize("blocks", [{}, {"block_m": 32, "block_n": 64, "block_k": 16}])
+def test_tile_block_stats_match_reference(m, n, k, t, blocks):
+    p, q = _factors(m, n, k, seed=m + n)
+    r_u = j_effective_ranks(jnp.asarray(p), t)
+    r_i = j_effective_ranks(jnp.asarray(q), t)
+    want = jops.tile_block_stats(r_u, r_i, k, **blocks)
+    got = ops.tile_block_stats(torch.as_tensor(np.asarray(r_u).copy()),
+                               torch.as_tensor(np.asarray(r_i).copy()),
+                               k, **blocks)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert abs(float(g) - float(w)) <= 1e-6
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("n,k", [(1000, 16), (256, 128), (5, 130)])
+def test_pad_for_topk_kernel_bitwise(n, k, with_bias):
+    p, q = _factors(n + 3, n, k, seed=n)
+    rng = np.random.default_rng(k)
+    r_u = rng.integers(0, k + 1, n + 3).astype(np.int32)
+    r_i = rng.integers(0, k + 1, n).astype(np.int32)
+    bias = rng.normal(size=n).astype(np.float32) if with_bias else None
+    want = jops.pad_catalog_for_topk_kernel(jnp.asarray(q), jnp.asarray(r_i),
+                                            None if bias is None else jnp.asarray(bias))
+    got = ops.pad_catalog_for_topk_kernel(torch.as_tensor(q), torch.as_tensor(r_i),
+                                          None if bias is None else torch.as_tensor(bias))
+    want += jops.pad_users_for_topk_kernel(jnp.asarray(p), jnp.asarray(r_u))
+    got += ops.pad_users_for_topk_kernel(torch.as_tensor(p), torch.as_tensor(r_u))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)

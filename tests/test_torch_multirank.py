@@ -45,6 +45,7 @@ from repro.distributed import sharding as jsharding
 from repro_torch.checkpoint import checkpoint
 from repro_torch.core import mf
 from repro_torch.distributed import compression, sharding
+from repro_torch.kernels import scatter
 from repro_torch.optim.optimizers import RowOptimizer
 from repro_torch.testing.ranks import RankPool
 
@@ -521,8 +522,8 @@ def test_add_rows_in_passes_equals_sequential_index_add(rows, span):
     idx = torch.as_tensor(rng.integers(0, span, rows))
     upd = torch.as_tensor(rng.normal(size=(rows, 7)).astype(np.float32) * 1e3)
     want, got = table.clone(), table.clone()
-    mf._add_rows(want, idx, upd, in_passes=False)
-    mf._add_rows(got, idx, upd, in_passes=True)
+    scatter.add_rows(want, idx, upd)
+    scatter.add_rows_in_passes(got, idx, upd)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 

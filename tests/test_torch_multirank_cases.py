@@ -5,12 +5,14 @@
 full numpy tables, keeping this rank's blocks, and returning numpy results
 (assembled tables, so every rank returns the same thing).  Torch only: the
 spawned ranks never import jax."""
+import contextlib
+
 import numpy as np
 import torch
 
 from repro_torch.core import mf
 from repro_torch.distributed import compression, sharding, spmd
-from repro_torch.optim.optimizers import RowOptimizer
+from repro_torch.optim.optimizers import Adam, RowOptimizer
 
 
 def _np_tree(tree):
@@ -288,3 +290,108 @@ def moe_shard_map_case(ctx, shape, names, p, x, cot, cfg_fields):
                   for key, value in params["shared"].items()})
     return {"out": out.detach().cpu().numpy(), "aux": float(aux), "grads": grads,
             "x": xb.grad.cpu().numpy(), "data": d_i, "model": m_i}
+
+
+def small_cell(name):
+    """The cells that the sharded dry run's gloo check partitions: ``"lm"``,
+    a qwen3-4b-shaped train step at its smoke config (two layers, float32)
+    and a batch of 4 x 16; ``"dpmf"``, dpmf's ``train_1m`` at its smoke
+    config (the module's ``CONFIG`` is set, so call it on every rank)."""
+    from repro_torch import configs
+    from repro_torch.configs import base, dpmf
+
+    if name == "lm":
+        cfg = configs.get_smoke_config("qwen3-4b")
+        return base.lm_train_cell("qwen3-4b", "train", cfg, global_batch=4, seq_len=16)
+    dpmf.CONFIG = dpmf.smoke_config()
+    return configs.build_cell("dpmf", "train_1m")
+
+
+def small_cell_args(name, seed=0):
+    """Real arguments of :func:`small_cell`'s cell, made from ``seed`` on
+    the CPU (numpy-drawn ids; the same on every rank)."""
+    from repro_torch.configs import dpmf
+    from repro_torch.models import transformer
+
+    small_cell(name)
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    if name == "lm":
+        cfg = cell_cfg("lm")
+        params = transformer.init_params(gen, cfg, device="cpu")
+        opt = Adam().init(params)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 17)), dtype=torch.int32)
+        return (params, opt, {"tokens": tokens[:, :-1].contiguous(),
+                              "labels": tokens[:, 1:].contiguous()})
+    cfg = dpmf.CONFIG
+    params = mf.init_params(gen, cfg.num_users, cfg.num_items, cfg.k, device="cpu")
+    opt = mf.init_opt_state(params, RowOptimizer(name=cfg.optimizer))
+    b = 64
+    batch = {"user": torch.as_tensor(rng.integers(0, cfg.num_users, b), dtype=torch.int32),
+             "item": torch.as_tensor(rng.integers(0, cfg.num_items, b), dtype=torch.int32),
+             "rating": torch.as_tensor(rng.normal(3.0, 1.0, b), dtype=torch.float32)}
+    t = torch.tensor(0.02, dtype=torch.float32)
+    return params, opt, batch, t, t.clone()
+
+
+def cell_cfg(name):
+    from repro_torch import configs
+
+    return configs.get_smoke_config("qwen3-4b") if name == "lm" else None
+
+
+@contextlib.contextmanager
+def counting_collectives(rec):
+    """Add to ``rec`` (a ``spmd.CollectiveBytes``) every collective
+    dispatched in the ``with`` body on real values, by the count's rule
+    (``analysis.count`` runs on meta)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counting(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) and not issubclass(t, FakeTensor) for t in types):
+                return NotImplemented  # DTensor's own dispatch, then its local ops
+            out = func(*args, **(kwargs or {}))
+            kind = spmd.collective_kind(func)
+            if kind is not None and not any(issubclass(t, FakeTensor) for t in types):
+                rec.add(kind, out)
+            return out
+
+    with Counting():
+        yield rec
+
+
+def partitioned_step_case(ctx, shape, names, name, seed=0):
+    """:func:`small_cell`'s step partitioned on this pool's mesh as the dry
+    run partitions it (DTensors laid out by the cell's specs) on real
+    values: its output and its arguments after the step (written in place),
+    whole, as numpy, and its collectives by kind."""
+    from repro_torch.launch import dryrun
+
+    mesh = ctx.mesh(shape, names)
+    cell = small_cell(name)
+    step, args = dryrun.partitioned(cell, mesh, small_cell_args(name, seed))
+    rec = spmd.CollectiveBytes()
+    with counting_collectives(rec):
+        out = step(*args)
+    whole = sharding.tree_map_leaves(
+        lambda t: t.full_tensor().detach().cpu().numpy() if sharding.is_dtensor(t)
+        else (t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t), (out, args))
+    return whole, rec.record()
+
+
+def flat_gather_case(ctx):
+    """``spmd.all_gather`` over ("pod", "data") on a (2, 2, 1) mesh: one
+    collective on the flattened group, against the two nested ones it
+    replaces; the bytes it logs."""
+    mesh = ctx.mesh((2, 2, 1), ("pod", "data", "model"))
+    x = torch.arange(6, dtype=torch.float32).reshape(3, 2) + 10 * ctx.rank
+    nested = x
+    for axis in ("data", "pod"):
+        nested = torch.cat(spmd.gather_in_group(nested, mesh.get_group(axis)), dim=0)
+    log = spmd.CollectiveLog()
+    with spmd.recording(log):
+        flat = spmd.all_gather(x, mesh, ("pod", "data"), name="g")
+    return flat.numpy(), nested.numpy(), dict(log.bytes_sent), dict(log.calls)

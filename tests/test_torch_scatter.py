@@ -142,10 +142,10 @@ def test_train_step_bits_do_not_depend_on_the_scatter_route(monkeypatch, variant
 
 
 def test_add_rows_in_passes_through_the_shard_helper():
-    """``mf._add_rows`` keeps its ``keep`` filter on both routes."""
+    """The ``keep`` filter the sharded step passes holds on both routes."""
     table, idx, upd = _inputs(900, 25, 8, torch.float32, seed=4)
     keep = torch.as_tensor(np.random.default_rng(5).random(900) < 0.5)
     a, b = table.clone(), table.clone()
-    mf._add_rows(a, idx, upd, keep=keep)
-    mf._add_rows(b, idx, upd, keep=keep, in_passes=True)
+    scatter.add_rows(a, idx, upd, keep=keep)
+    scatter.add_rows_in_passes(b, idx, upd, keep=keep)
     assert torch.equal(a, b)
