@@ -236,7 +236,14 @@ script exits) it:
    (expert ids equal wherever the k-th and (k+1)-th probabilities differ by
    more than ``ROUTE_TIE_TOL``; near-ties counted) and the CPU's steps run
    through the card's routing; launches counted under ``cells``;
-23. prints a ``kernels`` JSON line (``launches`` summed over the counted
+23. examples and tools: the twins of ``examples/`` and ``tools/``
+   (``torch_quickstart``, ``torch_serve_recommendations``,
+   ``torch_train_at_scale``, ``torch_eval_on_stream``,
+   ``torch_implicit_stream``, ``torch_scale_smoke``, ``torch_chaos_smoke``),
+   each one's ``main`` on the card at the reference's defaults with its
+   gates, one line a twin (wall seconds, headline figures), within 150 s;
+   launches counted under ``examples``;
+24. prints a ``kernels`` JSON line (``launches`` summed over the counted
    paths, with ``launches_by_path``) and, last, the device JSON line.
 
 The store, checkpoint and spill files live in one temporary directory,
@@ -3994,9 +4001,10 @@ def recsys_phase(dev, sizes=None):
     check(launches["pruned_topk"] == chunks,
           f"pruned_topk launched once per {rs['max_batch']}-session chunk by serve_sessions "
           f"({launches['pruned_topk']} of {chunks})")
-    check(launches["add_rows"] == 4,
-          f"add_rows launched 4 times on the recsys path, by gather_rows' gradients: SASRec's "
-          f"seq, pos and neg, BST's seq ({launches['add_rows']})")
+    want_rows = 4 + dlrm_cfg.n_sparse
+    check(launches["add_rows"] == want_rows,
+          f"add_rows launched {want_rows} times on the recsys path, by gather_rows' gradients: "
+          f"SASRec's seq, pos and neg, BST's seq, DLRM's tables ({launches['add_rows']})")
 
     # -- what came out -------------------------------------------------------------
     finite = {name: bool(torch.isfinite(v).all()) for name, v in (
@@ -4397,7 +4405,8 @@ def _recsys_cells(dev, arch, cfg, sz, seed):
     _count_cells(launches)
     want_topk = 2 if arch == "sasrec" else 0
     want_matmul = 1 if arch in ("fm", "sasrec") else 0
-    want_rows = {"sasrec": 3, "bst": 1}.get(arch, 0)  # gather_rows' gradients in the train step
+    # gather_rows' gradients in the train step: FM's v and w, each DLRM table
+    want_rows = {"sasrec": 3, "bst": 1, "fm": 2}.get(arch, len(getattr(cfg, "vocab_sizes", ())))
     if dev.type == "cuda":
         check(launches["pruned_topk"] == want_topk and launches["pruned_matmul"] == want_matmul
               and launches["add_rows"] == want_rows,
@@ -5412,6 +5421,85 @@ def moe_cells_phase(dev, sizes=None):
     return _lm_phase(dev, MOE_ARCHS, sz, SEED + 400)
 
 
+# ---------------------------------------------------------------------------
+# examples and tools: the twins of examples/*.py and tools/*_smoke.py
+# ---------------------------------------------------------------------------
+
+# (path, arguments beyond --device, headline keys of its main's report)
+TWINS = (
+    ("examples/torch_quickstart.py", [], ("dense_mae", "pruned_mae", "work_speedup")),
+    ("examples/torch_serve_recommendations.py", [], ("sync_req_s", "async_req_s", "launches")),
+    ("examples/torch_train_at_scale.py", ["--ckpt", "{tmp}/train_at_scale_ckpt"],
+     ("params_m", "steps", "steps_s", "test_mae")),
+    ("examples/torch_eval_on_stream.py", [], ("prequential_mae", "events_s", "ndcg_gap")),
+    ("examples/torch_implicit_stream.py", [], ("hit_rate", "clicks_s", "ndcg_gap")),
+    ("tools/torch_scale_smoke.py", [], ("slabs", "eviction_rounds", "live_users")),
+    ("tools/torch_chaos_smoke.py", [], ("mttr_s", "heals", "version")),
+)
+EXAMPLES_BUDGET_S = 150.0
+
+
+def examples_phase(dev, tmp):
+    """examples and tools: each twin's ``main`` (every one but
+    ``torch_multiarch_dryrun``, a CPU dry run) on the card at the
+    reference's defaults, its printout kept in memory and shown only when
+    it fails; its gates (async results equal sync, the killed store run
+    resumes bitwise, eviction bounds residency, no request dropped, the
+    fleet converges bitwise) are its own assertions.  One line a twin: its
+    wall seconds and headline figures.  The launch counts are set to 0
+    before and read after (the chaos twin's replicas count in their own
+    processes); the phase must end within ``EXAMPLES_BUDGET_S``."""
+    import contextlib
+    import importlib.util
+    import io
+    import traceback
+
+    from repro_torch.device import device_name
+
+    log(f"## examples and tools: {len(TWINS)} twins on {device_name(dev)} at "
+        "the reference's defaults")
+    out = {}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    for path, extra, keys in TWINS:
+        name = os.path.basename(path)[:-3]
+        spec = importlib.util.spec_from_file_location(f"twin_{name}", ROOT / path)
+        module = importlib.util.module_from_spec(spec)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                spec.loader.exec_module(module)
+                report = module.main(["--device", dev.type] + [a.format(tmp=tmp) for a in extra])
+            error = None
+        except BaseException as exc:  # noqa: BLE001 -- a failed gate, reported at exit
+            report, error = {}, "".join(traceback.format_exception_only(type(exc), exc)).strip()
+            log(buf.getvalue()[-3000:])
+            log(traceback.format_exc()[-3000:])
+        wall = time.perf_counter() - t0
+        shown = ", ".join(f"{k} {report[k]:.4g}" if isinstance(report.get(k), float)
+                          else f"{k} {report.get(k)}" for k in keys)
+        log(f"  {name}: {wall:.1f} s; {shown}")
+        check(error is None and all(k in report for k in keys),
+              f"examples: {name} ran to its end with every gate met ({error or 'ok'})")
+        out[name] = dict({k: report.get(k) for k in keys}, wall_s=wall)
+    total = time.perf_counter() - t_phase
+    launches = {"pruned_topk": 0, "pruned_matmul": 0, "fused_mf_sgd": 0, "add_rows": 0}
+    from repro_torch.kernels import fused_mf_sgd, pruned_matmul, pruned_topk, scatter
+
+    for kernel, module in (("pruned_topk", pruned_topk), ("pruned_matmul", pruned_matmul),
+                           ("fused_mf_sgd", fused_mf_sgd), ("add_rows", scatter)):
+        launches[kernel] = module.launches
+    PATH_LAUNCHES["examples"] = launches
+    log(f"  launches on the examples' path (this process): {launches}")
+    check(launches["pruned_topk"] > 0 and launches["add_rows"] > 0,
+          "examples: the twins served through pruned_topk and trained through add_rows")
+    check(total <= EXAMPLES_BUDGET_S,
+          f"examples: the phase took {total:.1f} s of its {EXAMPLES_BUDGET_S:.0f} s budget")
+    out["total_s"] = total
+    return out
+
+
 def mf_grid_view(view):
     """A copy of an MF view with each table scaled to unit spread and rounded
     to the 1/8 grid in [-2, 2]: every product and sum of the scoring exact."""
@@ -5494,6 +5582,7 @@ def main() -> int:
         gnn_cells = phase("cells: gat-cora", gnn_cells_phase, dev)
         lm_cells = phase("cells: transformer", lm_cells_phase, dev)
         moe_cells = phase("cells: moe transformer", moe_cells_phase, dev)
+        examples = phase("examples and tools", examples_phase, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5551,6 +5640,7 @@ def main() -> int:
         "fleet_launchers": fleet_launchers,
         "multirank": {k: v for k, v in multirank.items() if k != "small"},
         "recsys": {k: v for k, v in recsys_stats.items() if k not in ("launches", "kernels")},
+        "examples": examples,
         "cells": {"dpmf::serve_top100": serve_cell, **cells, "gat-cora": gnn_cells, **lm_cells, **moe_cells,
                   "multirank": {mode: multirank["train"][mode]["step_ms"] for mode in ("none", "int8")}},
     }

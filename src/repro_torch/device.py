@@ -38,3 +38,10 @@ def check_on(device: torch.device, **tensors: Optional[torch.Tensor]) -> None:
             raise ValueError(
                 f"{name} lies on {t.device}, but the call runs on {device}"
             )
+
+
+def device_name(device: DeviceLike) -> str:
+    """What a report calls ``device``: the card's name
+    (``torch.cuda.get_device_name``) or "the CPU"."""
+    dev = resolve_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "the CPU"

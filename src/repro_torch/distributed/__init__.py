@@ -14,11 +14,25 @@ from repro_torch.distributed.compression import (  # noqa: F401
     init_error_feedback,
     quantize_int8,
 )
+from repro_torch.distributed.fault_tolerance import (  # noqa: F401
+    FailureInjector,
+    StepFailure,
+    StragglerDetector,
+    run_with_retries,
+)
 from repro_torch.distributed.sharding import (  # noqa: F401
+    all_axes,
     data_axes,
+    decode_state_spec_fn,
+    gnn_batch_shardings,
+    gnn_spec_fn,
+    lm_batch_shardings,
     mf_batch_shardings,
     mf_spec_fn,
     recsys_batch_shardings,
     recsys_spec_fn,
     route_batch_to_owner_shards,
+    transformer_param_shardings,
+    transformer_spec,
+    tree_shardings,
 )

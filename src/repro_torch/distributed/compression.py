@@ -13,9 +13,9 @@ reference's;
 :func:`compress_with_feedback` carries each quantizer's residual into the
 next transmission (EF-SGD); :func:`compressed_psum` sums quantized tensors
 over a process group on a common scale (the group's ``max`` of the local
-maxima), so the integer sum is exact.  Its payload crosses the links as
-int8 (an all-gather, summed locally in int32), a quarter of the bytes of
-the float32 all-reduce.
+maxima), so the integer sum is exact.  Over up to four ranks its payload
+crosses the links as int8 (an all-gather, summed locally in int32), over
+more as one int32 all-reduce, as the reference's does.
 
 **Lossless.** :func:`compress_array` byte-shuffles an
 array (viewed as ``(n_elems, itemsize)`` bytes and transposed, the blosc
@@ -153,16 +153,25 @@ def compress_with_feedback(grads: Any, residual: Any) -> Tuple[Any, Any]:
     return rebuild(recon), rebuild(resid)
 
 
+# above this many ranks the int8 gather moves more than one int32 all-reduce
+INT8_GATHER_MAX_RANKS = 4
+
+
 def psum_int8(q: torch.Tensor, group=None, *, name: str = "int8 payload") -> torch.Tensor:
     """The exact int32 sum of the int8 tensors ``q`` of every rank of
-    ``group``: the payloads are all-gathered as int8 (one byte an element
-    on the links) and summed locally."""
+    ``group``.  Up to :data:`INT8_GATHER_MAX_RANKS` ranks the payloads are
+    all-gathered as int8 (``n`` bytes an element in the result) and summed
+    locally; above, they are all-reduced as int32 (4 bytes an element), as
+    the reference does.  The integer sum is exact either way."""
     import torch.distributed as dist
 
     from repro_torch.distributed import spmd
 
-    if dist.get_world_size(group) == 1:
+    n = dist.get_world_size(group)
+    if n == 1:
         return q.to(torch.int32)
+    if n > INT8_GATHER_MAX_RANKS:
+        return spmd.reduce_in_group(q.to(torch.int32), group, name=name)
     return torch.stack(spmd.gather_in_group(q, group, name=name)).to(torch.int32).sum(dim=0)
 
 

@@ -12,13 +12,11 @@ those dim names, and the jax collectives map onto its dim groups:
 * ``jax.lax.pmax(x, axes)``   -> :func:`pmax` (``all_reduce(MAX)``)
 * ``jax.lax.all_gather(x, axes)`` -> :func:`all_gather`
 
-An axis tuple such as ``("pod", "data")`` is gathered in one collective on
-the group of the axes flattened (``DeviceMesh._flatten``), in the row-major
-(pod-major) order of ``shard_map``'s flattened axes, as XLA runs it; it is
-reduced one dim group at a time, innermost first (a sum over the flattened
-group would add in another order).  On (2, 2, 2) a psum over both data axes
-so moves two results of its input's size where XLA's one all-reduce moves
-one.
+An axis tuple such as ``("pod", "data")`` is gathered and reduced in one
+collective on the group of the axes flattened (``DeviceMesh._flatten``),
+in the row-major (pod-major) order of ``shard_map``'s flattened axes, as
+XLA runs it: one all-reduce of its input's size for a psum over both data
+axes on (2, 2, 2).
 
 The backend is the caller's choice, never a fallback: ``nccl`` with one rank
 per card (rank r on ``cuda:r``), ``gloo`` otherwise, including several ranks
@@ -293,12 +291,17 @@ def _flat_tensors(out) -> List[torch.Tensor]:
     return []
 
 
+def _spread(mesh, axes: Axes) -> List[str]:
+    """The axes of ``axes`` with more than one rank."""
+    names = axis_names(mesh)
+    return [a for a in _axes(axes) if mesh.size(names.index(a)) > 1]
+
+
 def _reduce(x: torch.Tensor, mesh, axes: Axes, op, name: Optional[str]) -> torch.Tensor:
     out = x.clone()
-    names = axis_names(mesh)
-    for axis in reversed(_axes(axes)):
-        if mesh.size(names.index(axis)) > 1:
-            reduce_in_group(out, mesh.get_group(axis), op, name=name)
+    spread = _spread(mesh, axes)
+    if spread:
+        reduce_in_group(out, flat_group(mesh, spread), op, name=name)
     return out
 
 
@@ -318,8 +321,7 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, *, dim: int = 0,
     row-major rank order (``jax.lax.all_gather(x, axes, tiled=True)``): one
     collective, on the axes' flattened group where more than one has ranks
     to gather (:func:`flat_group`)."""
-    names = axis_names(mesh)
-    spread = [a for a in _axes(axes) if mesh.size(names.index(a)) > 1]
+    spread = _spread(mesh, axes)
     if not spread:
         return x.contiguous()
     return torch.cat(gather_in_group(x, flat_group(mesh, spread), name=name), dim=dim)

@@ -14,7 +14,10 @@ module of the port knows of it.
 
 The rules, in ``_RULES``:
 
-* a hand-written kernel, and an op with no strategy (the segment max's
+* ``pruned_matmul`` runs on each rank's block of its second operand's
+  rows, its output split so (:func:`_by_columns`): XLA moves none of the
+  candidates' rows;
+* any other hand-written kernel, and an op with no strategy (the segment max's
   ``scatter_reduce``, the GAT's messages, the dense MoE layer), runs on
   the replicas of its inputs (:func:`_on_replicas`): each DTensor
   redistributed to ``Replicate``, as XLA runs a custom call it cannot
@@ -23,7 +26,8 @@ The rules, in ``_RULES``:
   back;
 * ``gather_rows`` gathers as XLA partitions a gather: each rank from its
   block of a table split by rows, the rows summed across those ranks,
-  else from the table's replica, the rows laid out as the indices;
+  else from the table's replica, the rows laid out as the indices (which
+  move as int32);
 * ``effective_ranks`` ranks each rank's block of rows, their factor dim
   whole, and DLRM's pairs above the diagonal are each rank's rows';
 * the decode step's cache write writes the position into the rank that
@@ -163,10 +167,12 @@ def _gather_rows(fn: Callable, table, idx, *, keep=None):
     split = [p == Shard(0) for p in table.placements]
     ids = [Replicate() if s else p for s, p in zip(split, idx.placements)]
     lay = [Shard(0) if s else Replicate() for s in split]
+    # indices move as int32 where the table's rows allow, as the reference's do
+    narrow = idx.to(torch.int32) if table.shape[0] < 2 ** 31 else idx
     with analysis.caused_by(fn.__name__):
         t = _to_local(table, lay, [Shard(0) if s else Partial() if p.is_shard() else Replicate()
                                    for s, p in zip(split, ids)])
-        at = idx.redistribute(mesh, ids).to_local().long()
+        at = narrow.redistribute(mesh, ids).to_local().long()
         if keep is not None:
             keep = _as_dtensor(keep, mesh).redistribute(mesh, ids).to_local()
     if any(split):
@@ -180,6 +186,30 @@ def _gather_rows(fn: Callable, table, idx, *, keep=None):
                        tuple(idx.shape) + tuple(table.shape[1:]))
     with analysis.caused_by(fn.__name__):
         return rows.redistribute(mesh, idx.placements)
+
+
+def _by_columns(fn: Callable, p, q, *args, **kwargs):
+    """``pruned_matmul(p, q, ...)`` on each rank's block of ``q``'s rows:
+    an output column is one row of ``q`` cut at its own rank, so the
+    product splits as ``q``'s rows do, as XLA partitions the reference's
+    ``einsum``; ``p``'s rows keep their split on the other mesh dims and
+    are whole on those.  The output comes back split so (its columns as
+    ``q``'s rows, its rows as ``p``'s), with no gather of ``q``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = _dtensors(p, q)[0].device_mesh
+    p, q = _as_dtensor(p, mesh), _as_dtensor(q, mesh)
+    cols = [Shard(0) if lay == Shard(0) else Replicate() for lay in q.placements]
+    rows = [Shard(0) if lay == Shard(0) and c != Shard(0) else Replicate()
+            for lay, c in zip(p.placements, cols)]
+    with analysis.caused_by(fn.__name__):
+        p_blk = p.redistribute(mesh, rows).to_local()
+        q_blk = q.redistribute(mesh, cols).to_local()
+        args, kwargs = tree_map(lambda x: x.full_tensor() if shd.is_dtensor(x) else x,
+                                (args, kwargs))
+    out = fn(p_blk, q_blk, *args, **kwargs)
+    return _from_local(out, mesh, [Shard(1) if c == Shard(0) else r for r, c in zip(rows, cols)],
+                       (p.shape[0], q.shape[0]))
 
 
 def _per_row(fn: Callable, rows, *args, **kwargs):
@@ -393,7 +423,7 @@ def _moe_ffn(fn: Callable, x, params, cfg, *, activation: str = "swiglu",
 
 # (module, name in it, rule)
 _RULES: Tuple[Tuple[str, str, Callable], ...] = (
-    ("repro_torch.kernels.ops", "pruned_matmul", _on_replicas),
+    ("repro_torch.kernels.ops", "pruned_matmul", _by_columns),
     ("repro_torch.kernels.ops", "pruned_topk", _on_replicas),
     ("repro_torch.kernels.ops", "fused_mf_sgd", _on_replicas),
     ("repro_torch.kernels.scatter", "add_rows", _on_replicas_in_place),

@@ -16,10 +16,11 @@ draws differ from ``jax.random``'s for the same seed.  With ``device="meta"``
 they allocate nothing and give the tree's shapes and dtypes (the cells'
 abstract arguments).
 
-The losses are differentiated by autograd.  SASRec's and BST's item
-embeddings are read through ``kernels.scatter.gather_rows``, whose gradient
-adds an item's repeats in batch order (one ``add_rows`` launch on the
-card), and ``embedding_bag`` sums through ``segment_sum``.  Nothing else
+The losses are differentiated by autograd.  Every table lookup (FM's
+``v`` and ``w``, DLRM's tables, SASRec's and BST's item embeddings) reads
+through ``kernels.scatter.gather_rows``, whose gradient adds an item's
+repeats in batch order (one ``add_rows`` launch a table on the card), and
+``embedding_bag`` sums through ``segment_sum``.  Nothing else
 runs a kernel (the reference takes ``jax.grad`` through the rank mask and
 its ``einsum``s), and attention is plain ``matmul`` and ``softmax`` with the reference's float32
 ``-1e30`` mask, so the masking and the arithmetic stay the reference's.
@@ -177,12 +178,12 @@ def fm_forward(params: Params, ids: torch.Tensor, cfg: FMConfig, t_v=0.0) -> tor
     masking each row by its own rank makes the sum-square identity compute
     exactly the paper's early-stopped sum."""
     flat = ids.long() + _offsets(cfg, ids)[None, :]
-    rows = _mask_by_rank(params["v"][flat.reshape(-1)], t_v)
+    rows = _mask_by_rank(gather_rows(params["v"], flat.reshape(-1)), t_v)
     rows = rows.reshape(ids.shape[0], cfg.n_fields, cfg.embed_dim)
     s = torch.sum(rows, dim=1)             # (B, k)
     ss = torch.sum(rows * rows, dim=1)     # (B, k)
     pairwise = 0.5 * torch.sum(s * s - ss, dim=-1)
-    linear = torch.sum(params["w"][flat.reshape(-1)].reshape(ids.shape), dim=1)
+    linear = torch.sum(gather_rows(params["w"], flat.reshape(-1)).reshape(ids.shape), dim=1)
     return (params["w0"] + linear + pairwise).float()
 
 
@@ -198,13 +199,13 @@ def _fm_context(params: Params, user_ids: torch.Tensor, cfg: FMConfig, t_v=0.0):
     offsets = _offsets(cfg, user_ids)
     n_ctx = user_ids.shape[1]
     flat_u = user_ids.long() + offsets[None, :n_ctx]
-    rows_u = _mask_by_rank(params["v"][flat_u.reshape(-1)], t_v).reshape(
+    rows_u = _mask_by_rank(gather_rows(params["v"], flat_u.reshape(-1)), t_v).reshape(
         user_ids.shape[0], n_ctx, cfg.embed_dim)
     s_u = torch.sum(rows_u, dim=1)  # (B, k)
     ss_u = torch.sum(rows_u * rows_u, dim=1)
     const_u = (
         0.5 * torch.sum(s_u * s_u - ss_u, dim=-1)
-        + torch.sum(params["w"][flat_u.reshape(-1)].reshape(user_ids.shape), dim=1)
+        + torch.sum(gather_rows(params["w"], flat_u.reshape(-1)).reshape(user_ids.shape), dim=1)
         + params["w0"]
     )
     return s_u, const_u
@@ -227,12 +228,12 @@ def fm_retrieval(
     s_u, const_u = _fm_context(params, user_ids, cfg, t_v)
     offsets = _offsets(cfg, user_ids)
     flat_c = cand_ids.long() + offsets[user_ids.shape[1]]
-    v_c = params["v"][flat_c]  # (C, k)
+    v_c = gather_rows(params["v"], flat_c)  # (C, k)
     if use_kernel:
         cross = kops.pruned_matmul(s_u, v_c, 0.0, t_v, device=s_u.device)
     else:
         cross = torch.matmul(s_u, _mask_by_rank(v_c, t_v).T)
-    w_c = params["w"][flat_c]
+    w_c = gather_rows(params["w"], flat_c)
     return (const_u[:, None] + cross + w_c[None, :]).float()
 
 
@@ -290,7 +291,8 @@ def dlrm_forward(
 ) -> torch.Tensor:
     d_vec = _run_mlp(dense_feats, params["bot"], final_act=True)  # (B, d)
     sparse_ids = sparse_ids.long()
-    emb = torch.stack([table[sparse_ids[:, idx]] for idx, table in enumerate(params["tables"])],
+    emb = torch.stack([gather_rows(table, sparse_ids[:, idx])
+                       for idx, table in enumerate(params["tables"])],
                       dim=1)  # (B, 26, d)
     # the paper's technique prunes the embedding rows' suffixes; the bottom
     # MLP's vector is not a factor-table row and stays dense

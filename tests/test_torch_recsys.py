@@ -422,8 +422,8 @@ def test_chip_smoke_recsys_phase_rehearses_on_the_cpu():
     assert chip_smoke.failures == [
         "pruned_matmul launched twice on the recsys path, by fm_retrieval and sasrec_retrieval (0)",
         "pruned_topk launched once per 16-session chunk by serve_sessions (0 of 3)",
-        "add_rows launched 4 times on the recsys path, by gather_rows' gradients: SASRec's seq, "
-        "pos and neg, BST's seq (0)"]
+        "add_rows launched 30 times on the recsys path, by gather_rows' gradients: SASRec's "
+        "seq, pos and neg, BST's seq, DLRM's tables (0)"]
     chip_smoke.failures.clear()
     assert chip_smoke.PATH_LAUNCHES["recsys"] == {"pruned_matmul": 0, "pruned_topk": 0,
                                                   "add_rows": 0}

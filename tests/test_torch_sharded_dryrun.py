@@ -8,9 +8,9 @@ fake process group (``launch.mesh.fake_mesh``) and counted per device
 * (b) dpmf's owner-compute cells against the reference's compiled program
   (``repro.launch.dryrun.run_cell(..., debug=True)`` in a subprocess with
   8 forced host devices): collective bytes and counts by kind, exactly,
-  with the differences the port's design makes written as formulas (a sum
-  over both data axes runs as two nested all-reduces; the int8 exchange
-  gathers int8 payloads where the reference all-reduces int32).
+  with the difference the port's design makes written as a formula (over
+  up to 4 "model" ranks the int8 exchange gathers int8 payloads where the
+  reference all-reduces int32; over 8 it all-reduces int32 too).
 * (c) The partitioned program against the unsharded step: a qwen3-shaped
   two-layer float32 train step and dpmf's ``train_1m`` at its smoke config
   run as DTensors with real values on 4 gloo ranks match the single-device
@@ -160,25 +160,21 @@ def reference_collectives():
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["2x2", "2x2x2"])
 def test_owner_compute_collectives_equal_the_reference(no_group, reference_collectives,
                                                        shape_id, multi_pod):
-    """Result bytes per device and calls by kind.  The port's differences,
-    by formula over the batch rows of a data shard ``b``, the width ``k``
-    and the mesh:
-
-    * a psum over both data axes (the metrics' three float32 sums) is two
-      nested all-reduces on (2, 2, 2): one more call and 12 more bytes;
-    * the int8 ``g_p`` exchange (``_smc``) gathers the ``n_model`` int8
-      payloads (``n_model b k`` result bytes, one all-gather) where the
-      reference all-reduces them as int32 (``4 b k`` bytes in an
-      all-reduce it counts anyway with the scale's max)."""
+    """Result bytes per device and calls by kind.  A psum over both data
+    axes is one all-reduce on their flattened group, as XLA's.  The one
+    difference, by formula over the batch rows of a data shard ``b``, the
+    width ``k`` and the mesh: the int8 ``g_p`` exchange (``_smc``) over
+    ``n_model`` <= 4 ranks gathers the int8 payloads (``n_model b k``
+    result bytes, one all-gather) where the reference all-reduces them as
+    int32 (``4 b k`` bytes in an all-reduce it counts anyway with the
+    scale's max); over more ranks the port all-reduces int32 too
+    (:func:`test_the_int8_sum_over_eight_ranks_is_an_int32_all_reduce`)."""
     want = dict(reference_collectives[f"{shape_id}/{multi_pod}"])
     record = dryrun.run_cell("dpmf", shape_id, multi_pod=multi_pod, debug=True)
     assert record["status"] == "ok" and record["partition"].startswith("blocks")
     got = record["collectives"]
     n_dp, n_model, k = (4 if multi_pod else 2), 2, 128
     b = 1_048_576 // n_dp
-    if multi_pod:
-        want["all-reduce_bytes"] += 3 * 4
-        want["all-reduce_count"] += 1
     if shape_id.endswith("c"):
         want["all-reduce_bytes"] -= 4 * b * k
         want["all-gather_bytes"] += n_model * b * k
@@ -189,6 +185,27 @@ def test_owner_compute_collectives_equal_the_reference(no_group, reference_colle
     assert sum(record["collective_names"]["calls"].values()) == sum(
         got[f"{kind}_count"] for kind in KINDS)
     assert record["memory"]["temp_size_bytes"] > 0
+
+
+@pytest.mark.parametrize("n_model", [4, 8])
+def test_the_int8_sum_over_eight_ranks_is_an_int32_all_reduce(no_group, n_model):
+    """``compressed_psum`` over ``n_model`` "model" ranks of the fake mesh:
+    up to 4 ranks one all-gather of the int8 payloads (``n_model`` bytes an
+    element), above one all-reduce of them as int32 (4 bytes an element),
+    beside the scale's one-float max."""
+    from repro_torch.distributed import compression
+
+    rows, k = 512, 128
+    with fake_mesh(LayoutMesh((1, n_model), ("data", "model"))) as mesh:
+        g = torch.empty(rows, k, device="meta")
+        c = analysis.count(compression.compressed_psum, g, mesh.get_group("model"))
+    got = c.collectives.record()
+    if n_model <= compression.INT8_GATHER_MAX_RANKS:
+        assert (got["all-gather_bytes"], got["all-gather_count"]) == (n_model * rows * k, 1)
+        assert (got["all-reduce_bytes"], got["all-reduce_count"]) == (4, 1)
+    else:
+        assert (got["all-gather_bytes"], got["all-gather_count"]) == (0, 0)
+        assert (got["all-reduce_bytes"], got["all-reduce_count"]) == (4 * rows * k + 4, 2)
 
 
 def test_the_index_gather_moves_int32(no_group):
@@ -212,7 +229,11 @@ def _numpy(t):
 
 
 @pytest.mark.parametrize("name", ["lm", "dpmf"])
-def test_the_partitioned_step_is_the_unsharded_step(no_group, ranks, name):
+def test_the_partitioned_step_is_the_unsharded_step(no_group, ranks, name, monkeypatch):
+    from repro_torch.configs import dpmf
+
+    # small_cell sets dpmf's CONFIG to its smoke config: restored after
+    monkeypatch.setattr(dpmf, "CONFIG", dpmf.CONFIG)
     shape, names = (2, 2), ("data", "model")
     got = ranks.run(cases.partitioned_step_case, shape, names, name)
     (out, args), collectives = got[0]

@@ -318,10 +318,23 @@ STORE_PARITY_CASES = {
 }
 
 
+# slab durations fed to both trainers' straggler detectors in place of the
+# wall clock: steady, then one outlier once the detector has its 10 samples
+SLAB_SECONDS = [10.0 if i == 11 else 0.1 + 0.001 * (i % 3) for i in range(64)]
+
+
+def _scripted_slab_times(trainer_obj):
+    """The trainer's ``StragglerDetector`` records :data:`SLAB_SECONDS` in
+    order, whatever each slab took."""
+    seconds, record = iter(SLAB_SECONDS), trainer_obj.straggler.record
+    trainer_obj.straggler.record = lambda _measured: record(next(seconds))
+
+
 @pytest.mark.parametrize("case", sorted(STORE_PARITY_CASES))
 def test_store_trainer_matches_the_reference_store_trainer(tmp_path, case):
     """The same store, initial factors and (Feistel) batch order: the
-    reference's store-mode trainer in scan mode against the port's."""
+    reference's store-mode trainer in scan mode against the port's, both
+    detectors fed the same scripted slab durations."""
     tr, te = jratings.train_test_split(jratings.synthetic_ratings(200, 150, 6000, seed=0),
                                        0.2, seed=0)
     store_dir = jstore.build_store(tr, str(tmp_path / "s"), shard_rows=1000)
@@ -329,8 +342,10 @@ def test_store_trainer_matches_the_reference_store_trainer(tmp_path, case):
               checkpoint_every_epochs=0, checkpoint_every_slabs=0, **STORE_PARITY_CASES[case])
     ref = jtrainer.DPMFTrainer(_store_cfg(jtrainer, store_dir, **kw), None, te)
     init = {k: _np(v) for k, v in ref.params._asdict().items()}
+    _scripted_slab_times(ref)
     want = ref.run()
     port = _port_trainer(_store_cfg(trainer, store_dir, **kw), init, _port_ds(te))
+    _scripted_slab_times(port)
     got = port.run()
     np.testing.assert_array_equal(port.perm.numpy(), np.asarray(ref.perm))
     assert _relclose(float(port.t_p), float(ref.t_p), 1e-6)
@@ -340,6 +355,7 @@ def test_store_trainer_matches_the_reference_store_trainer(tmp_path, case):
         for field in ("train_abs_err", "test_mae", "work_fraction"):
             assert _relclose(getattr(g, field), getattr(w, field), 1e-4), (g, w)
         assert (g.straggler_slabs, g.step_retries) == (w.straggler_slabs, w.step_retries)
+    assert sum(r.straggler_slabs for r in got) == 1
     assert got[0].work_fraction == 1.0 and got[2].work_fraction < 1.0
 
 
